@@ -7,19 +7,39 @@ Run from the root of the repository on a machine with a CUDA device.
 Each phase prints one line:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build of the CUDA kernels from mrt_torch/csrc;
+  2. build of the CUDA kernels from mrt_torch/csrc (one nvcc a source,
+     all started together), with ptxas's register report;
   3. kernel B1 (sphere nearest hit) against its plain PyTorch version on
      2^17 RTIOW camera and first-bounce rays x 484 spheres;
   4. kernel B2 (film segment-add) against its plain version, 2^17 lanes
-     into a 1920x1080x4 film;
+     into a 1920x1080x4 film, beside Tensor.index_add_;
   5. the rtiow_24 golden (tests/goldens) rendered through the port on
      the card, by the wavefront and the persistent integrator;
-  6. the main path: one render_pass_persistent of RTIOW at 1920x1080,
+  6. the RTIOW main path: one render_pass_persistent of RTIOW at
+     1920x1080, depth 50, spp 2, pool 2^17, with the kernels' launch
+     counts;
+  7. kernel B5 (sphere-BVH closest hit) against its plain version on
+     2^17 sphere_grid camera and first-bounce rays x 10,000 spheres;
+  8. kernel B7 (two-level TLAS closest hit) against its plain version on
+     2^17 cornell camera and first-bounce rays, and on rays through an
+     8,000-instance TLAS whose tables (1.2 MB) are past the TPU kernel's
+     448 KB (B8's regime);
+  9. the cornell_24 golden through both integrators on the card;
+ 10. the slice's main path: one render_pass_persistent of sphere_grid
+     (10,000 spheres under a BVH, an instanced ground cube) at 1920x1080,
      depth 50, spp 2, pool 2^17, with the kernels' launch counts.
 
-Then a JSON line with each kernel's numbers, and as the last line
-``{"ok": true, "device": {...}}``.  Any failure raises and exits
-non-zero; so does a machine without CUDA.  Imports no JAX.
+Each main path runs with every launch count set to 0 just before it and
+read just after.  Then a JSON line with each kernel's numbers, and as
+the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
+exits non-zero; so does a machine without CUDA.  Imports no JAX.
+
+Bounds (``bound_ms``): the larger of the bytes the function must move
+(each input read once, each output written once) over 3.35 TB/s and its
+FP32 operations over 67 TFLOP/s, the H100 SXM's published peaks at
+700 W.  For B5 and B7 the operations are counted from this run's data:
+node visits and leaf primitive tests per ray, counted by the plain
+traversal on the same rays, times the operations of one visit or test.
 """
 
 from __future__ import annotations
@@ -34,9 +54,22 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "tests", "goldens", "rtiow_24.npz")
+GOLDENS = os.path.join(ROOT, "tests", "goldens")
 RAYS = 1 << 17
 WIDTH, HEIGHT = 1920, 1080
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations of one step of the kernels' loops (their source,
+# mrt_torch/csrc/*.cu, counted by hand; a min/max or compare counts 1):
+OPS_SPHERE_PAIR = 20   # B1: one ray-sphere pair, expanded form
+OPS_NODE = 26          # B5/B7: one slab test and advance
+OPS_SPHERE_TEST = 32   # B5: one leaf sphere
+OPS_TRI_TEST = 58      # B7: one Möller–Trumbore test
+OPS_ENTER = 36         # B7: warp a ray into an instance
+# Rays through the 8,000-instance TLAS: its plain traversal takes
+# ~1 ms a wavefront step, so it gets fewer rays than the main path.
+B8_RAYS = 1 << 14
+B8_INSTANCES = 8000
 
 
 def check(ok, msg):
@@ -97,29 +130,33 @@ def card_line():
     return out[0]
 
 
-def b1_rays(dev):
-    """2^17 main-path rays: 2^16 camera rays spread over the 1080p frame
-    and 2^16 first-bounce rays (hit point, scattered direction), the
-    latter from the plain intersection."""
-    from mrt_torch.geometry.spheres import make_hits
+def bound(bytes_moved, ops):
+    """(bound_ms, bound_by): the least time for the bytes and the FP32
+    operations at the card's published peaks."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    if by_bytes >= by_ops:
+        return dict(bound_ms=by_bytes, bound_by="bytes")
+    return dict(bound_ms=by_ops, bound_by="operations")
+
+
+def path_rays(name, dev):
+    """The scene `name` and RAYS of its main-path rays at 1080p: RAYS/2
+    camera rays spread over the frame (spp 2) and RAYS/2 first-bounce
+    rays (hit point, scattered direction; unscattered rays keep their
+    camera ray)."""
     from mrt_torch.integrator.persistent import LanePool
     from mrt_torch.materials import shade
     from mrt_torch.math.rng import Sampler
-    from mrt_torch.ops.spheres import nearest_t_plain
     from mrt_torch.scenes import get
 
-    scene, camera = get("rtiow")().generate()
-    scene, camera = scene.to(dev), camera.to(dev)
+    scene, camera = get(name)().generate(device=dev)
     lanes = LanePool(scene, camera, WIDTH, HEIGHT, 1, 0, 2, 50)
     items = (torch.arange(RAYS, device=dev) * 7919) % lanes.total
     o, d, ray_id = lanes.make_rays(items)
     half = RAYS // 2
     ob, db, rb = o[half:], d[half:], ray_id[half:]
-    sph = scene.spheres
-    t, i = nearest_t_plain(sph.center, sph.radius, ob, db,
-                           torch.full((half,), 1e-3, device=dev),
-                           torch.full((half,), float("inf"), device=dev))
-    hits = make_hits(sph, ob, db, t, i)
+    hits = scene.intersect(ob, db)
     _, _, new_dir, scat = shade.shade_hit(scene, hits, db, Sampler(1, rb, 0),
                                           Sampler(1, rb, 1))
     keep = scat[:, None]
@@ -132,7 +169,7 @@ def phase_b1(dev):
     from mrt_torch.ops import _build
     from mrt_torch.ops import spheres as B1
 
-    scene, o, d = b1_rays(dev)
+    scene, o, d = path_rays("rtiow", dev)
     c, r = scene.spheres.center, scene.spheres.radius
     check(c.shape == (484, 3), f"RTIOW has {c.shape[0]} spheres, not 484")
     t_min = torch.full((RAYS,), 1e-3, device=dev)
@@ -163,7 +200,9 @@ def phase_b1(dev):
            f"device time a call (CUDA graph): kernel {ms:.4f} ms, plain "
            f"{plain_ms:.4f} ms; call time (CUDA events): wrapper "
            f"{call_ms(wrapper, 50):.4f} ms, plain {call_ms(plain, 5):.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    pairs = RAYS * c.shape[0]
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(RAYS * 40 + c.shape[0] * 16, pairs * OPS_SPHERE_PAIR))
 
 
 def b2_lanes(dev):
@@ -195,23 +234,38 @@ def phase_b2(dev):
     film = torch.zeros(shape, device=dev)
     kernel = lambda: B2.deposit(film, idx, vals)
     plain = lambda: B2.deposit_plain(film, idx, vals)
+    # The library call: one index_add_ of the lanes that land in the
+    # film (the dropped ones masked to exact zeros beforehand).
+    keep = (idx >= 0) & (idx < shape[0])
+    rows = torch.where(keep, idx, 0).to(torch.int64)
+    v = torch.where(keep[:, None], vals, 0.0)
+    library = lambda: film.index_add_(0, rows, v)
     ms, plain_ms = graph_ms(kernel, 50), graph_ms(plain, 20)
+    library_ms = graph_ms(library, 20)
+    # Bytes: lane indices and values read once, each touched film row
+    # read and written once.
+    touched = int(torch.unique(idx[keep]).numel())
+    moved = RAYS * (4 + 16) + touched * 16 * 2
     log(4, f"B2 {RAYS} lanes into {shape}: max abs err {err:.3g} "
            f"(max {scale:.3g}), depth column exact; device time a call "
-           f"(CUDA graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; call "
-           f"time (CUDA events): wrapper {call_ms(kernel, 50):.4f} ms, "
-           f"plain {call_ms(plain, 20):.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+           f"(CUDA graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+           f"index_add_ {library_ms:.4f} ms; call time (CUDA events): "
+           f"wrapper {call_ms(kernel, 50):.4f} ms, plain "
+           f"{call_ms(plain, 20):.4f} ms; {touched} film rows touched")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, **bound(moved, RAYS * 4))
 
 
-def phase_golden(dev):
+def phase_golden(phase, name, dev, **kw):
+    """The <name>_24 golden (24x24, spp 8, depth 6, seed 5) through both
+    integrators on the card: at most 1% of pixels with another bounce
+    count, every other pixel within 5e-4."""
     from mrt_torch.runtime.film import Film
     from mrt_torch.runtime.render import render, render_pass_persistent
     from mrt_torch.scenes import get
 
-    gold = np.load(GOLDEN)
-    scene, camera = get("rtiow")(aspect_ratio=1.0, grid=5).generate()
-    scene, camera = scene.to(dev), camera.to(dev)
+    gold = np.load(os.path.join(GOLDENS, f"{name}_24.npz"))
+    scene, camera = get(name)(aspect_ratio=1.0, **kw).generate(device=dev)
     films = {
         "wavefront": render(scene, camera, 24, 24, spp=8, max_depth=6,
                             seed=5),
@@ -220,42 +274,56 @@ def phase_golden(dev):
             height=24, max_depth=6, samples=8, pool=1024),
     }
     parts = []
-    for name, film in films.items():
+    for kind, film in films.items():
         s = film.sum.cpu().numpy()
         depth = film.depth_sum.cpu().numpy()
         flipped = depth != gold["depth"]
-        check(flipped.mean() <= 0.01, f"{name}: {flipped.sum()} flipped")
+        check(flipped.mean() <= 0.01, f"{kind}: {flipped.sum()} flipped")
         keep = ~flipped
         np.testing.assert_allclose(s[keep], gold["sum"][keep], rtol=5e-4,
-                                   atol=5e-4, err_msg=name)
+                                   atol=5e-4, err_msg=kind)
         bad = ~np.isclose(s, gold["sum"], rtol=1e-4, atol=1e-4).all(-1)
-        parts.append(f"{name} {flipped.sum()} px with another depth, "
+        parts.append(f"{kind} {flipped.sum()} px with another depth, "
                      f"{bad.sum()} px outside 1e-4")
-    log(5, "rtiow_24 golden on the card: " + "; ".join(parts)
+    log(phase, f"{name}_24 golden on the card: " + "; ".join(parts)
         + " (of 576; allowed: <= 1% depth, others within 5e-4)")
 
 
-def phase_main(dev):
-    from mrt_torch.ops import deposit as B2
-    from mrt_torch.ops import spheres as B1
+def reset_launches():
+    from mrt_torch.ops import bvh, deposit, spheres
+
+    for fn in (spheres.nearest_t, deposit.deposit, bvh.sphere_bvh_hit,
+               bvh.tlas_hit):
+        fn.launches = 0
+
+
+def read_launches():
+    from mrt_torch.ops import bvh, deposit, spheres
+
+    return {"B1": spheres.nearest_t.launches, "B2": deposit.deposit.launches,
+            "B5": bvh.sphere_bvh_hit.launches, "B7": bvh.tlas_hit.launches}
+
+
+def phase_main(phase, name, dev, kernels):
+    """One render_pass_persistent of scene `name` at 1080p, depth 50,
+    spp 2, pool 2^17, launch counts set to 0 just before; each kernel in
+    `kernels` must have launched."""
     from mrt_torch.runtime.film import Film
     from mrt_torch.runtime.render import render_pass_persistent
     from mrt_torch.scenes import get
 
-    scene, camera = get("rtiow")().generate()
-    scene, camera = scene.to(dev), camera.to(dev)
+    scene, camera = get(name)().generate(device=dev)
     film = Film.create(WIDTH, HEIGHT, device=dev)
     torch.cuda.synchronize()
-    B1.nearest_t.launches = 0
-    B2.deposit.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     film = render_pass_persistent(scene, camera, film, 1, 0, width=WIDTH,
                                   height=HEIGHT, max_depth=50, samples=2,
                                   pool=RAYS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"B1": B1.nearest_t.launches, "B2": B2.deposit.launches}
-    check(all(n > 0 for n in launches.values()),
+    launches = read_launches()
+    check(all(launches[k] > 0 for k in kernels),
           f"a kernel of the path never launched: {launches}")
     check(film.sum.shape == (HEIGHT, WIDTH, 3) and film.samples == 2,
           f"film shape {tuple(film.sum.shape)}, samples {film.samples}")
@@ -263,13 +331,160 @@ def phase_main(dev):
     depth_sum = int(film.depth_sum.sum())
     check(depth_sum > 0, "no bounce was counted")
     mean = film.mean().mean().item()
-    check(0.05 < mean < 2.0, f"implausible mean radiance {mean}")
+    check(0.01 < mean < 2.0, f"implausible mean radiance {mean}")
     rays = WIDTH * HEIGHT * 2
-    log(6, f"main path: RTIOW {WIDTH}x{HEIGHT} depth 50 spp 2 pool {RAYS}: "
-           f"{seconds:.3f} s, {rays / seconds:.1f} camera rays/s, "
-           f"bounces {depth_sum} ({depth_sum / rays:.3f} per camera ray), "
-           f"mean radiance {mean:.4f}, launches {launches}")
+    log(phase, f"main path: {name} {WIDTH}x{HEIGHT} depth 50 spp 2 pool "
+               f"{RAYS}: {seconds:.3f} s, {rays / seconds:.1f} camera rays/s, "
+               f"bounces {depth_sum} ({depth_sum / rays:.3f} per camera ray), "
+               f"mean radiance {mean:.4f}, launches {launches}")
     return launches
+
+
+def phase_b5(dev):
+    from mrt_torch.geometry.bvh import kernel_spheres
+    from mrt_torch.ops import _build
+    from mrt_torch.ops import bvh as K
+
+    scene, o, d = path_rays("sphere_grid", dev)
+    tree = scene.sphere_bvh
+    sph = kernel_spheres(scene.spheres)
+    check(sph.shape == (10_000, 4) and tree.n_nodes == 1023,
+          f"sphere_grid: {sph.shape[0]} spheres, {tree.n_nodes} nodes")
+    lo = torch.full((RAYS,), 1e-3, device=dev)
+    hi = torch.full((RAYS,), float("inf"), device=dev)
+    t_k, i_k = K.sphere_bvh_hit(tree.nodes, tree.meta, sph, o, d, lo, hi)
+    counts = {}
+    t_p, i_p = K.sphere_bvh_plain(tree.nodes, tree.meta, sph, o, d, lo, hi,
+                                  counts=counts)
+    torch.cuda.synchronize()
+    err, rel, agree = compare_hits("B5", t_k, i_k, t_p, i_p)
+    t_out, i_out = torch.empty_like(t_k), torch.empty_like(i_k)
+    kernel = lambda: _build.launch("mrt_sphere_bvh", dev, tree.nodes,
+                                   tree.meta, tree.n_nodes, sph, sph.shape[0],
+                                   o, d, lo, hi, RAYS, t_out, i_out)
+    plain = lambda: K.sphere_bvh_plain(tree.nodes, tree.meta, sph, o, d, lo,
+                                       hi)
+    ms, plain_ms = graph_ms(kernel, 20), call_ms(plain, 2)
+    visits, tests = counts["nodes"] / RAYS, counts["prims"] / RAYS
+    ops = counts["nodes"] * OPS_NODE + counts["prims"] * OPS_SPHERE_TEST
+    moved = RAYS * 40 + tree.n_nodes * 48 + sph.shape[0] * 16
+    log(7, f"B5 {RAYS} rays x 10000 spheres, 1023 nodes: index agreement "
+           f"{agree:.6f}, hit share {torch.isfinite(t_p).float().mean():.4f}, "
+           f"max |dt| {err:.3g} (rel {rel:.3g}); per ray {visits:.2f} node "
+           f"visits, {tests:.2f} sphere tests; device time a call: kernel "
+           f"{ms:.4f} ms (CUDA graph), plain {plain_ms:.2f} ms (CUDA events: "
+           f"it syncs on its loop)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                visits_per_ray=visits, tests_per_ray=tests,
+                **bound(moved, ops))
+
+
+def compare_hits(name, t_k, i_k, t_p, i_p, uv=()):
+    """Index (or (instance, triangle)) agreement >= 99.9%, t within
+    rtol 1e-5 and u, v within 1e-5 on lanes that agree.  Returns (max
+    |dt|, max rel dt, agreement)."""
+    same = i_k == i_p
+    agree = same.float().mean().item()
+    check(agree >= 0.999, f"{name} index agreement {agree}")
+    fin = torch.isfinite(t_p) & same
+    check(torch.equal(torch.isfinite(t_k) & same, fin),
+          f"{name} hit/miss differs on lanes with equal indices")
+    if not fin.any():
+        return 0.0, 0.0, agree
+    rel = ((t_k[fin] - t_p[fin]).abs() / t_p[fin].abs()).max().item()
+    check(rel <= 1e-5, f"{name} t rel err {rel}")
+    for a, b in uv:
+        e = (a[fin] - b[fin]).abs().max().item()
+        check(e <= 1e-5, f"{name} u/v err {e}")
+    return (t_k[fin] - t_p[fin]).abs().max().item(), rel, agree
+
+
+def many_instances(n_inst, dev, seed=0):
+    """tests/test_stream.py's registry (cubes and coarse sphere meshes at
+    random transforms) with n_inst instances."""
+    from mrt_torch.geometry.instance import MeshRegistry
+    from mrt_torch.geometry.shapes import cube, sphere_mesh
+
+    rng = np.random.default_rng(seed)
+    reg = MeshRegistry()
+    m_cube = reg.add_mesh(cube(size=1.0))
+    m_sphere = reg.add_mesh(sphere_mesh(radius=0.6, lat=5, lon=7))
+    for i in range(n_inst):
+        reg.add_instance(m_cube if i % 2 else m_sphere,
+                         translation=rng.uniform(-6, 6, 3),
+                         rotation=rng.uniform(0, 1, 3),
+                         scale=rng.uniform(0.4, 1.8),
+                         material=int(rng.integers(0, 5)))
+    return reg.build().to(dev)
+
+
+def tlas_bytes(tl):
+    return sum(getattr(tl, k).numel() * 4 for k in
+               ("tnodes", "tmeta", "inst", "imeta", "bnodes", "bmeta",
+                "tris"))
+
+
+def b7_case(tl, o, d, dev):
+    """Kernel against plain on one TLAS; returns the kernel's entry."""
+    from mrt_torch.ops import _build
+    from mrt_torch.ops import bvh as K
+
+    n = o.shape[0]
+    lo = torch.full((n,), 1e-3, device=dev)
+    hi = torch.full((n,), float("inf"), device=dev)
+    k = K.tlas_hit(tl, o, d, lo, hi)
+    counts = {}
+    p = K.tlas_plain(tl, o, d, lo, hi, counts=counts)
+    torch.cuda.synchronize()
+    # One id for (instance, triangle): agreement of the pair.
+    pair = lambda w: w[1].to(torch.int64) * (1 << 31) + w[2]
+    err, rel, agree = compare_hits("B7", k[0], pair(k), p[0], pair(p),
+                                   uv=((k[3], p[3]), (k[4], p[4])))
+    outs = [torch.empty_like(x) for x in k]
+    kernel = lambda: _build.launch(
+        "mrt_tlas", dev, tl.tnodes, tl.tmeta, tl.tnodes.shape[0], tl.inst,
+        tl.imeta, tl.bnodes, tl.bmeta, tl.tris, tl.tris.shape[0], o, d, lo,
+        hi, n, *outs)
+    ms = graph_ms(kernel, 20)
+    plain_ms = call_ms(lambda: K.tlas_plain(tl, o, d, lo, hi), 1)
+    ops = ((counts.get("tlas_nodes", 0) + counts.get("blas_nodes", 0))
+           * OPS_NODE + counts.get("enters", 0) * OPS_ENTER
+           + counts.get("prims", 0) * OPS_TRI_TEST)
+    per_ray = {k: v / n for k, v in counts.items()}
+    return dict(max_abs_err=err, rel=rel, agree=agree, ms=ms,
+                plain_ms=plain_ms, per_ray=per_ray,
+                hit_share=torch.isfinite(p[0]).float().mean().item(),
+                **bound(n * 52 + tlas_bytes(tl), ops))
+
+
+def phase_b7(dev):
+    scene, o, d = path_rays("cornell", dev)
+    main = b7_case(scene.tlas, o, d, dev)
+    tl = many_instances(B8_INSTANCES, dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    ob = torch.rand((B8_RAYS, 3), device=dev, generator=g) * 20 - 10
+    db = torch.randn((B8_RAYS, 3), device=dev, generator=g)
+    big = b7_case(tl, ob, db, dev)
+    nbytes = tlas_bytes(tl)
+    check(nbytes > 448 * 1024, f"B8 tables only {nbytes} bytes")
+    for what, r, rays, tb in (("cornell", main, RAYS, tlas_bytes(scene.tlas)),
+                              (f"{B8_INSTANCES} instances", big, B8_RAYS,
+                               nbytes)):
+        visits = ", ".join(f"{v:.2f} {k}" for k, v in r["per_ray"].items())
+        log(8, f"B7 {rays} rays, {what} ({tb} B of tables): (instance, "
+               f"triangle) agreement {r['agree']:.6f}, hit share "
+               f"{r['hit_share']:.4f}, max |dt| {r['max_abs_err']:.3g} (rel "
+               f"{r['rel']:.3g}); per ray {visits}; device time a call: "
+               f"kernel {r['ms']:.4f} ms (CUDA graph), plain "
+               f"{r['plain_ms']:.2f} ms (CUDA events)")
+    entry = {k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by")}
+    entry["b8_regime"] = dict(rays=B8_RAYS, instances=B8_INSTANCES,
+                              table_bytes=nbytes,
+                              **{k: big[k] for k in (
+                                  "max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "agree")})
+    return dict(entry, library_ms=None)
 
 
 def main():
@@ -277,30 +492,44 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from mrt_torch.ops import _build  # fails outside a checkout of the repo
+
     dev = torch.device("cuda", 0)
     log(1, f"card: {card_line()}")
-
-    from mrt_torch.ops import _build
-
     t0 = time.perf_counter()
     _build.library()
     log(2, f"kernels built with nvcc and loaded in "
            f"{time.perf_counter() - t0:.2f} s: {_build.library_path().name}")
+    for line in _build.build_report.splitlines():
+        if "registers" in line or "spill" in line:
+            log(2, line.strip())
 
     b1 = phase_b1(dev)
     b2 = phase_b2(dev)
-    phase_golden(dev)
-    launches = phase_main(dev)
+    phase_golden(5, "rtiow", dev, grid=5)
+    rtiow = phase_main(6, "rtiow", dev, ("B1", "B2"))
+    b5 = phase_b5(dev)
+    b7 = phase_b7(dev)
+    phase_golden(9, "cornell", dev)
+    grid = phase_main(10, "sphere_grid", dev, ("B2", "B5", "B7"))
 
     kernels = [
         dict(name="B1 sphere nearest hit", route="cuda",
              source="mrt_torch/csrc/spheres.cu",
              replaces="mrt/ops/pallas_spheres.py:43",
-             launches=launches["B1"], **b1),
+             launches=rtiow["B1"], **b1),
         dict(name="B2 film segment-add", route="cuda",
              source="mrt_torch/csrc/deposit.cu",
              replaces="mrt/ops/pallas_onehot.py:51",
-             launches=launches["B2"], **b2),
+             launches=grid["B2"], launches_rtiow=rtiow["B2"], **b2),
+        dict(name="B5 sphere-BVH closest hit", route="cuda",
+             source="mrt_torch/csrc/bvh.cu",
+             replaces="mrt/ops/pallas_bvh.py:79",
+             launches=grid["B5"], **b5),
+        dict(name="B7 two-level TLAS closest hit (B8 folded in)",
+             route="cuda", source="mrt_torch/csrc/bvh.cu",
+             replaces="mrt/ops/pallas_bvh.py:523",
+             launches=grid["B7"], **b7),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,19 +5,22 @@ The package mirrors ``mrt``'s layout and names; ``mrt`` (JAX) is the
 reference it is tested against.  Nothing here imports JAX or ``mrt``.
 
 Layout:
-    mrt_torch.math        counter-based RNG, vector math, sampling
-    mrt_torch.core        camera
-    mrt_torch.geometry    hit records, spheres, the scene
+    mrt_torch.math        counter-based RNG, vector math, sampling, m4
+    mrt_torch.core        camera, the entry points' default device
+    mrt_torch.geometry    hit records, spheres, triangles, BVHs,
+                          instances (TLAS), the scene and its builder
     mrt_torch.materials   material table, shading, backgrounds
-    mrt_torch.scenes      scene registry (RTIOW)
+    mrt_torch.scenes      scene registry (rtiow, cornell, sphere_grid)
     mrt_torch.integrator  wavefront and persistent integrators
     mrt_torch.runtime     film, render driver
     mrt_torch.ops         kernel wrappers and their plain versions
     mrt_torch.csrc        CUDA sources, built with nvcc at first use
     mrt_torch.convert     numpy parameters -> port modules
+    mrt_torch.profile     step profile of one pass on the card
 
 Scene, materials and camera are ``nn.Module``s holding buffers, so
-``.to(device)`` moves them.  Every random number is the counter-based
+``.to(device)`` moves them.  Scene factories and ``Film.create`` build
+on the CUDA card unless given ``device="cpu"``.  Every random number is the counter-based
 PCG4D of ``mrt_torch.math.rng``; there is no global RNG state.
 """
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 
 from .core.camera import Camera
+from .geometry.bvh import FlatBVH
+from .geometry.instance import TLAS
 from .geometry.scene import Scene
 from .geometry.spheres import Spheres
 from .materials.background import SkyBackground, SolidBackground
@@ -17,12 +19,17 @@ from .materials.table import MaterialTable
 
 
 def scene_from_numpy(spheres, materials, *, has_mix, background=None,
-                     mix_depth=None):
+                     mix_depth=None, sphere_bvh=None, tlas=None):
     """spheres: mapping with "center" (S,3), "radius" (S,), "material"
     (S,); materials: mapping with the MaterialTable.FIELDS arrays;
     background: None for the sky gradient, else an RGB color for a
     solid background; mix_depth: the table's Mix nesting depth (None:
-    MAX_MIX_DEPTH)."""
+    MAX_MIX_DEPTH); sphere_bvh: None, or a mapping with the FlatBVH
+    arrays "bmin", "bmax", "first", "count", "escape" over the spheres
+    as given; tlas: None, or a mapping of the TLAS's leaves
+    (``TLAS.from_numpy``; the world-flattened fields are ignored).
+
+    The scene is built on the CPU; ``.to(device)`` moves it."""
     table_kw = {k: np.asarray(materials[k]) for k in MaterialTable.FIELDS}
     if mix_depth is not None:
         table_kw["mix_depth"] = mix_depth
@@ -32,8 +39,13 @@ def scene_from_numpy(spheres, materials, *, has_mix, background=None,
                         for k in ("center", "radius", "material")))
     bg = (SkyBackground.create() if background is None
           else SolidBackground.create(np.asarray(background, np.float32)))
+    bvh = None
+    if sphere_bvh is not None:
+        bvh = FlatBVH.create(*(np.asarray(sphere_bvh[k]) for k in
+                               ("bmin", "bmax", "first", "count", "escape")))
     return Scene(materials=MaterialTable(**table_kw), background=bg,
-                 spheres=sph, has_mix=has_mix)
+                 spheres=sph, has_mix=has_mix, sphere_bvh=bvh,
+                 tlas=None if tlas is None else TLAS.from_numpy(tlas))
 
 
 def camera_from_numpy(origin, lower_left, horizontal, vertical, u, v,

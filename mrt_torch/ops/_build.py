@@ -1,11 +1,13 @@
 """Build the CUDA kernels of ``mrt_torch/csrc`` at first use and bind
 them with ctypes.
 
-All ``csrc/*.cu`` files compile with nvcc into one shared library with
-a plain C interface:
+Each ``csrc/*.cu`` file compiles with its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         --fmad=false -shared -Xcompiler -fPIC -o <lib> csrc/*.cu
+         --fmad=false -Xcompiler -fPIC -c -o <obj> csrc/<file>.cu
+    nvcc -shared -o <lib> <objs>
 
 ``--fmad=false`` keeps nvcc from contracting a*b+c into one rounding,
 so a kernel's arithmetic rounds exactly like its plain PyTorch version.
@@ -30,17 +32,22 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+         "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: argument types; each returns a cudaError_t as int.
 SIGNATURES = {
     "mrt_nearest_t": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P),
     "mrt_deposit": (_P, _I, _I, _P, _P, _I, _I, _P),
+    "mrt_sphere_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
+    "mrt_tlas": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+                 _P, _P, _P, _P, _P),
 }
 
 _lib = None
 _lock = threading.Lock()
+# nvcc's report of the build this process made, if it made one.
+build_report = ""
 
 
 def _nvcc():
@@ -69,25 +76,49 @@ def library_path():
     return BUILD_DIR / f"libmrt_kernels-{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise if any fails.  Returns their
+    merged stdout and stderr, one string a command."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        outs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def _compile(out):
+    """Build the library at `out`; returns nvcc's report (ptxas -v:
+    registers, shared memory and spills of every kernel)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    stem = out.with_name(f"{out.stem}.{os.getpid()}")
+    nvcc = _nvcc()
+    objs = [Path(f"{stem}.{src.stem}.o") for src in _sources()]
+    report = _run_all([[nvcc, *FLAGS, "-c", "-o", str(obj), str(src)]
+                       for src, obj in zip(_sources(), objs)])
+    tmp = Path(f"{stem}.so.tmp")
+    _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
+    return "".join(report)
 
 
 def library():
     """The loaded kernel library, built first if needed."""
-    global _lib
+    global _lib, build_report
     with _lock:
         if _lib is None:
             out = library_path()
             if not out.exists():
-                _compile(out)
+                build_report = _compile(out)
             lib = ctypes.CDLL(str(out))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)

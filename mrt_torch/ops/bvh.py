@@ -1,0 +1,387 @@
+"""Kernels B5 (sphere-BVH closest hit) and B7 (two-level TLAS closest
+hit), with their plain PyTorch versions.
+
+``sphere_bvh_hit`` and ``tlas_hit`` are the wrappers: on CPU tensors
+they run the plain versions ``sphere_bvh_plain`` / ``tlas_plain``; on
+CUDA tensors they launch ``csrc/bvh.cu`` or raise.  Each keeps a
+``launches`` count.
+
+B5 replaces ``mrt/ops/pallas_bvh.py::_kernel`` (wrapper
+``intersect_bvh_spheres``).  B7 replaces ``pallas_bvh.py::_tlas_kernel``
+and ``_tlas_kernel_ordered`` (wrapper ``intersect_tlas``) and also
+``mrt/ops/pallas_stream.py::_build_kernel``, which computes B7's
+function for tables past the TPU's 448 KB of SMEM by paging them from
+HBM: on the card the tables sit in global memory at any size, so one
+kernel covers both.  The front-to-back order of the ordered body is a
+packet schedule; under the tie rules below every visit order gives the
+same winner, so the port walks the escape-index order only.
+
+Semantics, shared by kernel and plain version (those of the reference
+traversals ``mrt.geometry.bvh.intersect_bvh_spheres`` and
+``mrt.geometry.instance.intersect_tlas``, run per ray):
+  - stackless depth-first walk: a hit inner node continues at node + 1,
+    anything else at its escape index; the walk ends past the last node;
+  - the slab test propagates NaN (``torch.minimum``/``maximum``): a ray
+    that starts on a slab plane with a zero direction component gets
+    0 * inf = NaN there and culls the box, as in the reference;
+  - spheres: near root before far root in [t_min, min(best, t_max)];
+    equal t -> the lower sphere index;
+  - triangles: Möller–Trumbore with DET_EPS = 1e-6, t in [t_min,
+    t_max]; equal t -> the lexicographically lower (instance, triangle);
+  - a zero-length direction is traversed as given, like the reference's
+    XLA traversal (the Pallas wrappers substitute (1, 1, 1)).
+
+Table layouts (rows, one per node / primitive; all contiguous):
+  nodes (M, 8) f32: bmin xyz, 0, bmax xyz, 0
+  meta  (M, 4) i32: first, count (0 = inner), escape, 0
+  sph   (S, 4) f32: center xyz, radius
+  tnodes (Mt, 8) f32 as nodes; tmeta (Mt, 4) i32: instance (-1 =
+  inner), escape, 0, 0; inst (I, 12) f32: inverse transform rows
+  R00 R01 R02 R10 R11 R12 R20 R21 R22 t0 t1 t2; imeta (I, 2) i32:
+  blas_root, blas_end; bnodes/bmeta as nodes/meta; tris (T, 9) f32:
+  va, e_ab, e_ac.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..math.vec import dot, sqrt
+from . import _build
+
+INF = float("inf")
+LEAF_SIZE = 32  # primitives per BVH leaf (geometry.bvh.LEAF_SIZE)
+
+
+def slab_hit(bmin, bmax, o, inv_d, t_min, t_max):
+    """Batched AABB slab test, (L, 3) boxes and rays, (L,) bounds ->
+    (L,) bool.  NaN-propagating, as the reference's."""
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    lo = torch.minimum(t0, t1)
+    hi = torch.maximum(t0, t1)
+    near = torch.maximum(
+        torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2]), t_min)
+    far = torch.minimum(
+        torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2]), t_max)
+    return near <= far
+
+
+def _leaf_slots(first, count, n_prims):
+    """(L, LEAF_SIZE) primitive indices of leaves and their validity."""
+    j = torch.arange(LEAF_SIZE, device=first.device)
+    idx = torch.clamp(first[:, None] + j, max=n_prims - 1)
+    return idx, j < count[:, None]
+
+
+def _tally(counts, key, value):
+    if counts is not None:
+        counts[key] = counts.get(key, 0) + int(value)
+
+
+def sphere_leaf(sph, first, count, o, d, a, inv_a, t_min, lim):
+    """Spheres of one leaf per lane: the lexicographically lowest valid
+    (root, index).  Returns (t (L,), +inf if none; index (L,) int64).
+    The reference's sequential loop shrinks its limit as it goes; that
+    keeps the same lowest pair."""
+    si, valid = _leaf_slots(first, count, sph.shape[0])
+    c = sph[si]                                          # (L, J, 4)
+    oc = o[:, None, :] - c[..., :3]
+    half_b = dot(oc, d[:, None, :])
+    r = c[..., 3]
+    cterm = dot(oc, oc) - r * r
+    disc = half_b * half_b - a[:, None] * cterm
+    sq = sqrt(torch.where(disc >= 0.0, torch.clamp(disc, min=0.0), 1.0))
+    root0 = (-half_b - sq) * inv_a[:, None]
+    root1 = (-half_b + sq) * inv_a[:, None]
+    ok = valid & (disc >= 0.0)
+    lo, hi = t_min[:, None], lim[:, None]
+    ok0 = ok & (root0 >= lo) & (root0 <= hi)
+    ok1 = ok & (root1 >= lo) & (root1 <= hi)
+    root = torch.where(ok0, root0, torch.where(ok1, root1, INF))
+    t, j = torch.min(root, dim=1)  # the first of equal minima
+    return t, torch.gather(si, 1, j[:, None])[:, 0]
+
+
+def tri_leaf(tris, first, count, o, d, t_min, t_max):
+    """Triangles of one leaf per lane: the lowest valid (t, index) and
+    its (u, v).  tris: (T, 9) rows va, e_ab, e_ac.  Returns (t (L,),
+    +inf if none; index (L,) int64; u; v)."""
+    from ..geometry.triangles import moller_trumbore
+
+    ti, valid = _leaf_slots(first, count, tris.shape[0])
+    rows = tris[ti]                                      # (L, J, 9)
+    det_ok, u, v, t = moller_trumbore(rows[..., 0:3], rows[..., 3:6],
+                                      rows[..., 6:9], o[:, None, :],
+                                      d[:, None, :])
+    ok = (valid & det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t >= t_min[:, None]) & (t <= t_max[:, None]))
+    t = torch.where(ok, t, INF)
+    ct, j = torch.min(t, dim=1)
+    pick = lambda x: torch.gather(x, 1, j[:, None])[:, 0]
+    return ct, pick(ti), pick(u), pick(v)
+
+
+def sphere_bvh_plain(nodes, meta, sph, o, d, t_min, t_max, counts=None):
+    """Plain PyTorch version of B5: the reference's wavefront traversal
+    with finished rays dropped from the wavefront after each step.
+
+    nodes (M, 8), meta (M, 4), sph (S, 4); o, d (N, 3); t_min, t_max
+    (N,).  Returns (t (N,) float32, +inf on a miss; index (N,) int32).
+    ``counts``, if a dict, gains "nodes" (node visits) and "prims"
+    (leaf sphere tests)."""
+    n, m = o.shape[0], nodes.shape[0]
+    dev = o.device
+    out_t = torch.full((n,), INF, device=dev)
+    out_i = torch.zeros((n,), dtype=torch.int32, device=dev)
+    inv_d = 1.0 / d
+    a = dot(d, d)
+    inv_a = 1.0 / a
+    lane = torch.arange(n, device=dev)
+    node = torch.zeros((n,), dtype=torch.int64, device=dev)
+    best_t, best_i = out_t.clone(), torch.zeros((n,), dtype=torch.int64,
+                                                device=dev)
+    while lane.numel():
+        lim = torch.minimum(best_t, t_max[lane])
+        box = nodes[node]
+        hit = slab_hit(box[:, 0:3], box[:, 4:7], o[lane], inv_d[lane],
+                       t_min[lane], lim)
+        row = meta[node].to(torch.int64)
+        leaf = row[:, 1] > 0
+        test = (hit & leaf).nonzero()[:, 0]
+        _tally(counts, "nodes", lane.numel())
+        if test.numel():
+            k = lane[test]
+            _tally(counts, "prims", row[test, 1].sum())
+            ct, ci = sphere_leaf(sph, row[test, 0], row[test, 1], o[k],
+                                 d[k], a[k], inv_a[k], t_min[k], lim[test])
+            bt, bi = best_t[test], best_i[test]
+            better = (ct < bt) | ((ct == bt) & (ci < bi))
+            best_t[test] = torch.where(better, ct, bt)
+            best_i[test] = torch.where(better, ci, bi)
+        node = torch.where(hit & ~leaf, node + 1, row[:, 2])
+        done = node >= m
+        if done.any():
+            out_t[lane[done]] = best_t[done]
+            out_i[lane[done]] = best_i[done].to(torch.int32)
+            keep = ~done
+            lane, node = lane[keep], node[keep]
+            best_t, best_i = best_t[keep], best_i[keep]
+    return out_t, out_i
+
+
+def _warp(r, v, translate):
+    """Rows r (L, 12) of inverse transforms applied to v (L, 3), in the
+    kernel's order ((r0 x + r1 y) + r2 z) + t0."""
+    out = [(r[:, 3 * k] * v[:, 0] + r[:, 3 * k + 1] * v[:, 1])
+           + r[:, 3 * k + 2] * v[:, 2] for k in range(3)]
+    if translate:
+        out = [x + r[:, 9 + k] for k, x in enumerate(out)]
+    return torch.stack(out, dim=1)
+
+
+def tlas_plain(tl, o, d, t_min, t_max, counts=None):
+    """Plain PyTorch version of B7: the reference's two-level wavefront
+    traversal, each ray a state machine (TLAS node, instance, resume
+    node, local ray), finished rays dropped after each step.
+
+    tl: an object with the tables tnodes, tmeta, inst, imeta, bnodes,
+    bmeta, tris (layouts in the module docstring).  o, d (N, 3); t_min,
+    t_max (N,).  Returns (t (N,) f32, +inf on a miss; instance (N,) i32,
+    -1 on a miss; triangle (N,) i32; u, v (N,) f32).  ``counts``, if a
+    dict, gains "tlas_nodes", "blas_nodes", "enters" and "prims"."""
+    n, mt = o.shape[0], tl.tnodes.shape[0]
+    dev = o.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    out_t = torch.full((n,), INF, device=dev)
+    out_inst = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    out_tri = torch.zeros((n,), dtype=torch.int32, device=dev)
+    out_u = torch.zeros((n,), device=dev)
+    out_v = torch.zeros((n,), device=dev)
+    inv_d = 1.0 / d
+    tmeta, imeta = tl.tmeta.to(torch.int64), tl.imeta.to(torch.int64)
+    bmeta = tl.bmeta.to(torch.int64)
+
+    lane = torch.arange(n, device=dev)
+    node = torch.zeros((n,), **i64)     # TLAS node, or BLAS node in one
+    inst = torch.full((n,), -1, **i64)  # current instance, -1 = in TLAS
+    resume = torch.zeros((n,), **i64)   # TLAS node after the BLAS
+    ol, dl, il = o.clone(), d.clone(), inv_d.clone()  # local ray
+    bt = out_t.clone()
+    b_inst = torch.full((n,), -1, **i64)
+    b_tri = torch.zeros((n,), **i64)
+    bu, bv = out_u.clone(), out_v.clone()
+    while lane.numel():
+        lim = torch.minimum(bt, t_max[lane])
+        lo, hi = t_min[lane], t_max[lane]
+        in_blas = inst >= 0
+
+        # TLAS lanes: slab test; a hit leaf enters its instance.
+        tl_k = (~in_blas).nonzero()[:, 0]
+        if tl_k.numel():
+            tn = node[tl_k]
+            box = tl.tnodes[tn]
+            g = lane[tl_k]
+            hit = slab_hit(box[:, 0:3], box[:, 4:7], o[g], inv_d[g],
+                           lo[tl_k], lim[tl_k])
+            leaf_inst, escape = tmeta[tn, 0], tmeta[tn, 1]
+            enter = hit & (leaf_inst >= 0)
+            node[tl_k] = torch.where(hit, tn + 1, escape)
+            _tally(counts, "tlas_nodes", tl_k.numel())
+            e = tl_k[enter]
+            if e.numel():
+                _tally(counts, "enters", e.numel())
+                i = leaf_inst[enter]
+                r = tl.inst[i]
+                ol[e] = _warp(r, o[lane[e]], translate=True)
+                dl[e] = _warp(r, d[lane[e]], translate=False)
+                il[e] = 1.0 / dl[e]
+                inst[e] = i
+                resume[e] = escape[enter]
+                node[e] = imeta[i, 0]
+
+        # BLAS lanes: slab test, leaf triangles, then next node or exit.
+        bl_k = in_blas.nonzero()[:, 0]
+        if bl_k.numel():
+            bn = node[bl_k]
+            box = tl.bnodes[bn]
+            hit = slab_hit(box[:, 0:3], box[:, 4:7], ol[bl_k], il[bl_k],
+                           lo[bl_k], lim[bl_k])
+            row = bmeta[bn]
+            leaf = row[:, 1] > 0
+            _tally(counts, "blas_nodes", bl_k.numel())
+            test = hit & leaf
+            k = bl_k[test]
+            if k.numel():
+                _tally(counts, "prims", row[test, 1].sum())
+                ct, ctri, cu, cv = tri_leaf(tl.tris, row[test, 0],
+                                            row[test, 1], ol[k], dl[k],
+                                            lo[k], hi[k])
+                ci = inst[k]
+                better = ((ct < bt[k])
+                          | ((ct == bt[k])
+                             & ((ci < b_inst[k])
+                                | ((ci == b_inst[k]) & (ctri < b_tri[k])))))
+                bt[k] = torch.where(better, ct, bt[k])
+                b_inst[k] = torch.where(better, ci, b_inst[k])
+                b_tri[k] = torch.where(better, ctri, b_tri[k])
+                bu[k] = torch.where(better, cu, bu[k])
+                bv[k] = torch.where(better, cv, bv[k])
+            nxt = torch.where(hit & ~leaf, bn + 1, row[:, 2])
+            exiting = nxt >= imeta[inst[bl_k], 1]
+            node[bl_k] = torch.where(exiting, resume[bl_k], nxt)
+            inst[bl_k] = torch.where(exiting, -1, inst[bl_k])
+
+        done = (inst < 0) & (node >= mt)
+        if done.any():
+            g = lane[done]
+            out_t[g] = bt[done]
+            out_inst[g] = b_inst[done].to(torch.int32)
+            out_tri[g] = b_tri[done].to(torch.int32)
+            out_u[g] = bu[done]
+            out_v[g] = bv[done]
+            keep = ~done
+            lane, node, inst, resume = (lane[keep], node[keep], inst[keep],
+                                        resume[keep])
+            ol, dl, il = ol[keep], dl[keep], il[keep]
+            bt, b_inst, b_tri = bt[keep], b_inst[keep], b_tri[keep]
+            bu, bv = bu[keep], bv[keep]
+    return out_t, out_inst, out_tri, out_u, out_v
+
+
+def _lanes(x, n, device):
+    """Scalar or (N,) t bound -> contiguous (N,) float32."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    return x.expand(n).contiguous() if x.dim() == 0 else x
+
+
+def _check(fn, device, **tensors):
+    """Each entry: name -> (tensor, dtype, shape with -1 for any)."""
+    for name, (x, dtype, shape) in tensors.items():
+        if x.dim() != len(shape) or any(
+                s not in (-1, e) for s, e in zip(shape, x.shape)):
+            raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, "
+                             f"expected {shape}")
+        if x.dtype != dtype:
+            raise TypeError(f"{fn}: {name} is {x.dtype}, not {dtype}")
+        if x.device != device:
+            raise ValueError(f"{fn}: {name} is on {x.device}, rays on "
+                             f"{device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+
+
+def _aligned(fn, **tables):
+    """The kernel reads these tables as float4/int4 (int2 for imeta)."""
+    for name, (x, align) in tables.items():
+        if x.data_ptr() % align:
+            raise ValueError(f"{fn}: {name} is not {align}-byte aligned")
+
+
+def _rays(fn, o, d, t_min, t_max):
+    n = o.shape[0]
+    t_min, t_max = _lanes(t_min, n, o.device), _lanes(t_max, n, o.device)
+    f32 = torch.float32
+    _check(fn, o.device, o=(o, f32, (n, 3)), d=(d, f32, (n, 3)),
+           t_min=(t_min, f32, (n,)), t_max=(t_max, f32, (n,)))
+    if o.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: no kernel for device {o.device}")
+    return n, t_min, t_max
+
+
+def sphere_bvh_hit(nodes, meta, sph, o, d, t_min, t_max):
+    """Closest sphere hit through a sphere BVH (B5).
+
+    t_min, t_max: scalars or (N,) tensors.  Returns (t (N,) float32,
+    +inf on a miss; index (N,) int32, into the BVH-ordered spheres)."""
+    n, t_min, t_max = _rays("sphere_bvh_hit", o, d, t_min, t_max)
+    f32, i32 = torch.float32, torch.int32
+    _check("sphere_bvh_hit", o.device, nodes=(nodes, f32, (-1, 8)),
+           meta=(meta, i32, (nodes.shape[0], 4)), sph=(sph, f32, (-1, 4)))
+    if o.device.type == "cpu":
+        return sphere_bvh_plain(nodes, meta, sph, o, d, t_min, t_max)
+    _aligned("sphere_bvh_hit", nodes=(nodes, 16), meta=(meta, 16),
+             sph=(sph, 16))
+    t = torch.empty((n,), dtype=f32, device=o.device)
+    index = torch.empty((n,), dtype=i32, device=o.device)
+    _build.launch("mrt_sphere_bvh", o.device, nodes, meta, nodes.shape[0],
+                  sph, sph.shape[0], o, d, t_min, t_max, n, t, index)
+    sphere_bvh_hit.launches += 1
+    return t, index
+
+
+sphere_bvh_hit.launches = 0
+
+
+def tlas_hit(tl, o, d, t_min, t_max):
+    """Closest hit over all instances of a TLAS (B7; also B8's
+    function at any table size).
+
+    tl: an object with the tables tnodes, tmeta, inst, imeta, bnodes,
+    bmeta, tris.  t_min, t_max: scalars or (N,) tensors.  Returns (t,
+    instance, triangle, u, v) as ``tlas_plain``."""
+    n, t_min, t_max = _rays("tlas_hit", o, d, t_min, t_max)
+    f32, i32 = torch.float32, torch.int32
+    mt, ni, mb = tl.tnodes.shape[0], tl.inst.shape[0], tl.bnodes.shape[0]
+    _check("tlas_hit", o.device, tnodes=(tl.tnodes, f32, (-1, 8)),
+           tmeta=(tl.tmeta, i32, (mt, 4)), inst=(tl.inst, f32, (-1, 12)),
+           imeta=(tl.imeta, i32, (ni, 2)), bnodes=(tl.bnodes, f32, (-1, 8)),
+           bmeta=(tl.bmeta, i32, (mb, 4)), tris=(tl.tris, f32, (-1, 9)))
+    if o.device.type == "cpu":
+        return tlas_plain(tl, o, d, t_min, t_max)
+    _aligned("tlas_hit", tnodes=(tl.tnodes, 16), tmeta=(tl.tmeta, 16),
+             imeta=(tl.imeta, 8), bnodes=(tl.bnodes, 16),
+             bmeta=(tl.bmeta, 16))
+    t = torch.empty((n,), dtype=f32, device=o.device)
+    inst = torch.empty((n,), dtype=i32, device=o.device)
+    tri = torch.empty((n,), dtype=i32, device=o.device)
+    u = torch.empty((n,), dtype=f32, device=o.device)
+    v = torch.empty((n,), dtype=f32, device=o.device)
+    _build.launch("mrt_tlas", o.device, tl.tnodes, tl.tmeta, mt, tl.inst,
+                  tl.imeta, tl.bnodes, tl.bmeta, tl.tris, tl.tris.shape[0],
+                  o, d, t_min, t_max, n, t, inst, tri, u, v)
+    tlas_hit.launches += 1
+    return t, inst, tri, u, v
+
+
+tlas_hit.launches = 0

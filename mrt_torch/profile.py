@@ -1,0 +1,181 @@
+"""Step profile of one persistent render pass on the card.
+
+    python -m mrt_torch.profile --scene sphere_grid
+
+Renders one unprofiled pass (its wall time), then one pass under
+``torch.profiler`` with a ``record_function`` range around each layer of
+the step (camera rays, intersection, shading, background, film
+deposit), and prints the device time of each layer (the kernels
+launched inside its range), of each hand kernel and of the busiest
+kernels, the launches a step and the device's idle share (1 - kernel
+time / unprofiled pass time), then one JSON line with the same numbers.
+Needs a CUDA device; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import sys
+import time
+
+import torch
+
+
+def _device_us(event, self_only=False):
+    """Device microseconds of a profiler event (the attribute name moved
+    between PyTorch versions)."""
+    names = (("self_device_time_total", "self_cuda_time_total") if self_only
+             else ("device_time_total", "cuda_time_total"))
+    for name in names:
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
+
+
+LAYERS = (
+    # (range name, module path, attribute)
+    ("L1 make_rays", "mrt_torch.integrator.persistent", "LanePool.make_rays"),
+    ("L2 intersect", "mrt_torch.geometry.scene", "Scene.intersect"),
+    ("L3 shade_hit", "mrt_torch.materials.shade", "shade_hit"),
+    ("L3 background", "mrt_torch.geometry.scene",
+     "Scene.background_eval_masked"),
+    ("L4 deposit", "mrt_torch.integrator.persistent", "deposit"),
+)
+TOP = 15  # device kernels listed by device time
+KERNELS = {"B1": "nearest_t_kernel", "B2": "deposit_kernel",
+           "B5": "sphere_bvh_kernel", "B7": "tlas_kernel"}
+
+
+def _wrap(name, fn):
+    from torch.profiler import record_function
+
+    def wrapped(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+@contextlib.contextmanager
+def instrumented():
+    """Install the layer ranges; restore the functions on exit."""
+    import importlib
+
+    saved = []
+    for name, module, attr in LAYERS:
+        owner = importlib.import_module(module)
+        *path, leaf = attr.split(".")
+        for part in path:
+            owner = getattr(owner, part)
+        saved.append((owner, leaf, getattr(owner, leaf)))
+        setattr(owner, leaf, _wrap(name, getattr(owner, leaf)))
+    try:
+        yield
+    finally:
+        for owner, leaf, fn in reversed(saved):
+            setattr(owner, leaf, fn)
+
+
+def one_pass(scene, camera, args):
+    from .runtime.film import Film
+    from .runtime.render import render_pass_persistent
+
+    film = Film.create(args.width, args.height, device=camera.origin.device)
+    return render_pass_persistent(scene, camera, film, 1, 0,
+                                  width=args.width, height=args.height,
+                                  max_depth=args.depth, samples=args.spp,
+                                  pool=args.pool)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--scene", default="sphere_grid")
+    args = parser.parse_args(argv)
+    # chip_smoke.py's main path.
+    args.width, args.height, args.depth, args.spp, args.pool = (
+        1920, 1080, 50, 2, 1 << 17)
+    if not torch.cuda.is_available():
+        print("profile: no CUDA device", file=sys.stderr)
+        return 2
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from .integrator import persistent
+    from .scenes import get
+
+    scene, camera = get(args.scene)().generate()
+    one_pass(scene, camera, args)  # warm-up: kernel build, allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_pass(scene, camera, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    steps = [0]
+    step = persistent.LanePool.step
+
+    def counted(self, *a, **k):
+        steps[0] += 1
+        return step(self, *a, **k)
+
+    persistent.LanePool.step = counted
+    try:
+        with instrumented(), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one_pass(scene, camera, args)
+            torch.cuda.synchronize()
+            profiled_wall = time.perf_counter() - t0
+    finally:
+        persistent.LanePool.step = step
+
+    names = {name for name, _, _ in LAYERS}
+    on_device = lambda e: str(e.device_type).endswith("CUDA")
+    # Device-side events are the kernels and copies, and also each
+    # range's span on the device timeline (gaps included), which is left
+    # out.  A layer's device time is the kernels launched inside its
+    # host-side range.
+    device = [e for e in prof.key_averages()
+              if on_device(e) and e.key not in names]
+    kernel_us = sum(_device_us(e, self_only=True) for e in device)
+    launches = sum(e.count for e in device)
+    layers = dict.fromkeys(sorted(names), 0.0)
+    for e in prof.events():
+        if e.name in names and not on_device(e):
+            layers[e.name] += _device_us(e) / 1e3
+    kernels = {k: _device_us(e, self_only=True) / 1e3 for e in device
+               for k, v in KERNELS.items() if v in e.key}
+    calls = {k: e.count for e in device for k, v in KERNELS.items()
+             if v in e.key}
+    out = dict(scene=args.scene, width=args.width, height=args.height,
+               depth=args.depth, spp=args.spp, pool=args.pool,
+               device=torch.cuda.get_device_name(0),
+               pass_s=wall, profiled_pass_s=profiled_wall, steps=steps[0],
+               device_kernel_ms=kernel_us / 1e3,
+               device_kernels_per_step=launches / max(steps[0], 1),
+               # Kernel durations are not inflated by the profiler, the
+               # host is: the unprofiled pass is the wall time to use.
+               idle_share=1.0 - kernel_us / 1e6 / wall,
+               layer_device_ms=layers, kernel_device_ms=kernels,
+               kernel_calls=calls)
+    print(f"{args.scene} {args.width}x{args.height} depth {args.depth} spp "
+          f"{args.spp} pool {args.pool}: pass {wall:.3f} s unprofiled, "
+          f"{profiled_wall:.3f} s profiled, {steps[0]} steps, "
+          f"{launches} device kernels, {kernel_us / 1e3:.1f} ms device time, "
+          f"idle {out['idle_share']:.3f}")
+    for name, ms in layers.items():
+        print(f"  {name}: {ms:.2f} ms")
+    for name, ms in kernels.items():
+        print(f"  kernel {name}: {ms:.2f} ms in {calls[name]} calls")
+    top = sorted(device, key=lambda e: -_device_us(e, self_only=True))
+    for e in top[:TOP]:
+        us = _device_us(e, self_only=True)
+        print(f"  {us / 1e3:9.2f} ms {e.count:7d} x {us / e.count:8.2f} us "
+              f"{e.key[:100]}")
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

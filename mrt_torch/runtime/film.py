@@ -13,6 +13,8 @@ import enum
 import numpy as np
 import torch
 
+from ..core.device import resolve
+
 
 class DisplayMode(enum.Enum):
     DEFAULT = "default"
@@ -27,6 +29,8 @@ class Film:
 
     @classmethod
     def create(cls, width, height, device=None):
+        """An empty film on `device` (None: the CUDA card)."""
+        device = resolve(device)
         return cls(
             sum=torch.zeros((height, width, 3), device=device),
             depth_sum=torch.zeros((height, width), dtype=torch.int32,
@@ -76,7 +80,9 @@ class Film:
 
     @classmethod
     def load_state(cls, path, device=None):
-        """Returns (film, seed)."""
+        """Returns (film, seed), the film on `device` (None: the CUDA
+        card)."""
+        device = resolve(device)
         z = np.load(path)
         film = cls(sum=torch.as_tensor(z["sum"], device=device),
                    depth_sum=torch.as_tensor(z["depth_sum"], device=device),

@@ -1,6 +1,7 @@
 """The scene zoo (mirrors ``mrt.scenes``): a scene object exposes
-``generate(t, frame, input) -> (Scene, Camera)``, built on the host and
-looked up by name."""
+``generate(t, frame, input, device=None) -> (Scene, Camera)``, built on
+the host, returned on ``device`` (None: the CUDA card) and looked up by
+name."""
 
 from __future__ import annotations
 
@@ -21,4 +22,4 @@ def get(name):
     return _REGISTRY[name]
 
 
-from . import rtiow  # noqa: E402,F401
+from . import cornell, rtiow, sphere_grid  # noqa: E402,F401

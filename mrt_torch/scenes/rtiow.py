@@ -2,8 +2,9 @@
 ``mrt.scenes.rtiow``; the same seed builds byte-identical arrays).
 
 A ground sphere, a jittered grid of random diffuse/metal/glass spheres
-and three feature spheres under the sky gradient.  The scene and camera
-are built on the CPU; ``.to(device)`` moves them.
+and three feature spheres under the sky gradient.  ``generate`` builds
+on the host and returns the scene and camera on ``device`` (None: the
+CUDA card).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 
 from . import register
 from ..core.camera import Camera
+from ..core.device import resolve
 from ..geometry.scene import Scene
 from ..geometry.spheres import Spheres
 from ..materials.background import SkyBackground
@@ -27,7 +29,8 @@ class RtiowFinal:
         self.seed = seed
         self.grid = grid  # half-extent: spheres span [-grid, grid)^2
 
-    def generate(self, t=0.0, frame=0, input=None):
+    def generate(self, t=0.0, frame=0, input=None, device=None):
+        device = resolve(device)
         rng = np.random.default_rng(self.seed)
         mat = MaterialBuilder()
         centers, radii, mats = [], [], []
@@ -80,4 +83,4 @@ class RtiowFinal:
             aperture=0.1,
             focus_distance=10.0,
         )
-        return scene, camera
+        return scene.to(device), camera.to(device)

@@ -163,7 +163,8 @@ def test_make_hits_matches_reference():
 @pytest.mark.parametrize("grid", [5, 11])
 def test_rtiow_arrays_byte_equal_and_round_trip(grid):
     js, jc = jget("rtiow")(aspect_ratio=1.0, grid=grid).generate()
-    ts, tc = tget("rtiow")(aspect_ratio=1.0, grid=grid).generate()
+    ts, tc = tget("rtiow")(aspect_ratio=1.0, grid=grid).generate(
+        device="cpu")
     spheres = {k: np.asarray(getattr(js.spheres, k))
                for k in ("center", "radius", "material")}
     materials = {k: np.asarray(getattr(js.materials, k))

@@ -5,14 +5,16 @@ a GPU machine with
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
-Both kernels are built with --fmad=false and round like their plain
+The kernels are built with --fmad=false and round like their plain
 versions, so results must be bit-equal (B2: on dyadic values, whose
-sums are exact in any order).
+sums are exact in any order).  B5 and B7 include rays on a NaN slab
+plane and, for B7, a TLAS past 448 KB of tables.
 """
 
 import pytest
 import torch
 
+from mrt_torch.ops import bvh
 from mrt_torch.ops import deposit as B2
 from mrt_torch.ops import spheres as B1
 
@@ -73,3 +75,90 @@ def test_b1_wrapper_raises_instead_of_falling_back(cuda):
     o = torch.zeros((8, 3), device=cuda)
     with pytest.raises(ValueError):
         B1.nearest_t(torch.zeros((2, 3)), torch.ones(2), o, o, 1e-3, 1.0)
+
+
+def _sphere_case(g, s, n):
+    from mrt_torch.geometry import bvh as geometry_bvh
+    from mrt_torch.geometry import spheres
+
+    center = torch.rand((s, 3), generator=g) * 20 - 10
+    radius = torch.rand((s,), generator=g) * 0.8 + 0.1
+    tree, sph = geometry_bvh.build_over_spheres(spheres.Spheres(
+        center, radius, torch.zeros((s,), dtype=torch.int32)))
+    o = torch.rand((n, 3), generator=g) * 30 - 15
+    d = torch.randn((n, 3), generator=g)
+    # NaN slab: on the root box's x = bmin plane, zero x direction.
+    o[:64, 0] = tree.bmin[0, 0]
+    d[:64, 0] = 0.0
+    d[64:72] = 0.0  # zero directions
+    return tree, geometry_bvh.kernel_spheres(sph), o, d
+
+
+def test_b5_kernel_matches_plain(cuda):
+    g = torch.Generator().manual_seed(3)
+    tree, sph, o, d = _sphere_case(g, 3000, 5000)
+    n = o.shape[0]
+    args = [x.to(cuda) for x in (tree.nodes, tree.meta, sph, o, d)]
+    lo = torch.full((n,), 1e-3, device=cuda)
+    for hi in (torch.full((n,), float("inf")),
+               torch.rand((n,), generator=g) * 30 + 1):
+        hi = hi.to(cuda)
+        before = bvh.sphere_bvh_hit.launches
+        t_k, i_k = bvh.sphere_bvh_hit(*args, lo, hi)
+        t_p, i_p = bvh.sphere_bvh_plain(*args, lo, hi)
+        torch.cuda.synchronize()
+        assert bvh.sphere_bvh_hit.launches == before + 1
+        assert torch.equal(i_k, i_p)
+        assert torch.equal(t_k, t_p)
+        assert torch.isfinite(t_k).any() and torch.isinf(t_k[:72]).all()
+
+
+def _instances(n_inst, seed=0):
+    """tests/test_stream.py's registry with n_inst instances."""
+    import numpy as np
+
+    from mrt_torch.geometry.instance import MeshRegistry
+    from mrt_torch.geometry.shapes import cube, sphere_mesh
+
+    rng = np.random.default_rng(seed)
+    reg = MeshRegistry()
+    m_cube = reg.add_mesh(cube(size=1.0))
+    m_sphere = reg.add_mesh(sphere_mesh(radius=0.6, lat=5, lon=7))
+    for i in range(n_inst):
+        reg.add_instance(m_cube if i % 2 else m_sphere,
+                         translation=rng.uniform(-6, 6, 3),
+                         rotation=rng.uniform(0, 1, 3),
+                         scale=rng.uniform(0.4, 1.8),
+                         material=int(rng.integers(0, 5)))
+    return reg.build()
+
+
+@pytest.mark.parametrize("n_inst", [40, 8000])
+def test_b7_kernel_matches_plain(cuda, n_inst):
+    # 8000 instances: 1.15 MB of tables, past the 448 KB that the TPU
+    # kernel kept resident (B8's regime).
+    tl = _instances(n_inst).to(cuda)
+    g = torch.Generator().manual_seed(4)
+    n = 4000
+    o = torch.rand((n, 3), generator=g) * 20 - 10
+    d = torch.randn((n, 3), generator=g)
+    o[:64, 1] = tl.t_bmin[0, 1].cpu()  # NaN slab at the root
+    d[:64, 1] = 0.0
+    t_min = torch.rand((n,), generator=g) * 0.5
+    o, d, t_min = o.to(cuda), d.to(cuda), t_min.to(cuda)
+    t_max = torch.full((n,), float("inf"), device=cuda)
+    before = bvh.tlas_hit.launches
+    k = bvh.tlas_hit(tl, o, d, t_min, t_max)
+    p = bvh.tlas_plain(tl, o, d, t_min, t_max)
+    torch.cuda.synchronize()
+    assert bvh.tlas_hit.launches == before + 1
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.isfinite(k[0]).any() and (k[1][:64] == -1).all()
+
+
+def test_bvh_wrappers_raise_instead_of_falling_back(cuda):
+    tree, sph, o, d = _sphere_case(torch.Generator().manual_seed(5), 100, 8)
+    with pytest.raises(ValueError):
+        bvh.sphere_bvh_hit(tree.nodes, tree.meta, sph, o.to(cuda),
+                          d.to(cuda), 1e-3, 1.0)

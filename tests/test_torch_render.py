@@ -44,7 +44,7 @@ MAX_FLIPPED = 5  # 1% of 576 pixels
 
 
 def _scene():
-    return get("rtiow")(aspect_ratio=1.0, grid=5).generate()
+    return get("rtiow")(aspect_ratio=1.0, grid=5).generate(device="cpu")
 
 
 def _render(**kw):
@@ -55,7 +55,8 @@ def _render(**kw):
 
 def _persistent(pool=1024):
     scene, camera = _scene()
-    return render_pass_persistent(scene, camera, Film.create(G.SIZE, G.SIZE),
+    return render_pass_persistent(scene, camera,
+                                  Film.create(G.SIZE, G.SIZE, device="cpu"),
                                   G.SEED, 0, width=G.SIZE, height=G.SIZE,
                                   max_depth=G.DEPTH, samples=G.SPP, pool=pool)
 
@@ -143,15 +144,23 @@ def test_port_imports_neither_jax_nor_mrt():
         "torch.set_num_threads(1)\n"
         "import mrt_torch\n"
         "from mrt_torch import convert, ops\n"
-        "from mrt_torch.scenes import get\n"
+        "from mrt_torch.geometry import bvh, instance, shapes, triangles\n"
+        "from mrt_torch.math import m4\n"
+        "from mrt_torch.ops import bvh\n"
+        "from mrt_torch.scenes import cornell, get, sphere_grid\n"
         "from mrt_torch.runtime.film import Film\n"
         "from mrt_torch.runtime.render import render, "
         "render_pass_persistent\n"
-        "scene, camera = get('rtiow')(aspect_ratio=1.0, grid=2).generate()\n"
-        "film = render(scene, camera, 6, 4, spp=1, max_depth=3)\n"
-        "film = render_pass_persistent(scene, camera, film, 1, 1, width=6,\n"
-        "                              height=4, max_depth=3, pool=16)\n"
-        "assert film.samples == 2 and film.depth_sum.sum() > 0\n"
+        "for name, kw in (('rtiow', dict(grid=2)), ('cornell', {}),\n"
+        "                 ('sphere_grid', dict(dim=4))):\n"
+        "    scene, camera = get(name)(aspect_ratio=1.0, **kw).generate(\n"
+        "        device='cpu')\n"
+        "    film = render(scene, camera, 6, 4, spp=1, max_depth=3)\n"
+        "    film = render_pass_persistent(scene, camera, film, 1, 1,\n"
+        "                                  width=6, height=4, max_depth=3,\n"
+        "                                  pool=16)\n"
+        "    assert film.samples == 2 and film.depth_sum.sum() > 0, name\n"
+        "assert scene.sphere_bvh is not None and scene.tlas is not None\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mrt'))\n"
         "assert not bad, bad\n"
@@ -161,3 +170,19 @@ def test_port_imports_neither_jax_nor_mrt():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("entry", ["rtiow", "cornell", "sphere_grid", "film",
+                                   "load_state"])
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
+    # Without a card and without device="cpu" the entry points raise;
+    # they never carry on quietly on the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = tmp_path / "film.npz"
+    Film.create(2, 3, device="cpu").save_state(path)
+    build = dict(
+        film=lambda: Film.create(2, 3),
+        load_state=lambda: Film.load_state(path)).get(
+            entry, lambda: get(entry)(aspect_ratio=1.0).generate())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()

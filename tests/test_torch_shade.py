@@ -159,14 +159,14 @@ def test_film_tonemap_and_checkpoint(tmp_path):
                                    np.asarray(jf.to_float_rgb(jm)), **TOL)
         assert np.abs(tf.to_rgb_bytes(tm).astype(int)
                       - jf.to_rgb_bytes(jm).astype(int)).max() <= 1
-    assert not Film.create(5, 6).to_float_rgb().any()
+    assert not Film.create(5, 6, device="cpu").to_float_rgb().any()
 
     merged = tf.merge(torch.from_numpy(s), torch.from_numpy(depth))
     assert merged.samples == 5
     np.testing.assert_array_equal(merged.depth_sum.numpy(), 2 * depth)
     path = tmp_path / "film.npz"
     merged.save_state(path, seed=9)
-    back, seed = Film.load_state(path)
+    back, seed = Film.load_state(path, device="cpu")
     assert seed == 9 and back.samples == 5
     np.testing.assert_array_equal(back.sum.numpy(), merged.sum.numpy())
     np.testing.assert_array_equal(back.depth_sum.numpy(),
