@@ -27,7 +27,17 @@ Each phase prints one line:
   9. the cornell_24 golden through both integrators on the card;
  10. the slice's main path: one render_pass_persistent of sphere_grid
      (10,000 spheres under a BVH, an instanced ground cube) at 1920x1080,
-     depth 50, spp 2, pool 2^17, with the kernels' launch counts.
+     depth 50, spp 2, pool 2^17, with the kernels' launch counts;
+ 11. kernel B6 (triangle-BVH closest hit) against its plain version on
+     2^17 playground camera and first-bounce rays through its world-
+     flattened BVH (210 triangles, 15 nodes), and on 2^17 lucy rays
+     through each of its 16 flat parts;
+ 12. the meshes-from-files main paths: one render_pass_persistent each of
+     lucy (121 statues, SAH BVH) and playground (OBJ level, glass
+     platform, posed character) at 1920x1080, depth 50, spp 2, pool
+     2^17, on the two-level route (B7) and with MRT_TLAS_KERNEL=flat (B6:
+     playground's flat set, lucy's flat parts), and the two routes' mean
+     radiance held within 1% of each other on each scene.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after.  Then a JSON line with each kernel's numbers, and as
@@ -37,13 +47,14 @@ exits non-zero; so does a machine without CUDA.  Imports no JAX.
 Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and its
 FP32 operations over 67 TFLOP/s, the H100 SXM's published peaks at
-700 W.  For B5 and B7 the operations are counted from this run's data:
+700 W.  For B5, B6 and B7 the operations are counted from this run's data:
 node visits and leaf primitive tests per ray, counted by the plain
 traversal on the same rays, times the operations of one visit or test.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -64,7 +75,7 @@ FP32_OPS_PER_S = 67e12
 OPS_SPHERE_PAIR = 20   # B1: one ray-sphere pair, expanded form
 OPS_NODE = 26          # B5/B7: one slab test and advance
 OPS_SPHERE_TEST = 32   # B5: one leaf sphere
-OPS_TRI_TEST = 58      # B7: one Möller–Trumbore test
+OPS_TRI_TEST = 58      # B6/B7: one Möller–Trumbore test
 OPS_ENTER = 36         # B7: warp a ray into an instance
 # Rays through the 8,000-instance TLAS: its plain traversal takes
 # ~1 ms a wavefront step, so it gets fewer rays than the main path.
@@ -138,6 +149,21 @@ def bound(bytes_moved, ops):
     if by_bytes >= by_ops:
         return dict(bound_ms=by_bytes, bound_by="bytes")
     return dict(bound_ms=by_ops, bound_by="operations")
+
+
+@contextlib.contextmanager
+def tlas_route(kind):
+    """MRT_TLAS_KERNEL set to `kind` (None: unset, the two-level route)
+    inside the block, restored after it."""
+    old = os.environ.pop("MRT_TLAS_KERNEL", None)
+    if kind is not None:
+        os.environ["MRT_TLAS_KERNEL"] = kind
+    try:
+        yield
+    finally:
+        os.environ.pop("MRT_TLAS_KERNEL", None)
+        if old is not None:
+            os.environ["MRT_TLAS_KERNEL"] = old
 
 
 def path_rays(name, dev):
@@ -293,7 +319,7 @@ def reset_launches():
     from mrt_torch.ops import bvh, deposit, spheres
 
     for fn in (spheres.nearest_t, deposit.deposit, bvh.sphere_bvh_hit,
-               bvh.tlas_hit):
+               bvh.tri_bvh_hit, bvh.tlas_hit):
         fn.launches = 0
 
 
@@ -301,30 +327,36 @@ def read_launches():
     from mrt_torch.ops import bvh, deposit, spheres
 
     return {"B1": spheres.nearest_t.launches, "B2": deposit.deposit.launches,
-            "B5": bvh.sphere_bvh_hit.launches, "B7": bvh.tlas_hit.launches}
+            "B5": bvh.sphere_bvh_hit.launches,
+            "B6": bvh.tri_bvh_hit.launches, "B7": bvh.tlas_hit.launches}
 
 
-def phase_main(phase, name, dev, kernels):
+def phase_main(phase, name, dev, kernels, route=None):
     """One render_pass_persistent of scene `name` at 1080p, depth 50,
-    spp 2, pool 2^17, launch counts set to 0 just before; each kernel in
-    `kernels` must have launched."""
+    spp 2, pool 2^17, with MRT_TLAS_KERNEL=`route` (None: unset), launch
+    counts set to 0 just before; each kernel in `kernels`, and no other
+    BVH kernel, must have launched.  Returns (launches, mean radiance)."""
     from mrt_torch.runtime.film import Film
     from mrt_torch.runtime.render import render_pass_persistent
     from mrt_torch.scenes import get
 
-    scene, camera = get(name)().generate(device=dev)
-    film = Film.create(WIDTH, HEIGHT, device=dev)
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    film = render_pass_persistent(scene, camera, film, 1, 0, width=WIDTH,
-                                  height=HEIGHT, max_depth=50, samples=2,
-                                  pool=RAYS)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    with tlas_route(route):
+        scene, camera = get(name)().generate(device=dev)
+        film = Film.create(WIDTH, HEIGHT, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        film = render_pass_persistent(scene, camera, film, 1, 0, width=WIDTH,
+                                      height=HEIGHT, max_depth=50, samples=2,
+                                      pool=RAYS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     launches = read_launches()
-    check(all(launches[k] > 0 for k in kernels),
-          f"a kernel of the path never launched: {launches}")
+    check(all(launches[k] > 0 for k in kernels)
+          and all(launches[k] == 0 for k in ("B5", "B6", "B7")
+                  if k not in kernels),
+          f"{name}: the path's kernels {kernels} did not launch alone: "
+          f"{launches}")
     check(film.sum.shape == (HEIGHT, WIDTH, 3) and film.samples == 2,
           f"film shape {tuple(film.sum.shape)}, samples {film.samples}")
     check(torch.isfinite(film.sum).all(), "non-finite film")
@@ -333,11 +365,12 @@ def phase_main(phase, name, dev, kernels):
     mean = film.mean().mean().item()
     check(0.01 < mean < 2.0, f"implausible mean radiance {mean}")
     rays = WIDTH * HEIGHT * 2
-    log(phase, f"main path: {name} {WIDTH}x{HEIGHT} depth 50 spp 2 pool "
-               f"{RAYS}: {seconds:.3f} s, {rays / seconds:.1f} camera rays/s, "
-               f"bounces {depth_sum} ({depth_sum / rays:.3f} per camera ray), "
-               f"mean radiance {mean:.4f}, launches {launches}")
-    return launches
+    where = f" (MRT_TLAS_KERNEL={route})" if route else ""
+    log(phase, f"main path: {name}{where} {WIDTH}x{HEIGHT} depth 50 spp 2 "
+               f"pool {RAYS}: {seconds:.3f} s, {rays / seconds:.1f} camera "
+               f"rays/s, bounces {depth_sum} ({depth_sum / rays:.3f} per "
+               f"camera ray), mean radiance {mean:.6f}, launches {launches}")
+    return launches, mean
 
 
 def phase_b5(dev):
@@ -487,6 +520,94 @@ def phase_b7(dev):
     return dict(entry, library_ms=None)
 
 
+def b6_case(tree, rows, o, d, dev):
+    """B6 against its plain version on one BVH; returns its numbers."""
+    from mrt_torch.ops import _build
+    from mrt_torch.ops import bvh as K
+
+    n = o.shape[0]
+    lo = torch.full((n,), 1e-3, device=dev)
+    hi = torch.full((n,), float("inf"), device=dev)
+    k = K.tri_bvh_hit(tree.nodes, tree.meta, rows, o, d, lo, hi)
+    counts = {}
+    p = K.tri_bvh_plain(tree.nodes, tree.meta, rows, o, d, lo, hi,
+                        counts=counts)
+    torch.cuda.synchronize()
+    err, rel, agree = compare_hits("B6", k[0], k[1], p[0], p[1],
+                                   uv=((k[2], p[2]), (k[3], p[3])))
+    outs = [torch.empty_like(x) for x in k]
+    kernel = lambda: _build.launch("mrt_tri_bvh", dev, tree.nodes, tree.meta,
+                                   tree.n_nodes, rows, rows.shape[0], o, d,
+                                   lo, hi, n, *outs)
+    ms = graph_ms(kernel, 20)
+    plain_ms = call_ms(lambda: K.tri_bvh_plain(tree.nodes, tree.meta, rows,
+                                               o, d, lo, hi), 1)
+    ops = counts["nodes"] * OPS_NODE + counts.get("prims", 0) * OPS_TRI_TEST
+    moved = n * 48 + tree.n_nodes * 48 + rows.shape[0] * 36
+    return dict(max_abs_err=err, rel=rel, agree=agree, ms=ms,
+                plain_ms=plain_ms, nodes=tree.n_nodes, tris=rows.shape[0],
+                visits=counts["nodes"] / n, tests=counts.get("prims", 0) / n,
+                hit_share=torch.isfinite(p[0]).float().mean().item(),
+                **bound(moved, ops))
+
+
+def phase_b6(dev):
+    scene, o, d = path_rays("playground", dev)
+    tl = scene.tlas
+    check(tl.flat_tris.count == 210 and tl.flat_bvh.n_nodes == 15,
+          f"playground flat set: {tl.flat_tris.count} triangles, "
+          f"{tl.flat_bvh.n_nodes} nodes")
+    pg = b6_case(tl.flat_bvh, tl.flat_tris.rows, o, d, dev)
+    with tlas_route("flat"):
+        scene, o, d = path_rays("lucy", dev)
+    parts = scene.tlas.flat_parts
+    check(parts is not None and len(parts) == 16,
+          f"lucy has {0 if parts is None else len(parts)} flat parts, not 16")
+    lucy = [b6_case(p.bvh, p.rows, o, d, dev) for p in parts]
+    for what, r in [("playground flat set", pg)] + [
+            (f"lucy part {i}", r) for i, r in enumerate(lucy)]:
+        log(11, f"B6 {RAYS} rays, {what} ({r['tris']} triangles, "
+                f"{r['nodes']} nodes): triangle agreement {r['agree']:.6f}, "
+                f"hit share {r['hit_share']:.4f}, max |dt| "
+                f"{r['max_abs_err']:.3g} (rel {r['rel']:.3g}); per ray "
+                f"{r['visits']:.2f} node visits, {r['tests']:.2f} triangle "
+                f"tests; device time a call: kernel {r['ms']:.4f} ms (CUDA "
+                f"graph), plain {r['plain_ms']:.2f} ms (CUDA events); bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+    # The entry: one call a part, averaged over lucy's 16 parts (a lucy
+    # flat-parts step launches all 16).
+    mean = lambda k: sum(r[k] for r in lucy) / len(lucy)
+    by = max(("bytes", "operations"),
+             key=lambda b: sum(r["bound_by"] == b for r in lucy))
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "agree")
+    return dict(max_abs_err=max(r["max_abs_err"] for r in lucy),
+                ms=mean("ms"), plain_ms=mean("plain_ms"),
+                bound_ms=mean("bound_ms"), bound_by=by, library_ms=None,
+                lucy_16_parts=dict(ms=16 * mean("ms"),
+                                   plain_ms=16 * mean("plain_ms"),
+                                   bound_ms=16 * mean("bound_ms"),
+                                   ms_min=min(r["ms"] for r in lucy),
+                                   ms_max=max(r["ms"] for r in lucy)),
+                playground={k: pg[k] for k in keep})
+
+
+def phase_meshes(dev):
+    """Lucy and playground main paths on both routes; each scene's two
+    mean radiances within 1% of each other."""
+    runs = {}
+    for name, extra in (("lucy", ("B1",)), ("playground", ())):
+        two, two_mean = phase_main(12, name, dev, ("B2", "B7") + extra)
+        flat, flat_mean = phase_main(12, name, dev, ("B2", "B6") + extra,
+                                     route="flat")
+        gap = abs(flat_mean - two_mean) / two_mean
+        check(gap <= 0.01, f"{name}: mean radiance {flat_mean} on the flat "
+                           f"route, {two_mean} on the two-level route")
+        log(12, f"{name}: mean radiance two-level {two_mean:.6f}, flat "
+                f"{flat_mean:.6f}, relative gap {gap:.3g} (allowed 0.01)")
+        runs[name] = (two, flat)
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -507,11 +628,13 @@ def main():
     b1 = phase_b1(dev)
     b2 = phase_b2(dev)
     phase_golden(5, "rtiow", dev, grid=5)
-    rtiow = phase_main(6, "rtiow", dev, ("B1", "B2"))
+    rtiow, _ = phase_main(6, "rtiow", dev, ("B1", "B2"))
     b5 = phase_b5(dev)
     b7 = phase_b7(dev)
     phase_golden(9, "cornell", dev)
-    grid = phase_main(10, "sphere_grid", dev, ("B2", "B5", "B7"))
+    grid, _ = phase_main(10, "sphere_grid", dev, ("B2", "B5", "B7"))
+    b6 = phase_b6(dev)
+    meshes = phase_meshes(dev)
 
     kernels = [
         dict(name="B1 sphere nearest hit", route="cuda",
@@ -526,10 +649,16 @@ def main():
              source="mrt_torch/csrc/bvh.cu",
              replaces="mrt/ops/pallas_bvh.py:79",
              launches=grid["B5"], **b5),
+        dict(name="B6 triangle-BVH closest hit", route="cuda",
+             source="mrt_torch/csrc/bvh.cu",
+             replaces="mrt/ops/pallas_bvh.py:292",
+             launches=meshes["lucy"][1]["B6"],
+             launches_playground_flat=meshes["playground"][1]["B6"], **b6),
         dict(name="B7 two-level TLAS closest hit (B8 folded in)",
              route="cuda", source="mrt_torch/csrc/bvh.cu",
              replaces="mrt/ops/pallas_bvh.py:523",
-             launches=grid["B7"], **b7),
+             launches=grid["B7"], launches_lucy=meshes["lucy"][0]["B7"],
+             **b7),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,15 @@ Layout:
     mrt_torch.math        counter-based RNG, vector math, sampling, m4
     mrt_torch.core        camera, the entry points' default device
     mrt_torch.geometry    hit records, spheres, triangles, BVHs,
-                          instances (TLAS), the scene and its builder
+                          instances (TLAS and its world-flattened
+                          tables), the scene and its builder
+    mrt_torch.loaders     OBJ + MTL, PLY and STL mesh loaders
     mrt_torch.materials   material table, shading, backgrounds
-    mrt_torch.scenes      scene registry (rtiow, cornell, sphere_grid)
+    mrt_torch.scenes      scene registry (rtiow, cornell, sphere_grid,
+                          lucy, playground)
     mrt_torch.integrator  wavefront and persistent integrators
-    mrt_torch.runtime     film, render driver
+    mrt_torch.runtime     film, render driver, asset lookup, input
+                          record/replay, character physics
     mrt_torch.ops         kernel wrappers and their plain versions
     mrt_torch.csrc        CUDA sources, built with nvcc at first use
     mrt_torch.convert     numpy parameters -> port modules

@@ -14,20 +14,26 @@ from .geometry.bvh import FlatBVH
 from .geometry.instance import TLAS
 from .geometry.scene import Scene
 from .geometry.spheres import Spheres
+from .geometry.triangles import FIELDS as TRI_FIELDS
+from .geometry.triangles import TriangleTable, Triangles
 from .materials.background import SkyBackground, SolidBackground
 from .materials.table import MaterialTable
 
 
 def scene_from_numpy(spheres, materials, *, has_mix, background=None,
-                     mix_depth=None, sphere_bvh=None, tlas=None):
+                     mix_depth=None, sphere_bvh=None, tlas=None,
+                     triangles=None, bvh=None):
     """spheres: mapping with "center" (S,3), "radius" (S,), "material"
     (S,); materials: mapping with the MaterialTable.FIELDS arrays;
     background: None for the sky gradient, else an RGB color for a
     solid background; mix_depth: the table's Mix nesting depth (None:
     MAX_MIX_DEPTH); sphere_bvh: None, or a mapping with the FlatBVH
     arrays "bmin", "bmax", "first", "count", "escape" over the spheres
-    as given; tlas: None, or a mapping of the TLAS's leaves
-    (``TLAS.from_numpy``; the world-flattened fields are ignored).
+    as given; tlas: None, or a mapping of the TLAS's leaves, its
+    world-flattened tables included (``TLAS.from_numpy``); triangles:
+    None, or a mapping with the Triangles fields; bvh: None (a
+    brute-force scan), or a mapping with the FlatBVH arrays over those
+    triangles as given.
 
     The scene is built on the CPU; ``.to(device)`` moves it."""
     table_kw = {k: np.asarray(materials[k]) for k in MaterialTable.FIELDS}
@@ -39,12 +45,16 @@ def scene_from_numpy(spheres, materials, *, has_mix, background=None,
                         for k in ("center", "radius", "material")))
     bg = (SkyBackground.create() if background is None
           else SolidBackground.create(np.asarray(background, np.float32)))
-    bvh = None
-    if sphere_bvh is not None:
-        bvh = FlatBVH.create(*(np.asarray(sphere_bvh[k]) for k in
-                               ("bmin", "bmax", "first", "count", "escape")))
+    flat_bvh = lambda m: None if m is None else FlatBVH.create(
+        *(np.asarray(m[k]) for k in FlatBVH.FIELDS))
+    tris = None
+    if triangles is not None:
+        tris = TriangleTable(Triangles(**{k: np.asarray(triangles[k])
+                                          for k in TRI_FIELDS}))
     return Scene(materials=MaterialTable(**table_kw), background=bg,
-                 spheres=sph, has_mix=has_mix, sphere_bvh=bvh,
+                 spheres=sph, has_mix=has_mix,
+                 sphere_bvh=flat_bvh(sphere_bvh), triangles=tris,
+                 bvh=flat_bvh(bvh),
                  tlas=None if tlas is None else TLAS.from_numpy(tlas))
 
 

@@ -1,7 +1,10 @@
-// Kernels B5 (sphere-BVH closest hit) and B7 (two-level TLAS closest hit).
+// Kernels B5 (sphere-BVH closest hit), B6 (triangle-BVH closest hit) and
+// B7 (two-level TLAS closest hit).
 //
 // B5 replaces mrt/ops/pallas_bvh.py::_kernel (wrapper
-// intersect_bvh_spheres).  B7 replaces pallas_bvh.py::_tlas_kernel and
+// intersect_bvh_spheres).  B6 replaces pallas_bvh.py::_tri_kernel (wrapper
+// traverse_bvh_tris): the single-level mesh walk of the world-flattened
+// TLAS routes and of a scene's own mesh BVH.  B7 replaces pallas_bvh.py::_tlas_kernel and
 // ::_tlas_kernel_ordered (wrapper intersect_tlas), and also
 // mrt/ops/pallas_stream.py::_build_kernel: that kernel pages tables past
 // the TPU's 448 KB of SMEM in from HBM; here every table is read from
@@ -10,7 +13,7 @@
 // 1024-ray packet; here each thread walks its own ray, so no ray visits
 // a node that its own slab test culled.
 //
-// Both walk the flattened BVH stacklessly: a hit inner node continues at
+// All three walk the flattened BVH stacklessly: a hit inner node continues at
 // node + 1, anything else at its escape index.  The arithmetic mirrors
 // the plain PyTorch versions in mrt_torch/ops/bvh.py operation for
 // operation (the library is built with --fmad=false, so nothing is
@@ -22,11 +25,13 @@
 //     (mrt/geometry/bvh.py:459-479): oc = o - c, half_b = oc.d,
 //     c = oc.oc - r^2, disc = half_b^2 - a c, roots (-half_b -+ sq) / a
 //     as a multiply by 1/a; near root first; equal t -> lower index;
-//   - B7 warps the ray into the instance as ((r0 ox + r1 oy) + r2 oz) + t0
-//     (the Pallas order, pallas_bvh.py:577-586), then Möller–Trumbore with
-//     DET_EPS = 1e-6 and inv_det = 1 / (det_ok ? det : 1); equal t -> the
-//     lexicographically lower (instance, triangle), so the visit order
-//     never changes the winner.
+//   - B6 and B7 share the leaf test (tri_test): Möller–Trumbore with
+//     DET_EPS = 1e-6 and inv_det = 1 / (det_ok ? det : 1), t accepted in
+//     [t_min, t_max]; the slab's far limit is min(best, t_max).  B6: equal
+//     t -> the lower triangle index.  B7 first warps the ray into the
+//     instance as ((r0 ox + r1 oy) + r2 oz) + t0 (the Pallas order,
+//     pallas_bvh.py:577-586); equal t -> the lexicographically lower
+//     (instance, triangle).  So the visit order never changes the winner.
 //
 // Tables (row-major, one row per node / primitive):
 //   nodes  float4 x2 per node: (bmin xyz, 0), (bmax xyz, 0)
@@ -37,13 +42,14 @@
 //   imeta  int2 per instance: (blas_root, blas_end)
 //   tris   9 floats per triangle: va, e_ab, e_ac
 //
-// Bound: FP32 issue rate.  A node visit costs ~25 operations (slab test
-// and advance), a sphere test ~30, a triangle test ~45; the tables of
-// sphere_grid (1,023 nodes, 10,000 spheres: 209 KB) and of an 8,000-
-// instance TLAS (~1.2 MB) stay in L2, and rays and results move ~40
-// bytes a ray.  Threads of a warp diverge in their walks; this first
-// kernel does nothing about it (no packets, no ray sorting, no
-// front-to-back order).
+// Bound: FP32 issue rate.  A node visit costs ~26 operations (slab test
+// and advance), a sphere test ~32, a triangle test ~58; the tables of
+// sphere_grid (1,023 nodes, 10,000 spheres: 209 KB), of an 8,000-
+// instance TLAS (~1.2 MB) and of a lucy flat part (~6,000 triangles,
+// ~230 KB) stay in L2, and rays and results move ~40-52 bytes a ray.
+// Threads of a warp diverge in their walks; these first kernels do
+// nothing about it (no packets, no ray sorting, no front-to-back order,
+// no shared-memory tables).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -75,6 +81,33 @@ __device__ __forceinline__ bool slab(const float4* __restrict__ nodes,
   const float far = minp(
       minp(minp(maxp(t0x, t1x), maxp(t0y, t1y)), maxp(t0z, t1z)), t_max);
   return near <= far;
+}
+
+// Möller–Trumbore against triangle row `tr` (va, e_ab, e_ac): true if the
+// ray hits it at t in [lo, hi]; t, u, v out.
+__device__ __forceinline__ bool tri_test(const float* __restrict__ tr,
+                                         float ox, float oy, float oz,
+                                         float dx, float dy, float dz,
+                                         float lo, float hi, float& t,
+                                         float& u, float& v) {
+  const float vax = __ldg(tr + 0), vay = __ldg(tr + 1), vaz = __ldg(tr + 2);
+  const float abx = __ldg(tr + 3), aby = __ldg(tr + 4), abz = __ldg(tr + 5);
+  const float acx = __ldg(tr + 6), acy = __ldg(tr + 7), acz = __ldg(tr + 8);
+  const float px = dy * acz - dz * acy;
+  const float py = dz * acx - dx * acz;
+  const float pz = dx * acy - dy * acx;
+  const float det = (abx * px + aby * py) + abz * pz;
+  const bool det_ok = fabsf(det) >= kDetEps;
+  const float inv_det = 1.0f / (det_ok ? det : 1.0f);
+  const float tvx = ox - vax, tvy = oy - vay, tvz = oz - vaz;
+  u = ((tvx * px + tvy * py) + tvz * pz) * inv_det;
+  const float qx = tvy * abz - tvz * aby;
+  const float qy = tvz * abx - tvx * abz;
+  const float qz = tvx * aby - tvy * abx;
+  v = ((dx * qx + dy * qy) + dz * qz) * inv_det;
+  t = ((acx * qx + acy * qy) + acz * qz) * inv_det;
+  return det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
+         t >= lo && t <= hi;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -130,6 +163,50 @@ sphere_bvh_kernel(const float4* __restrict__ nodes,
   }
   t_out[ray] = best;
   i_out[ray] = best_i;
+}
+
+__global__ void __launch_bounds__(kThreads)
+tri_bvh_kernel(const float4* __restrict__ nodes, const int4* __restrict__ meta,
+               int m, const float* __restrict__ tris, int n_tris,
+               const float* __restrict__ o, const float* __restrict__ d,
+               const float* __restrict__ t_min,
+               const float* __restrict__ t_max, int n,
+               float* __restrict__ t_out, int* __restrict__ i_out,
+               float* __restrict__ u_out, float* __restrict__ v_out) {
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ray >= n) return;
+  const float ox = o[3 * ray], oy = o[3 * ray + 1], oz = o[3 * ray + 2];
+  const float dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
+  const float lo = t_min[ray], hi = t_max[ray];
+  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+
+  float best = CUDART_INF_F, bu = 0.f, bv = 0.f;
+  int best_i = 0;
+  int node = 0;
+  while (node < m) {
+    const int4 row = __ldg(meta + node);
+    const bool hit = slab(nodes, node, ox, oy, oz, ix, iy, iz, lo,
+                          minp(best, hi));
+    if (hit && row.y > 0) {
+      for (int k = 0; k < row.y; ++k) {
+        const int ti = min(row.x + k, n_tris - 1);
+        float t, u, v;
+        if (tri_test(tris + 9 * ti, ox, oy, oz, dx, dy, dz, lo, hi, t, u,
+                     v) &&
+            (t < best || (t == best && ti < best_i))) {
+          best = t;
+          best_i = ti;
+          bu = u;
+          bv = v;
+        }
+      }
+    }
+    node = (hit && row.y == 0) ? node + 1 : row.z;
+  }
+  t_out[ray] = best;
+  i_out[ray] = best_i;
+  u_out[ray] = bu;
+  v_out[ray] = bv;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -193,32 +270,11 @@ tlas_kernel(const float4* __restrict__ tnodes, const int4* __restrict__ tmeta,
     if (hit && row.y > 0) {
       for (int k = 0; k < row.y; ++k) {
         const int ti = min(row.x + k, n_tris - 1);
-        const float* tr = tris + 9 * ti;
-        const float vax = __ldg(tr + 0), vay = __ldg(tr + 1),
-                    vaz = __ldg(tr + 2);
-        const float abx = __ldg(tr + 3), aby = __ldg(tr + 4),
-                    abz = __ldg(tr + 5);
-        const float acx = __ldg(tr + 6), acy = __ldg(tr + 7),
-                    acz = __ldg(tr + 8);
-        const float px = ldy * acz - ldz * acy;
-        const float py = ldz * acx - ldx * acz;
-        const float pz = ldx * acy - ldy * acx;
-        const float det = (abx * px + aby * py) + abz * pz;
-        const bool det_ok = fabsf(det) >= kDetEps;
-        const float inv_det = 1.0f / (det_ok ? det : 1.0f);
-        const float tvx = lox - vax, tvy = loy - vay, tvz = loz - vaz;
-        const float u = ((tvx * px + tvy * py) + tvz * pz) * inv_det;
-        const float qx = tvy * abz - tvz * aby;
-        const float qy = tvz * abx - tvx * abz;
-        const float qz = tvx * aby - tvy * abx;
-        const float v = ((ldx * qx + ldy * qy) + ldz * qz) * inv_det;
-        const float t = ((acx * qx + acy * qy) + acz * qz) * inv_det;
-        const bool ok = det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-                        u + v <= 1.0f && t >= lo && t <= hi &&
-                        (t < bt || (t == bt && (inst < b_inst ||
-                                                (inst == b_inst &&
-                                                 ti < b_tri))));
-        if (ok) {
+        float t, u, v;
+        if (tri_test(tris + 9 * ti, lox, loy, loz, ldx, ldy, ldz, lo, hi, t,
+                     u, v) &&
+            (t < bt ||
+             (t == bt && (inst < b_inst || (inst == b_inst && ti < b_tri))))) {
           bt = t;
           b_inst = inst;
           b_tri = ti;
@@ -256,6 +312,21 @@ extern "C" int mrt_sphere_bvh(const float* nodes, const int* meta, int m,
       reinterpret_cast<const int4*>(meta), m,
       reinterpret_cast<const float4*>(sph), s, o, d, t_min, t_max, n, t_out,
       i_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mrt_tri_bvh(const float* nodes, const int* meta, int m,
+                           const float* tris, int n_tris, const float* o,
+                           const float* d, const float* t_min,
+                           const float* t_max, int n, float* t_out,
+                           int* i_out, float* u_out, float* v_out,
+                           cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  tri_bvh_kernel<<<blocks, kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const int4*>(meta), m, tris, n_tris, o, d, t_min,
+      t_max, n, t_out, i_out, u_out, v_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,18 +1,18 @@
 """Bounding volume hierarchies: host build and stackless traversal
 (mirrors ``mrt.geometry.bvh``).
 
-The build runs on the host in NumPy: a deterministic widest-axis median
-split down to LEAF_SIZE primitives a leaf, flattened depth-first with
-**escape indices** (node i's subtree is skipped by jumping to
-escape[i]), so a traversal needs no stack.  Its trees are those of the
-reference's median build, array for array.  (The reference switches to
-its C++ builder above 1,024 primitives; that builder reproduces this
-Python body bit for bit.  The SAH split comes with the scenes that use
-it.)
+The build runs on the host in NumPy: a deterministic split down to
+LEAF_SIZE primitives a leaf, either at the median along the widest axis
+or, with ``split="sah"``, by the binned surface-area heuristic (falling
+back to the median where the SAH finds no split).  It is flattened
+depth-first with **escape indices** (node i's subtree is skipped by
+jumping to escape[i]), so a traversal needs no stack.  Its trees are the
+reference's, array for array, for both splits.  (The reference switches
+to its C++ builder above 1,024 primitives; that builder reproduces this
+Python body bit for bit, and the port builds in Python at every size.)
 
-Traversal: sphere BVHs go through kernel B5 (``ops.bvh``); triangle
-BVHs through the plain ``intersect_bvh_tris`` (their kernel, B6, is not
-ported yet: no scene of this slice has a single-level mesh BVH).
+Traversal: sphere BVHs go through kernel B5 and triangle BVHs through
+kernel B6 (``ops.bvh``).
 """
 
 from __future__ import annotations
@@ -24,15 +24,19 @@ import torch
 from torch import nn
 
 from ..ops import bvh as kernel
-from ..ops.bvh import LEAF_SIZE, slab_hit, tri_leaf
+from ..ops.bvh import LEAF_SIZE
 from . import spheres as sphere_mod
-from .hit import INF
+from . import triangles as tri_mod
+from .hit import Hits
 
 
 class FlatBVH(nn.Module):
     """A flattened BVH in the kernel's layout: ``nodes`` (M, 8) float32
     rows (bmin xyz, 0, bmax xyz, 0) and ``meta`` (M, 4) int32 rows
     (first, count, escape, 0); count 0 marks an inner node."""
+
+    # The reference's arrays, in ``create``'s order.
+    FIELDS = ("bmin", "bmax", "first", "count", "escape")
 
     def __init__(self, nodes, meta):
         super().__init__()
@@ -69,12 +73,72 @@ def node_rows(bmin, bmax):
     return nodes
 
 
-def build(centroids, bounds_min, bounds_max, leaf_size=LEAF_SIZE):
-    """Median-split BVH over primitives, on the host.
+# Binned-SAH split: bins per axis for the surface-area heuristic (the
+# expected traversal cost, sum of child area x child count).
+SAH_BINS = 16
 
-    centroids, bounds_min, bounds_max: (T, 3).  Returns ((bmin, bmax,
-    first, count, escape) as NumPy, order), where ``order`` permutes the
-    primitive arrays so that every leaf's primitives are contiguous."""
+
+def _area(lo, hi):
+    """Surface area of AABBs (..., 3); 0 for empty (inf/-inf) boxes."""
+    d = hi - lo
+    ok = np.all(np.isfinite(d), axis=-1) & np.all(d >= 0.0, axis=-1)
+    d = np.where(ok[..., None], d, 0.0)
+    return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                  + d[..., 2] * d[..., 0])
+
+
+def _sah_partition(prim, centroids, bounds_min, bounds_max):
+    """Best binned-SAH split of `prim`: a bool left mask, or None where
+    the centroids coincide or no split separates anything.  Costs in
+    float64; of equal costs the first split (lowest axis, then bin)
+    wins."""
+    c = centroids[prim]
+    cmin, cmax = c.min(axis=0), c.max(axis=0)
+    best_cost = np.inf
+    best = None
+    for axis in range(3):
+        ext = cmax[axis] - cmin[axis]
+        if ext <= 0.0:
+            continue
+        scale = SAH_BINS * (1.0 - 1e-12) / ext
+        b = ((c[:, axis] - cmin[axis]) * scale).astype(np.int64)
+        cnt = np.bincount(b, minlength=SAH_BINS).astype(np.float64)
+        bin_min = np.full((SAH_BINS, 3), np.inf)
+        bin_max = np.full((SAH_BINS, 3), -np.inf)
+        np.minimum.at(bin_min, b, bounds_min[prim])
+        np.maximum.at(bin_max, b, bounds_max[prim])
+        # Prefix (left) and suffix (right) boxes and counts over bins.
+        lmin = np.minimum.accumulate(bin_min, axis=0)
+        lmax = np.maximum.accumulate(bin_max, axis=0)
+        rmin = np.minimum.accumulate(bin_min[::-1], axis=0)[::-1]
+        rmax = np.maximum.accumulate(bin_max[::-1], axis=0)[::-1]
+        lcnt = np.cumsum(cnt)
+        rcnt = cnt.sum() - lcnt
+        # Split k: left bins [0, k], right bins [k + 1, SAH_BINS).
+        la = _area(lmin[:-1], lmax[:-1])
+        ra = _area(rmin[1:], rmax[1:])
+        cost = (np.where(lcnt[:-1] > 0, lcnt[:-1] * la, 0.0)
+                + np.where(rcnt[:-1] > 0, rcnt[:-1] * ra, 0.0))
+        valid = (lcnt[:-1] > 0) & (rcnt[:-1] > 0)
+        if not valid.any():
+            continue
+        cost = np.where(valid, cost, np.inf)
+        k = int(np.argmin(cost))
+        if cost[k] < best_cost:
+            best_cost = cost[k]
+            best = b <= k
+    return best
+
+
+def build(centroids, bounds_min, bounds_max, leaf_size=LEAF_SIZE,
+          split=None):
+    """BVH over primitives, on the host.
+
+    centroids, bounds_min, bounds_max: (T, 3).  split: "median" (None)
+    or "sah".  Returns ((bmin, bmax, first, count, escape) as NumPy,
+    order), where ``order`` permutes the primitive arrays so that every
+    leaf's primitives are contiguous."""
+    sah = split == "sah"
     t = centroids.shape[0]
     centroids = np.asarray(centroids, np.float64)
     bounds_min = np.asarray(bounds_min, np.float64)
@@ -93,18 +157,28 @@ def build(centroids, bounds_min, bounds_max, leaf_size=LEAF_SIZE):
         if n <= leaf_size:
             nodes.append([bmin, bmax, start, n, -1])
             return
-        axis = int(np.argmax(bmax - bmin))
-        key = np.argsort(centroids[prim][:, axis], kind="stable")
-        order[start:end] = prim[key]
-        mid = start + n // 2
+        mid = None
+        if sah:
+            mask = _sah_partition(prim, centroids, bounds_min, bounds_max)
+            if mask is not None:
+                # A stable two-sided partition.
+                order[start:end] = np.concatenate([prim[mask], prim[~mask]])
+                mid = start + int(mask.sum())
+        if mid is None:  # the median split, also where the SAH found none
+            axis = int(np.argmax(bmax - bmin))
+            key = np.argsort(centroids[prim][:, axis], kind="stable")
+            order[start:end] = prim[key]
+            mid = start + n // 2
         nodes.append([bmin, bmax, 0, 0, -1])
         build_range(start, mid)
         build_range(mid, end)
         nodes[idx][4] = len(nodes)
 
+    # SAH trees are not count-balanced and may run deep.
     old_limit = sys.getrecursionlimit()
-    sys.setrecursionlimit(max(old_limit,
-                              4 * int(np.log2(max(t, 2)) + 2) * 64))
+    depth_guess = (20000 if sah
+                   else 4 * int(np.log2(max(t, 2)) + 2) * 64)
+    sys.setrecursionlimit(max(old_limit, depth_guess))
     try:
         build_range(0, t)
     finally:
@@ -121,16 +195,16 @@ def build(centroids, bounds_min, bounds_max, leaf_size=LEAF_SIZE):
     return (bmin, bmax, first, count, escape), order
 
 
-def build_over_triangles(tris, leaf_size=LEAF_SIZE):
-    """BVH over a host (NumPy) Triangles set; returns (FlatBVH,
-    reordered Triangles)."""
+def build_over_triangles(tris, leaf_size=LEAF_SIZE, split=None):
+    """BVH over a host (NumPy) Triangles set, split "median" (None) or
+    "sah"; returns (FlatBVH, reordered Triangles)."""
     va = np.asarray(tris.va)
     vb = va + np.asarray(tris.e_ab)
     vc = va + np.asarray(tris.e_ac)
     bmin = np.minimum(np.minimum(va, vb), vc)
     bmax = np.maximum(np.maximum(va, vb), vc)
     cent = (va + vb + vc) / 3.0
-    arrays, order = build(cent, bmin, bmax, leaf_size)
+    arrays, order = build(cent, bmin, bmax, leaf_size, split=split)
     return FlatBVH.create(*arrays), tris.map(lambda x: np.asarray(x)[order])
 
 
@@ -161,46 +235,17 @@ def kernel_spheres(spheres):
 
 
 def intersect_bvh_tris(tris, bvh: FlatBVH, o, d, t_min, t_max):
-    """Closest triangle hit through a single-level triangle BVH: the
-    plain stackless traversal (B6's kernel is not ported yet).
+    """Closest triangle hit through a single-level triangle BVH (kernel
+    B6).
 
-    tris: torch Triangles in BVH order.  t_min, t_max: scalars or (N,).
+    tris: a TriangleTable in BVH order.  t_min, t_max: scalars or (N,).
     Returns (t (N,), +inf on a miss; index (N,) int32; u; v)."""
-    n = o.shape[0]
-    dev = o.device
-    t_min = torch.as_tensor(t_min, dtype=torch.float32,
-                            device=dev).expand(n)
-    t_max = torch.as_tensor(t_max, dtype=torch.float32,
-                            device=dev).expand(n)
-    table = torch.cat([tris.va, tris.e_ab, tris.e_ac], dim=1)
-    m = bvh.n_nodes
-    inv_d = 1.0 / d
-    best_t = torch.full((n,), INF, device=dev)
-    best_i = torch.zeros((n,), dtype=torch.int64, device=dev)
-    best_u = torch.zeros((n,), device=dev)
-    best_v = torch.zeros((n,), device=dev)
-    node = torch.zeros((n,), dtype=torch.int64, device=dev)
-    meta = bvh.meta.to(torch.int64)
-    while True:
-        lane = (node < m).nonzero()[:, 0]
-        if not lane.numel():
-            break
-        ni = node[lane]
-        box = bvh.nodes[ni]
-        hit = slab_hit(box[:, 0:3], box[:, 4:7], o[lane], inv_d[lane],
-                       t_min[lane], torch.minimum(best_t[lane], t_max[lane]))
-        row = meta[ni]
-        leaf = row[:, 1] > 0
-        test = hit & leaf
-        k = lane[test]
-        if k.numel():
-            ct, ci, cu, cv = tri_leaf(table, row[test, 0], row[test, 1],
-                                      o[k], d[k], t_min[k], t_max[k])
-            bt, bi = best_t[k], best_i[k]
-            better = (ct < bt) | ((ct == bt) & (ci < bi))
-            best_t[k] = torch.where(better, ct, bt)
-            best_i[k] = torch.where(better, ci, bi)
-            best_u[k] = torch.where(better, cu, best_u[k])
-            best_v[k] = torch.where(better, cv, best_v[k])
-        node[lane] = torch.where(hit & ~leaf, ni + 1, row[:, 2])
-    return best_t, best_i.to(torch.int32), best_u, best_v
+    return kernel.tri_bvh_hit(bvh.nodes, bvh.meta, tris.rows, o, d, t_min,
+                              t_max)
+
+
+def intersect_bvh(tris, bvh: FlatBVH, o, d, t_min, t_max) -> Hits:
+    """Closest triangle hit through a single-level BVH (kernel B6), as
+    Hits."""
+    t, i, u, v = intersect_bvh_tris(tris, bvh, o, d, t_min, t_max)
+    return tri_mod.make_hits(tris, o, d, t, i, u, v)

@@ -2,10 +2,16 @@
 plus a closest-hit dispatcher, and ``SceneBuilder``, the host-side
 accumulator that builds one.
 
-This slice carries spheres (brute force through kernel B1, or a sphere
-BVH through kernel B5 from SPHERE_BVH_THRESHOLD spheres on) and
-instanced meshes (a TLAS through kernel B7).  The other primitive sets
-join the port with their slices.
+Primitive sets, in the order their hits fold (on equal t the earlier
+set keeps the hit):
+  - spheres: brute force through kernel B1, or a sphere BVH through
+    kernel B5 from SPHERE_BVH_THRESHOLD spheres on;
+  - triangles: a mesh under its own single-level BVH (kernel B6), or a
+    small set scanned by brute force (``SceneBuilder.add_triangles``);
+  - instanced meshes: a TLAS, through kernel B7, or through kernel B6 on
+    its world-flattened routes where ``MRT_TLAS_KERNEL`` opts in
+    (``instance.wants_flat`` / ``wants_flat_parts``).
+Volumes, voxels, textures and lights join the port with their slices.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from ..core.device import resolve
 from . import bvh as bvh_mod
 from . import instance as inst_mod
 from . import spheres as sphere_mod
+from . import triangles as tri_mod
 from .hit import Hits
 
 T_MIN = 1e-3  # intersect(ray, 0.001, inf), as in the reference
@@ -26,16 +33,20 @@ T_MIN = 1e-3  # intersect(ray, 0.001, inf), as in the reference
 class Scene(nn.Module):
     """materials: MaterialTable; background: a background module;
     spheres: Spheres or None; sphere_bvh: FlatBVH over the spheres (in
-    BVH order) or None; tlas: TLAS or None.  ``has_mix`` is False when
-    no material row is a MIX (shading then skips the row resolution)."""
+    BVH order) or None; triangles: a TriangleTable or None; bvh: FlatBVH
+    over the triangles (in BVH order) or None for a brute-force scan;
+    tlas: TLAS or None.  ``has_mix`` is False when no material row is a
+    MIX (shading then skips the row resolution)."""
 
     def __init__(self, materials, background, spheres=None, has_mix=True,
-                 sphere_bvh=None, tlas=None):
+                 sphere_bvh=None, tlas=None, triangles=None, bvh=None):
         super().__init__()
         self.materials = materials
         self.background = background
         self.spheres = spheres
         self.sphere_bvh = sphere_bvh
+        self.triangles = triangles
+        self.bvh = bvh
         self.tlas = tlas
         self.has_mix = bool(has_mix)
 
@@ -46,6 +57,9 @@ class Scene(nn.Module):
         if self.tlas is not None:
             mins.append(self.tlas.t_bmin[0])
             maxs.append(self.tlas.t_bmax[0])
+        if self.bvh is not None:
+            mins.append(self.bvh.bmin[0])
+            maxs.append(self.bvh.bmax[0])
         if self.sphere_bvh is not None:
             mins.append(self.sphere_bvh.bmin[0])
             maxs.append(self.sphere_bvh.bmax[0])
@@ -62,7 +76,7 @@ class Scene(nn.Module):
 
     def intersect(self, o, d, t_min=T_MIN, t_max=float("inf")) -> Hits:
         """Closest hit of each ray (o, d: (N, 3)) against every primitive
-        set; on equal t the earlier set (spheres) keeps the hit."""
+        set; on equal t the earlier set keeps the hit."""
         hits = Hits.none(o.shape[0], device=o.device)
         if self.spheres is not None:
             if self.sphere_bvh is not None:
@@ -71,9 +85,27 @@ class Scene(nn.Module):
             else:
                 hits = hits.closer_of(
                     sphere_mod.intersect(self.spheres, o, d, t_min, t_max))
+        if self.triangles is not None:
+            if self.bvh is not None:
+                hits = hits.closer_of(bvh_mod.intersect_bvh(
+                    self.triangles, self.bvh, o, d, t_min, t_max))
+            else:
+                hits = hits.closer_of(tri_mod.intersect_brute(
+                    self.triangles, o, d, t_min, t_max))
         if self.tlas is not None:
-            hits = hits.closer_of(inst_mod.intersect_tlas(
-                self.tlas, o, d, t_min, t_max))
+            # The reference's TPU dispatch passes auto=True, its XLA one
+            # False; the card takes the first, the CPU the second.
+            auto = o.device.type == "cuda"
+            if inst_mod.wants_flat(self.tlas, auto):
+                hits = hits.closer_of(bvh_mod.intersect_bvh(
+                    self.tlas.flat_tris, self.tlas.flat_bvh, o, d, t_min,
+                    t_max))
+            elif inst_mod.wants_flat_parts(self.tlas, auto):
+                hits = hits.closer_of(inst_mod.intersect_tlas_flat_parts(
+                    self.tlas, o, d, t_min, t_max))
+            else:
+                hits = hits.closer_of(inst_mod.intersect_tlas(
+                    self.tlas, o, d, t_min, t_max))
         return hits
 
     def background_eval(self, d):
@@ -85,9 +117,9 @@ class Scene(nn.Module):
 
 
 class SceneBuilder:
-    """Host-side accumulator of spheres, meshes and instances (the
-    reference's World + Model pattern).  Volumes, voxels, textures and
-    lights join with their slices."""
+    """Host-side accumulator of spheres, meshes, instances and brute-force
+    triangle sets (the reference's World + Model pattern).  Volumes,
+    voxels, textures and lights join with their slices."""
 
     # Sphere sets at or above this size get a BVH.
     SPHERE_BVH_THRESHOLD = 64
@@ -99,6 +131,7 @@ class SceneBuilder:
         self._background = background
         self._sphere_rows = []
         self._registry = None
+        self._tri_groups = []
 
     def _ensure_registry(self):
         if self._registry is None:
@@ -109,16 +142,24 @@ class SceneBuilder:
         self._sphere_rows.append((tuple(center), float(radius),
                                   int(material)))
 
-    def add_mesh(self, tris):
-        """Register a mesh (host Triangles) for instancing; returns its
-        id."""
-        return self._ensure_registry().add_mesh(tris)
+    def add_mesh(self, tris, split=None):
+        """Register a mesh (host Triangles) for instancing, under a BVH
+        split "median" (None) or "sah"; returns its id."""
+        return self._ensure_registry().add_mesh(tris, split=split)
 
     def add_instance(self, mesh_id, translation=(0, 0, 0),
                      rotation=(0, 0, 0), scale=(1, 1, 1), material=None):
         """Place an instance; rotation in turns."""
         return self._ensure_registry().add_instance(
             mesh_id, translation, rotation, scale, material)
+
+    def add_model(self, tris, material=None):
+        """A mesh placed once, untransformed: an identity instance."""
+        return self.add_instance(self.add_mesh(tris), material=material)
+
+    def add_triangles(self, tris):
+        """A small host Triangles set, intersected by brute force."""
+        self._tri_groups.append(tris)
 
     def build(self, device=None) -> Scene:
         """The Scene, on `device` (None: the CUDA card)."""
@@ -132,11 +173,15 @@ class SceneBuilder:
                 material=np.array([r[2] for r in rows], np.int32))
             if spheres.count >= self.SPHERE_BVH_THRESHOLD:
                 sphere_bvh, spheres = bvh_mod.build_over_spheres(spheres)
+        triangles = None
+        if self._tri_groups:
+            triangles = tri_mod.TriangleTable(
+                tri_mod.concatenate(self._tri_groups))
         tlas = None
         if self._registry is not None and self._registry._instances:
             tlas = self._registry.build()
         scene = Scene(materials=self._materials.build(),
                       background=self._background, spheres=spheres,
                       has_mix=self._materials.has_mix(),
-                      sphere_bvh=sphere_bvh, tlas=tlas)
+                      sphere_bvh=sphere_bvh, tlas=tlas, triangles=triangles)
         return scene.to(device)

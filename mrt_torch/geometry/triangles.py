@@ -1,15 +1,17 @@
 """Triangle sets and Möller–Trumbore (mirrors ``mrt.geometry.triangles``).
 
 Triangles are built on the host as NumPy SoA arrays (``build``,
-``from_soup``); the TLAS concatenates them and moves them to the device
-once.  Semantics of the reference:
+``from_soup``); a ``TriangleTable`` (or the TLAS) moves them to the
+device once.  Semantics of the reference:
   - det epsilon 1e-6 rejects parallel rays;
-  - barycentric smooth normal, NOT renormalised;
+  - barycentric smooth normal, NOT renormalised, except on sets marked
+    ``unit_normal`` (world-flattened instances, whose normals carry the
+    instance's linear part: the instanced path normalises after it);
   - tangent/bitangent from UV deltas at build, r clamped to [-1, 1];
   - flat normal fallback = unit(ab x ac).
 
-The brute-force ``nearest_hit`` joins the port with the textured slice;
-no scene of this slice intersects triangles without a BVH.
+``nearest_hit`` is the brute-force scan (``SceneBuilder.add_triangles``);
+BVHs go through kernel B6 (``geometry.bvh.intersect_bvh``).
 """
 
 from __future__ import annotations
@@ -18,11 +20,15 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch import nn
 
-from ..math.vec import cross, dot
+from ..math.vec import cross, dot, sqrt
 from .hit import INF, Hits, set_face_normal
 
 DET_EPS = 1e-6
+# Triangles a step of the brute scan: the (N, CHUNK) temporaries bound
+# its memory.
+CHUNK = 64
 
 FIELDS = ("va", "e_ab", "e_ac", "na", "nb", "nc", "uva", "uvb", "uvc",
           "tangent", "bitangent", "material", "has_uv")
@@ -43,6 +49,8 @@ class Triangles:
     bitangent: object  # (T,3)
     material: object   # (T,) int32
     has_uv: object     # (T,) bool
+    # Normalise the interpolated smooth normal at hit time.
+    unit_normal: bool = False
 
     @property
     def count(self):
@@ -124,6 +132,24 @@ def concatenate(tris_list):
         for k in FIELDS})
 
 
+class TriangleTable(nn.Module):
+    """A triangle set as device tables: ``rows`` (T, 9) float32 va,
+    e_ab, e_ac (the kernels' layout) and ``shading`` (T, 29) its
+    ``shading_table``; ``unit_normal`` as on Triangles."""
+
+    def __init__(self, tris: Triangles):
+        super().__init__()
+        t = tris.to_torch()
+        self.register_buffer(
+            "rows", torch.cat([t.va, t.e_ab, t.e_ac], dim=1).contiguous())
+        self.register_buffer("shading", shading_table(t).contiguous())
+        self.unit_normal = bool(tris.unit_normal)
+
+    @property
+    def count(self):
+        return self.rows.shape[0]
+
+
 def moller_trumbore(va, ab, ac, o, d):
     """Möller–Trumbore in the reference traversal's operation order.
 
@@ -163,21 +189,64 @@ def unpack_shading(row):
         e_ab=row[:, 23:26], e_ac=row[:, 26:29])
 
 
-def make_hits(tris: Triangles, o, d, t, index, u, v, table=None) -> Hits:
-    """Expand winners (t, index, u, v) of torch Triangles into Hits.
+def nearest_hit(tris: TriangleTable, o, d, t_min, t_max):
+    """Closest valid triangle per ray by brute force: the reference's
+    chunked scan, a strictly closer chunk winning, the lowest index
+    within a chunk.
 
-    Smooth normal with barycentric weights (1-u-v, u, v), not
-    renormalised.  ``table``: the precomputed shading_table(tris), if
-    the caller keeps one."""
-    if table is None:
-        table = shading_table(tris)
+    t_min, t_max: scalars or (N,).  Returns (t (N,), +inf on a miss;
+    index (N,) int32; u; v)."""
+    rows = tris.rows
+    n, count, dev = o.shape[0], rows.shape[0], o.device
+    lane = lambda x: torch.as_tensor(x, dtype=torch.float32,
+                                     device=dev).expand(n)[:, None]
+    t_min, t_max = lane(t_min), lane(t_max)
+    best_t = torch.full((n,), INF, device=dev)
+    best_i = torch.zeros((n,), dtype=torch.int64, device=dev)
+    best_u = torch.zeros((n,), device=dev)
+    best_v = torch.zeros((n,), device=dev)
+    chunk = min(CHUNK, max(8, count))
+    for b0 in range(0, count, chunk):
+        c = rows[None, b0:b0 + chunk]                       # (1, C, 9)
+        det_ok, u, v, t = moller_trumbore(c[..., 0:3], c[..., 3:6],
+                                          c[..., 6:9], o[:, None, :],
+                                          d[:, None, :])
+        lim = torch.minimum(best_t[:, None], t_max)
+        ok = (det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+              & (u + v <= 1.0) & (t >= t_min) & (t <= lim))
+        ct, sel = torch.min(torch.where(ok, t, INF), dim=1)
+        pick = lambda x: torch.gather(x, 1, sel[:, None])[:, 0]
+        better = ct < best_t
+        best_t = torch.where(better, ct, best_t)
+        best_i = torch.where(better, sel + b0, best_i)
+        best_u = torch.where(better, pick(u), best_u)
+        best_v = torch.where(better, pick(v), best_v)
+    return best_t, best_i.to(torch.int32), best_u, best_v
+
+
+def intersect_brute(tris: TriangleTable, o, d, t_min, t_max) -> Hits:
+    """Closest hit over a TriangleTable by brute force, as Hits."""
+    return make_hits(tris, o, d, *nearest_hit(tris, o, d, t_min, t_max))
+
+
+def make_hits(tris: TriangleTable, o, d, t, index, u, v) -> Hits:
+    """Expand winners (t, index, u, v) of a TriangleTable into Hits.
+
+    Smooth normal with barycentric weights (1-u-v, u, v), normalised
+    only on ``unit_normal`` sets."""
     hit = torch.isfinite(t)
     t_safe = torch.where(hit, t, 0.0)
     point = o + d * t_safe[:, None]
     w = (1.0 - u - v)[:, None]
     uu, vv = u[:, None], v[:, None]
-    s = unpack_shading(table[index.to(torch.int64)])
+    s = unpack_shading(tris.shading[index.to(torch.int64)])
     normal = s["na"] * w + s["nb"] * uu + s["nc"] * vv
+    if tris.unit_normal:
+        # The instanced path's normalisation (instance.expand_winner):
+        # the linear part is baked into the vertex normals, so
+        # normalise(interpolated) here equals normalise(lin @ interpolated).
+        norm = sqrt(dot(normal, normal))[:, None]
+        normal = normal / torch.clamp(norm, min=1e-20)
     normal, front_face = set_face_normal(d, normal)
     return Hits(t=torch.where(hit, t, INF), point=point, normal=normal,
                 front_face=front_face, material=s["material"], hit=hit)

@@ -40,6 +40,8 @@ SIGNATURES = {
     "mrt_nearest_t": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P),
     "mrt_deposit": (_P, _I, _I, _P, _P, _I, _I, _P),
     "mrt_sphere_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
+    "mrt_tri_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                    _P),
     "mrt_tlas": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
                  _P, _P, _P, _P, _P),
 }

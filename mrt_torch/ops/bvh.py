@@ -1,13 +1,15 @@
-"""Kernels B5 (sphere-BVH closest hit) and B7 (two-level TLAS closest
-hit), with their plain PyTorch versions.
+"""Kernels B5 (sphere-BVH closest hit), B6 (triangle-BVH closest hit)
+and B7 (two-level TLAS closest hit), with their plain PyTorch versions.
 
-``sphere_bvh_hit`` and ``tlas_hit`` are the wrappers: on CPU tensors
-they run the plain versions ``sphere_bvh_plain`` / ``tlas_plain``; on
-CUDA tensors they launch ``csrc/bvh.cu`` or raise.  Each keeps a
-``launches`` count.
+``sphere_bvh_hit``, ``tri_bvh_hit`` and ``tlas_hit`` are the wrappers:
+on CPU tensors they run the plain versions ``sphere_bvh_plain`` /
+``tri_bvh_plain`` / ``tlas_plain``; on CUDA tensors they launch
+``csrc/bvh.cu`` or raise.  Each keeps a ``launches`` count.
 
 B5 replaces ``mrt/ops/pallas_bvh.py::_kernel`` (wrapper
-``intersect_bvh_spheres``).  B7 replaces ``pallas_bvh.py::_tlas_kernel``
+``intersect_bvh_spheres``).  B6 replaces ``pallas_bvh.py::_tri_kernel``
+(wrapper ``traverse_bvh_tris``), which carries the world-flattened TLAS
+routes and ``Scene.bvh``.  B7 replaces ``pallas_bvh.py::_tlas_kernel``
 and ``_tlas_kernel_ordered`` (wrapper ``intersect_tlas``) and also
 ``mrt/ops/pallas_stream.py::_build_kernel``, which computes B7's
 function for tables past the TPU's 448 KB of SMEM by paging them from
@@ -27,7 +29,8 @@ traversals ``mrt.geometry.bvh.intersect_bvh_spheres`` and
   - spheres: near root before far root in [t_min, min(best, t_max)];
     equal t -> the lower sphere index;
   - triangles: Möller–Trumbore with DET_EPS = 1e-6, t in [t_min,
-    t_max]; equal t -> the lexicographically lower (instance, triangle);
+    t_max]; equal t -> the lower triangle index (B6), the
+    lexicographically lower (instance, triangle) (B7);
   - a zero-length direction is traversed as given, like the reference's
     XLA traversal (the Pallas wrappers substitute (1, 1, 1)).
 
@@ -168,6 +171,56 @@ def sphere_bvh_plain(nodes, meta, sph, o, d, t_min, t_max, counts=None):
             lane, node = lane[keep], node[keep]
             best_t, best_i = best_t[keep], best_i[keep]
     return out_t, out_i
+
+
+def tri_bvh_plain(nodes, meta, tris, o, d, t_min, t_max, counts=None):
+    """Plain PyTorch version of B6: the reference's single-level
+    wavefront traversal with finished rays dropped from the wavefront
+    after each step.
+
+    nodes (M, 8), meta (M, 4), tris (T, 9); o, d (N, 3); t_min, t_max
+    (N,).  Returns (t (N,) float32, +inf on a miss; triangle (N,) int32,
+    0 on a miss; u, v (N,) float32).  ``counts``, if a dict, gains
+    "nodes" (node visits) and "prims" (leaf triangle tests)."""
+    n, m = o.shape[0], nodes.shape[0]
+    dev = o.device
+    out_t = torch.full((n,), INF, device=dev)
+    out_i = torch.zeros((n,), dtype=torch.int32, device=dev)
+    out_u = torch.zeros((n,), device=dev)
+    out_v = torch.zeros((n,), device=dev)
+    inv_d = 1.0 / d
+    lane = torch.arange(n, device=dev)
+    node = torch.zeros((n,), dtype=torch.int64, device=dev)
+    bt, bi = out_t.clone(), torch.zeros((n,), dtype=torch.int64, device=dev)
+    bu, bv = out_u.clone(), out_v.clone()
+    while lane.numel():
+        box = nodes[node]
+        hit = slab_hit(box[:, 0:3], box[:, 4:7], o[lane], inv_d[lane],
+                       t_min[lane], torch.minimum(bt, t_max[lane]))
+        row = meta[node].to(torch.int64)
+        leaf = row[:, 1] > 0
+        test = (hit & leaf).nonzero()[:, 0]
+        _tally(counts, "nodes", lane.numel())
+        if test.numel():
+            k = lane[test]
+            _tally(counts, "prims", row[test, 1].sum())
+            ct, ci, cu, cv = tri_leaf(tris, row[test, 0], row[test, 1], o[k],
+                                      d[k], t_min[k], t_max[k])
+            better = (ct < bt[test]) | ((ct == bt[test]) & (ci < bi[test]))
+            bt[test] = torch.where(better, ct, bt[test])
+            bi[test] = torch.where(better, ci, bi[test])
+            bu[test] = torch.where(better, cu, bu[test])
+            bv[test] = torch.where(better, cv, bv[test])
+        node = torch.where(hit & ~leaf, node + 1, row[:, 2])
+        done = node >= m
+        if done.any():
+            g = lane[done]
+            out_t[g], out_i[g] = bt[done], bi[done].to(torch.int32)
+            out_u[g], out_v[g] = bu[done], bv[done]
+            keep = ~done
+            lane, node = lane[keep], node[keep]
+            bt, bi, bu, bv = bt[keep], bi[keep], bu[keep], bv[keep]
+    return out_t, out_i, out_u, out_v
 
 
 def _warp(r, v, translate):
@@ -351,6 +404,32 @@ def sphere_bvh_hit(nodes, meta, sph, o, d, t_min, t_max):
 
 
 sphere_bvh_hit.launches = 0
+
+
+def tri_bvh_hit(nodes, meta, tris, o, d, t_min, t_max):
+    """Closest triangle hit through a single-level triangle BVH (B6).
+
+    nodes (M, 8), meta (M, 4), tris (T, 9) rows va, e_ab, e_ac in BVH
+    order.  t_min, t_max: scalars or (N,) tensors.  Returns (t, triangle,
+    u, v) as ``tri_bvh_plain``."""
+    n, t_min, t_max = _rays("tri_bvh_hit", o, d, t_min, t_max)
+    f32, i32 = torch.float32, torch.int32
+    _check("tri_bvh_hit", o.device, nodes=(nodes, f32, (-1, 8)),
+           meta=(meta, i32, (nodes.shape[0], 4)), tris=(tris, f32, (-1, 9)))
+    if o.device.type == "cpu":
+        return tri_bvh_plain(nodes, meta, tris, o, d, t_min, t_max)
+    _aligned("tri_bvh_hit", nodes=(nodes, 16), meta=(meta, 16))
+    t = torch.empty((n,), dtype=f32, device=o.device)
+    tri = torch.empty((n,), dtype=i32, device=o.device)
+    u = torch.empty((n,), dtype=f32, device=o.device)
+    v = torch.empty((n,), dtype=f32, device=o.device)
+    _build.launch("mrt_tri_bvh", o.device, nodes, meta, nodes.shape[0], tris,
+                  tris.shape[0], o, d, t_min, t_max, n, t, tri, u, v)
+    tri_bvh_hit.launches += 1
+    return t, tri, u, v
+
+
+tri_bvh_hit.launches = 0
 
 
 def tlas_hit(tl, o, d, t_min, t_max):

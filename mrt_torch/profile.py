@@ -1,6 +1,7 @@
 """Step profile of one persistent render pass on the card.
 
     python -m mrt_torch.profile --scene sphere_grid
+    MRT_TLAS_KERNEL=flat python -m mrt_torch.profile --scene lucy
 
 Renders one unprofiled pass (its wall time), then one pass under
 ``torch.profiler`` with a ``record_function`` range around each layer of
@@ -17,6 +18,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import sys
 import time
 
@@ -45,7 +47,8 @@ LAYERS = (
 )
 TOP = 15  # device kernels listed by device time
 KERNELS = {"B1": "nearest_t_kernel", "B2": "deposit_kernel",
-           "B5": "sphere_bvh_kernel", "B7": "tlas_kernel"}
+           "B5": "sphere_bvh_kernel", "B6": "tri_bvh_kernel",
+           "B7": "tlas_kernel"}
 
 
 def _wrap(name, fn):
@@ -148,7 +151,9 @@ def main(argv=None):
                for k, v in KERNELS.items() if v in e.key}
     calls = {k: e.count for e in device for k, v in KERNELS.items()
              if v in e.key}
-    out = dict(scene=args.scene, width=args.width, height=args.height,
+    out = dict(scene=args.scene,
+               tlas_route=os.environ.get("MRT_TLAS_KERNEL", ""),
+               width=args.width, height=args.height,
                depth=args.depth, spp=args.spp, pool=args.pool,
                device=torch.cuda.get_device_name(0),
                pass_s=wall, profiled_pass_s=profiled_wall, steps=steps[0],

@@ -22,4 +22,4 @@ def get(name):
     return _REGISTRY[name]
 
 
-from . import cornell, rtiow, sphere_grid  # noqa: E402,F401
+from . import cornell, lucy, playground, rtiow, sphere_grid  # noqa: E402,F401

@@ -39,6 +39,7 @@ from mrt.runtime.render import render as jrender
 from mrt.scenes import get as jget
 from mrt_torch import convert
 from mrt_torch.geometry import bvh as TB
+from mrt_torch.geometry import instance as TI
 from mrt_torch.geometry import shapes as TSH
 from mrt_torch.geometry import spheres as TS
 from mrt_torch.geometry import triangles as TT
@@ -231,7 +232,7 @@ def test_plain_triangle_bvh_and_make_hits_match_xla():
             jnp.asarray(t_min), jnp.inf)]
         jhits = JB.intersect_bvh(jtris, jbvh, jnp.asarray(o), jnp.asarray(d),
                                  jnp.asarray(t_min), jnp.inf)
-    ttris = ttris.to_torch()
+    ttris = TT.TriangleTable(ttris)
     to, td = torch.from_numpy(o), torch.from_numpy(d)
     got = TB.intersect_bvh_tris(ttris, tbvh, to, td, torch.from_numpy(t_min),
                                 float("inf"))
@@ -279,10 +280,7 @@ def _scene_arrays(js):
         background=np.asarray(js.background.color),
         sphere_bvh={k: np.asarray(getattr(js.sphere_bvh, k))
                     for k in BVH_FIELDS},
-        tlas={**{k: np.asarray(getattr(js.tlas, k)) for k in
-                 ("t_bmin", "t_bmax", "t_inst", "t_escape", "transform",
-                  "inv_transform", "override", "blas_root", "blas_end",
-                  "bmin", "bmax", "first", "count", "escape")},
+        tlas={**{k: np.asarray(getattr(js.tlas, k)) for k in TI.FIELDS},
               "tris": {k: np.asarray(getattr(js.tlas.tris, k))
                        for k in TT.FIELDS}})
 

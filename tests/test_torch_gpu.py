@@ -7,8 +7,9 @@ a GPU machine with
 This file imports no JAX, so it runs where only PyTorch is installed.
 The kernels are built with --fmad=false and round like their plain
 versions, so results must be bit-equal (B2: on dyadic values, whose
-sums are exact in any order).  B5 and B7 include rays on a NaN slab
-plane and, for B7, a TLAS past 448 KB of tables.
+sums are exact in any order).  B5, B6 and B7 include rays on a NaN slab
+plane and, for B7, a TLAS past 448 KB of tables; B6 runs on lucy's flat
+parts and on a SAH statue with per-lane t bounds and zero directions.
 """
 
 import pytest
@@ -162,3 +163,70 @@ def test_bvh_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         bvh.sphere_bvh_hit(tree.nodes, tree.meta, sph, o.to(cuda),
                           d.to(cuda), 1e-3, 1.0)
+
+
+def _statue_case(g, n):
+    """lucy's stand-in statue under a SAH BVH and rays around it."""
+    from mrt_torch.geometry import bvh as geometry_bvh
+    from mrt_torch.geometry import triangles
+    from mrt_torch.scenes import lucy
+
+    tree, tris = geometry_bvh.build_over_triangles(
+        lucy._standin_statue()[0], split="sah")
+    o = torch.rand((n, 3), generator=g) * 3.2 - 1.6
+    d = torch.rand((n, 3), generator=g) * 0.8 - 0.4 - o
+    o[:64, 2] = tree.bmax[0, 2]  # NaN slab at the root
+    d[:64, 2] = 0.0
+    d[64:72] = 0.0  # zero directions
+    return tree, triangles.TriangleTable(tris).rows, o, d
+
+
+def test_b6_kernel_matches_plain(cuda):
+    g = torch.Generator().manual_seed(6)
+    tree, rows, o, d = _statue_case(g, 5000)
+    n = o.shape[0]
+    args = [x.to(cuda) for x in (tree.nodes, tree.meta, rows, o, d)]
+    lo = (torch.rand((n,), generator=g) * 0.3).to(cuda)
+    for hi in (torch.full((n,), float("inf")),
+               torch.rand((n,), generator=g) * 3 + 0.5):
+        hi = hi.to(cuda)
+        before = bvh.tri_bvh_hit.launches
+        k = bvh.tri_bvh_hit(*args, lo, hi)
+        p = bvh.tri_bvh_plain(*args, lo, hi)
+        torch.cuda.synchronize()
+        assert bvh.tri_bvh_hit.launches == before + 1
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+        assert torch.isfinite(k[0]).any() and torch.isinf(k[0][:72]).all()
+
+
+def test_b6_kernel_matches_plain_on_lucy_parts(cuda, monkeypatch):
+    from mrt_torch.scenes import get
+
+    monkeypatch.setenv("MRT_TLAS_KERNEL", "flat")
+    scene, camera = get("lucy")().generate(device=cuda)
+    g = torch.Generator().manual_seed(7)
+    n = 4096
+    s, t = torch.rand((2, n), generator=g).to(cuda)
+    z = torch.zeros(n, device=cuda)
+    o, d = camera.rays(s, t, z, z)
+    o, d = o.contiguous(), d.contiguous()
+    lo = torch.full((n,), 1e-3, device=cuda)
+    hi = torch.full((n,), float("inf"), device=cuda)
+    assert len(scene.tlas.flat_parts) == 16
+    for part in scene.tlas.flat_parts:
+        args = (part.bvh.nodes, part.bvh.meta, part.rows, o, d, lo, hi)
+        for a, b in zip(bvh.tri_bvh_hit(*args), bvh.tri_bvh_plain(*args)):
+            assert torch.equal(a, b)
+    # The scene's dispatch takes the flat parts: one launch a part.
+    before = bvh.tri_bvh_hit.launches
+    hits = scene.intersect(o, d)
+    assert bvh.tri_bvh_hit.launches == before + 16
+    assert hits.hit.float().mean() > 0.9
+
+
+def test_b6_wrapper_raises_instead_of_falling_back(cuda):
+    tree, rows, o, d = _statue_case(torch.Generator().manual_seed(8), 8)
+    with pytest.raises(ValueError):
+        bvh.tri_bvh_hit(tree.nodes, tree.meta, rows, o.to(cuda), d.to(cuda),
+                        1e-3, 1.0)

@@ -144,15 +144,24 @@ def test_port_imports_neither_jax_nor_mrt():
         "torch.set_num_threads(1)\n"
         "import mrt_torch\n"
         "from mrt_torch import convert, ops\n"
+        "import os\n"
         "from mrt_torch.geometry import bvh, instance, shapes, triangles\n"
+        "from mrt_torch.loaders import load_obj, load_ply, load_stl_binary\n"
         "from mrt_torch.math import m4\n"
-        "from mrt_torch.ops import bvh\n"
-        "from mrt_torch.scenes import cornell, get, sphere_grid\n"
+        "from mrt_torch.ops import budget, bvh\n"
+        "from mrt_torch.runtime import assets, input, physics\n"
+        "from mrt_torch.scenes import (cornell, get, lucy, playground,\n"
+        "                              sphere_grid)\n"
         "from mrt_torch.runtime.film import Film\n"
         "from mrt_torch.runtime.render import render, "
         "render_pass_persistent\n"
-        "for name, kw in (('rtiow', dict(grid=2)), ('cornell', {}),\n"
-        "                 ('sphere_grid', dict(dim=4))):\n"
+        "for name, kw, route in (('rtiow', dict(grid=2), ''),\n"
+        "                        ('cornell', {}, ''),\n"
+        "                        ('sphere_grid', dict(dim=4), ''),\n"
+        "                        ('playground', {}, 'flat'),\n"
+        "                        ('lucy', dict(grid=2), 'flat'),\n"
+        "                        ('lucy', dict(grid=2), '')):\n"
+        "    os.environ['MRT_TLAS_KERNEL'] = route\n"
         "    scene, camera = get(name)(aspect_ratio=1.0, **kw).generate(\n"
         "        device='cpu')\n"
         "    film = render(scene, camera, 6, 4, spp=1, max_depth=3)\n"
@@ -160,7 +169,11 @@ def test_port_imports_neither_jax_nor_mrt():
         "                                  width=6, height=4, max_depth=3,\n"
         "                                  pool=16)\n"
         "    assert film.samples == 2 and film.depth_sum.sum() > 0, name\n"
-        "assert scene.sphere_bvh is not None and scene.tlas is not None\n"
+        "    if name == 'playground':\n"
+        "        assert scene.tlas.flat_tris is not None\n"
+        "    if name == 'lucy' and route:\n"
+        "        assert len(scene.tlas.flat_parts) > 1\n"
+        "assert scene.sphere_bvh is None and scene.tlas is not None\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mrt'))\n"
         "assert not bad, bad\n"
@@ -172,8 +185,8 @@ def test_port_imports_neither_jax_nor_mrt():
     assert res.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("entry", ["rtiow", "cornell", "sphere_grid", "film",
-                                   "load_state"])
+@pytest.mark.parametrize("entry", ["rtiow", "cornell", "sphere_grid", "lucy",
+                                   "playground", "film", "load_state"])
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     # Without a card and without device="cpu" the entry points raise;
     # they never carry on quietly on the CPU.
