@@ -38,6 +38,21 @@ Each phase prints one line:
      2^17, on the two-level route (B7) and with MRT_TLAS_KERNEL=flat (B6:
      playground's flat set, lucy's flat parts), and the two routes' mean
      radiance held within 1% of each other on each scene.
+ 13. kernel B3 (row gather, the expand half of lane compaction) against
+     its plain version at the eve fleet's compaction shapes (2^17 lanes,
+     32,768 rows, 3 and 4 columns, indices out of range on some lanes):
+     bit-equal, beside Tensor.index_select with the mask;
+ 14. the goldens of the texture slice through both integrators on the
+     card: textured_24 (atlas, bilinear, alpha re-cast), eve_ball_24 (EVE
+     decode, palettes, glow, normal maps), volume_24 (sphere and mesh
+     bounds) under the C2 rule, menger2_24 (cube map, TLAS) under C10's
+     (ROADMAP C);
+ 15. the texture slice's main path: one render_pass_persistent of the eve
+     fleet (37 instances, a fog volume, a sun sphere, the cube-map
+     environment, EVE materials) at 1920x1080, depth 50, spp 2, pool
+     2^17, once as it is (B1, B7, B2 and no other kernel) and once with
+     MRT_BG_COMPACT=1 MRT_TEX_COMPACT=1 (B1, B7, B2, B3); the two films'
+     bounce counts equal, their radiance within f32 reassociation.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after.  Then a JSON line with each kernel's numbers, and as
@@ -81,6 +96,9 @@ OPS_ENTER = 36         # B7: warp a ray into an instance
 # ~1 ms a wavefront step, so it gets fewer rays than the main path.
 B8_RAYS = 1 << 14
 B8_INSTANCES = 8000
+# B3 at the eve fleet's compaction: a round of 32,768 rows (compact.rows_for
+# of the 2^17-lane pool) expanded back to the lanes.
+B3_ROWS = 32768
 
 
 def check(ok, msg):
@@ -282,16 +300,20 @@ def phase_b2(dev):
                 library_ms=library_ms, **bound(moved, RAYS * 4))
 
 
-def phase_golden(phase, name, dev, **kw):
+def phase_golden(phase, name, dev, build=None, max_outside=None, **kw):
     """The <name>_24 golden (24x24, spp 8, depth 6, seed 5) through both
     integrators on the card: at most 1% of pixels with another bounce
-    count, every other pixel within 5e-4."""
+    count, every other pixel within 5e-4.  build(device) makes the scene
+    (default: the registered scene `name` with **kw); max_outside, if
+    given, replaces that rule by a cap on the pixels outside it (C10)."""
     from mrt_torch.runtime.film import Film
     from mrt_torch.runtime.render import render, render_pass_persistent
     from mrt_torch.scenes import get
 
     gold = np.load(os.path.join(GOLDENS, f"{name}_24.npz"))
-    scene, camera = get(name)(aspect_ratio=1.0, **kw).generate(device=dev)
+    if build is None:
+        build = get(name)(aspect_ratio=1.0, **kw).generate
+    scene, camera = build(dev)
     films = {
         "wavefront": render(scene, camera, 24, 24, spp=8, max_depth=6,
                             seed=5),
@@ -304,38 +326,64 @@ def phase_golden(phase, name, dev, **kw):
         s = film.sum.cpu().numpy()
         depth = film.depth_sum.cpu().numpy()
         flipped = depth != gold["depth"]
-        check(flipped.mean() <= 0.01, f"{kind}: {flipped.sum()} flipped")
-        keep = ~flipped
-        np.testing.assert_allclose(s[keep], gold["sum"][keep], rtol=5e-4,
-                                   atol=5e-4, err_msg=kind)
+        check(depth.sum() > 0 and np.isfinite(s).all(), f"{kind}: empty")
+        off = ~np.isclose(s, gold["sum"], rtol=5e-4, atol=5e-4).all(-1)
+        outside = int((flipped | off).sum())
+        if max_outside is None:
+            check(flipped.mean() <= 0.01, f"{kind}: {flipped.sum()} flipped")
+            check(not (off & ~flipped).any(),
+                  f"{kind}: {(off & ~flipped).sum()} px outside 5e-4")
+        else:
+            check(outside <= max_outside, f"{kind}: {outside} px outside "
+                                          "the C2 rule")
         bad = ~np.isclose(s, gold["sum"], rtol=1e-4, atol=1e-4).all(-1)
         parts.append(f"{kind} {flipped.sum()} px with another depth, "
-                     f"{bad.sum()} px outside 1e-4")
+                     f"{outside} outside the C2 rule, {bad.sum()} px "
+                     "outside 1e-4")
+    rule = ("<= 1% depth, others within 5e-4" if max_outside is None
+            else f"<= {max_outside} px outside that rule (C10)")
     log(phase, f"{name}_24 golden on the card: " + "; ".join(parts)
-        + " (of 576; allowed: <= 1% depth, others within 5e-4)")
+        + f" (of 576; allowed: {rule})")
 
 
 def reset_launches():
-    from mrt_torch.ops import bvh, deposit, spheres
+    from mrt_torch.ops import bvh, deposit, gather, spheres
 
-    for fn in (spheres.nearest_t, deposit.deposit, bvh.sphere_bvh_hit,
-               bvh.tri_bvh_hit, bvh.tlas_hit):
+    for fn in (spheres.nearest_t, deposit.deposit, gather.gather,
+               bvh.sphere_bvh_hit, bvh.tri_bvh_hit, bvh.tlas_hit):
         fn.launches = 0
 
 
 def read_launches():
-    from mrt_torch.ops import bvh, deposit, spheres
+    from mrt_torch.ops import bvh, deposit, gather, spheres
 
     return {"B1": spheres.nearest_t.launches, "B2": deposit.deposit.launches,
-            "B5": bvh.sphere_bvh_hit.launches,
+            "B3": gather.gather.launches, "B5": bvh.sphere_bvh_hit.launches,
             "B6": bvh.tri_bvh_hit.launches, "B7": bvh.tlas_hit.launches}
 
 
-def phase_main(phase, name, dev, kernels, route=None):
+@contextlib.contextmanager
+def environ(**values):
+    """os.environ updated with `values` inside the block, restored after
+    it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_main(phase, name, dev, kernels, route=None, film_out=None):
     """One render_pass_persistent of scene `name` at 1080p, depth 50,
     spp 2, pool 2^17, with MRT_TLAS_KERNEL=`route` (None: unset), launch
-    counts set to 0 just before; each kernel in `kernels`, and no other
-    BVH kernel, must have launched.  Returns (launches, mean radiance)."""
+    counts set to 0 just before; each kernel in `kernels`, and neither B3
+    nor a BVH kernel outside it, must have launched.  Returns (launches,
+    mean radiance); the film goes into film_out["film"] if given."""
     from mrt_torch.runtime.film import Film
     from mrt_torch.runtime.render import render_pass_persistent
     from mrt_torch.scenes import get
@@ -353,7 +401,7 @@ def phase_main(phase, name, dev, kernels, route=None):
         seconds = time.perf_counter() - t0
     launches = read_launches()
     check(all(launches[k] > 0 for k in kernels)
-          and all(launches[k] == 0 for k in ("B5", "B6", "B7")
+          and all(launches[k] == 0 for k in ("B3", "B5", "B6", "B7")
                   if k not in kernels),
           f"{name}: the path's kernels {kernels} did not launch alone: "
           f"{launches}")
@@ -366,10 +414,15 @@ def phase_main(phase, name, dev, kernels, route=None):
     check(0.01 < mean < 2.0, f"implausible mean radiance {mean}")
     rays = WIDTH * HEIGHT * 2
     where = f" (MRT_TLAS_KERNEL={route})" if route else ""
-    log(phase, f"main path: {name}{where} {WIDTH}x{HEIGHT} depth 50 spp 2 "
-               f"pool {RAYS}: {seconds:.3f} s, {rays / seconds:.1f} camera "
-               f"rays/s, bounces {depth_sum} ({depth_sum / rays:.3f} per "
-               f"camera ray), mean radiance {mean:.6f}, launches {launches}")
+    flags = " ".join(f"{k}={os.environ[k]}" for k in (
+        "MRT_BG_COMPACT", "MRT_TEX_COMPACT") if k in os.environ)
+    log(phase, f"main path: {name}{where} {flags} {WIDTH}x{HEIGHT} depth 50 "
+               f"spp 2 pool {RAYS}: {seconds:.3f} s, {rays / seconds:.1f} "
+               f"camera rays/s, bounces {depth_sum} ({depth_sum / rays:.3f} "
+               f"per camera ray), mean radiance {mean:.6f}, launches "
+               f"{launches}")
+    if film_out is not None:
+        film_out.update(film=film, seconds=seconds)
     return launches, mean
 
 
@@ -608,6 +661,103 @@ def phase_meshes(dev):
     return runs
 
 
+def phase_b3(dev):
+    """B3 against its plain version at the eve fleet's compaction shapes,
+    bit for bit, beside index_select with the mask (the library call)."""
+    from mrt_torch.ops import _build, compact
+    from mrt_torch.ops import gather as B3
+
+    check(compact.rows_for(RAYS) == B3_ROWS,
+          f"rows_for({RAYS}) = {compact.rows_for(RAYS)}")
+    g = torch.Generator(device=dev).manual_seed(13)
+    # The lanes of one compaction round: ~70% masked in lane order, the
+    # first B3_ROWS of them at their prefix positions, the rest -1; a few
+    # lanes past the table on both sides.
+    mask = torch.rand((RAYS,), device=dev, generator=g) < 0.7
+    pos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    idx = torch.where(mask & (pos < B3_ROWS), pos, -1)
+    idx[::4099] = B3_ROWS + 3
+    idx[1::4099] = -7
+    idx = idx.contiguous()
+    out = {}
+    for cols in (3, 4):
+        table = (torch.randn((B3_ROWS, cols), device=dev, generator=g)
+                 * 10.0 ** torch.randint(-20, 20, (B3_ROWS, cols), device=dev,
+                                         generator=g)).contiguous()
+        got = B3.gather(table, idx)
+        want = B3.gather_plain(table, idx)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        check(same, f"B3 C={cols}: not bit-equal to its plain version")
+        err = (got - want).abs().max().item()
+        res = torch.empty_like(got)
+        kernel = lambda: _build.launch("mrt_gather", dev, table, B3_ROWS,
+                                       cols, idx, RAYS, res)
+        plain = lambda: B3.gather_plain(table, idx)
+        valid = (idx >= 0) & (idx < B3_ROWS)
+        rows = torch.clamp(idx, 0, B3_ROWS - 1)
+        library = lambda: torch.where(valid[:, None],
+                                      table.index_select(0, rows), 0.0)
+        check(torch.equal(library(), want), "index_select differs")
+        ms, plain_ms = graph_ms(kernel, 50), graph_ms(plain, 20)
+        library_ms = graph_ms(library, 20)
+        moved = RAYS * 4 + RAYS * cols * 4 + B3_ROWS * cols * 4
+        out[cols] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, **bound(moved, 0))
+        log(13, f"B3 {RAYS} lanes from ({B3_ROWS}, {cols}): bit-equal, "
+                f"{int(valid.sum())} lanes in range; device time a call (CUDA "
+                f"graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"index_select + mask {library_ms:.4f} ms; bound "
+                f"{out[cols]['bound_ms']:.5f} ms (bytes)")
+    # The entry: C = 4 (the atlas's RGBA, three of a step's four calls);
+    # C = 3 (the background) beside it.
+    return dict(out[4], background_c3=out[3])
+
+
+def phase_eve(dev):
+    """The eve fleet twice: as it is, then with the background and texel
+    fetches compacted (B3).  Equal bounce counts; radiance within f32
+    reassociation of the film's atomic adds."""
+    runs = {}
+    for key, kernels, flags in (
+            ("plain", ("B1", "B2", "B7"), {}),
+            ("compact", ("B1", "B2", "B3", "B7"),
+             dict(MRT_BG_COMPACT="1", MRT_TEX_COMPACT="1"))):
+        runs[key] = {}
+        with environ(**flags):
+            launches, mean = phase_main(15, "eve", dev, kernels,
+                                        film_out=runs[key])
+        runs[key].update(launches=launches, mean=mean)
+    a, b = runs["plain"]["film"], runs["compact"]["film"]
+    check(torch.equal(a.depth_sum, b.depth_sum),
+          "eve: bounce counts differ with compaction")
+    diff = (a.sum - b.sum).abs().max().item()
+    scale = a.sum.abs().max().item()
+    check(diff <= 1e-5 * scale, f"eve: radiance differs by {diff} (max "
+                                f"{scale}) with compaction")
+    secs = [runs[k]["seconds"] for k in ("plain", "compact")]
+    log(15, f"eve: depth sums equal ({int(a.depth_sum.sum())}), max radiance "
+            f"difference {diff:.3g} of {scale:.3g}; pass {secs[0]:.3f} s "
+            f"as it is, {secs[1]:.3f} s compacted; B3 "
+            f"launches {runs['compact']['launches']['B3']}, B2 launches "
+            f"{runs['plain']['launches']['B2']} and "
+            f"{runs['compact']['launches']['B2']}")
+    return runs
+
+
+def phase_texture_goldens(dev):
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_golden_scenes as TG
+
+    for name in ("textured", "eve_ball", "volume"):
+        phase_golden(14, name, dev, build=TG.FACTORIES[name])
+    # C10: the greedy-meshed sponge is sensitive to the last bit (24 of
+    # 576 pixels outside the C2 rule on the CPU, each equal to the
+    # op-by-op JAX render).
+    phase_golden(14, "menger2", dev, build=TG.FACTORIES["menger2"],
+                 max_outside=40)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -635,6 +785,9 @@ def main():
     grid, _ = phase_main(10, "sphere_grid", dev, ("B2", "B5", "B7"))
     b6 = phase_b6(dev)
     meshes = phase_meshes(dev)
+    b3 = phase_b3(dev)
+    phase_texture_goldens(dev)
+    eve = phase_eve(dev)
 
     kernels = [
         dict(name="B1 sphere nearest hit", route="cuda",
@@ -645,6 +798,10 @@ def main():
              source="mrt_torch/csrc/deposit.cu",
              replaces="mrt/ops/pallas_onehot.py:51",
              launches=grid["B2"], launches_rtiow=rtiow["B2"], **b2),
+        dict(name="B3 row gather (compaction expand)", route="cuda",
+             source="mrt_torch/csrc/gather.cu",
+             replaces="mrt/ops/pallas_onehot.py:218",
+             launches=eve["compact"]["launches"]["B3"], **b3),
         dict(name="B5 sphere-BVH closest hit", route="cuda",
              source="mrt_torch/csrc/bvh.cu",
              replaces="mrt/ops/pallas_bvh.py:79",

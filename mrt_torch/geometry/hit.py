@@ -1,9 +1,10 @@
 """SoA hit records for a wavefront of rays (mirrors ``mrt.geometry.hit``).
 
 A wavefront of N rays produces parallel tensors; materials are integer
-rows into the scene's MaterialTable.  The record holds the fields the
-sphere path uses; texture coordinates and tangent frames join it with
-the primitives that carry them.
+rows into the scene's MaterialTable.  Primitives without UVs (spheres,
+volumes) carry zero texture coordinates and a zero tangent frame.  The
+light-pdf area of the hit primitive joins the record with next-event
+estimation.
 """
 
 from __future__ import annotations
@@ -23,8 +24,11 @@ class Hits:
     point: torch.Tensor       # (N,3)
     normal: torch.Tensor      # (N,3) front-faced (flipped against the ray)
     front_face: torch.Tensor  # (N,)  bool
+    uv: torch.Tensor          # (N,2) zeros when the primitive has no UVs
     material: torch.Tensor    # (N,)  int32 MaterialTable row
     hit: torch.Tensor         # (N,)  bool
+    tangent: torch.Tensor     # (N,3) tangent frame for normal mapping
+    bitangent: torch.Tensor   # (N,3)
 
     @classmethod
     def none(cls, n, device=None):
@@ -34,22 +38,32 @@ class Hits:
             point=torch.zeros((n, 3), device=device),
             normal=torch.zeros((n, 3), device=device),
             front_face=torch.zeros((n,), dtype=torch.bool, device=device),
+            uv=torch.zeros((n, 2), device=device),
             material=torch.zeros((n,), dtype=torch.int32, device=device),
             hit=torch.zeros((n,), dtype=torch.bool, device=device),
+            tangent=torch.zeros((n, 3), device=device),
+            bitangent=torch.zeros((n, 3), device=device),
         )
+
+    @property
+    def outward_normal(self):
+        """The geometric normal before it was flipped against the ray."""
+        return torch.where(self.front_face[:, None], self.normal,
+                           -self.normal)
 
     def closer_of(self, other: "Hits") -> "Hits":
         """Per-ray select whichever of two hit records is nearer."""
-        take = other.t < self.t
-        tv = take[:, None]
-        return Hits(
-            t=torch.where(take, other.t, self.t),
-            point=torch.where(tv, other.point, self.point),
-            normal=torch.where(tv, other.normal, self.normal),
-            front_face=torch.where(take, other.front_face, self.front_face),
-            material=torch.where(take, other.material, self.material),
-            hit=self.hit | other.hit,
-        )
+        out = self.select(other.t < self.t, other)
+        out.hit = self.hit | other.hit
+        return out
+
+    def select(self, take, other: "Hits") -> "Hits":
+        """Per-ray `other` where `take` (N,) else self, field by field."""
+        pick = lambda a, b: torch.where(
+            take.reshape(take.shape + (1,) * (a.dim() - 1)), b, a)
+        return Hits(**{f.name: pick(getattr(self, f.name),
+                                    getattr(other, f.name))
+                       for f in dataclasses.fields(self)})
 
 
 def set_face_normal(d, outward_normal):

@@ -467,6 +467,8 @@ def expand_winner(tlas: TLAS, o, d, best_t, best_inst, best_tri, best_u,
     uu, vv = best_u[:, None], best_v[:, None]
     s = tri_mod.unpack_shading(tlas.shading[best_tri.to(torch.int64)])
     normal_l = s["na"] * w + s["nb"] * uu + s["nc"] * vv
+    uv = s["uva"] * w + s["uvb"] * uu + s["uvc"] * vv
+    uv = torch.where(s["has_uv"][:, None], uv, 0.0)
 
     # World normal: forward linear part, then unit length.
     lin = tlas.transform[inst, :3, :3]
@@ -478,7 +480,11 @@ def expand_winner(tlas: TLAS, o, d, best_t, best_inst, best_tri, best_u,
     point = o + d * t_safe[:, None]  # t is affine-invariant
     ov = tlas.override[inst]
     material = torch.where(ov >= 0, ov, s["material"])
+    # The tangent frame takes the same forward linear part, unnormalised.
+    tangent = dot(lin, s["tangent"][:, None, :])
+    bitangent = dot(lin, s["bitangent"][:, None, :])
     normal_w, front_face = set_face_normal(d, normal_w)
     return Hits(t=torch.where(hit, best_t, INF), point=point,
-                normal=normal_w, front_face=front_face, material=material,
-                hit=hit)
+                normal=normal_w, front_face=front_face, uv=uv,
+                material=material, hit=hit, tangent=tangent,
+                bitangent=bitangent)

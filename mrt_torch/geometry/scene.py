@@ -10,21 +10,33 @@ set keeps the hit):
     small set scanned by brute force (``SceneBuilder.add_triangles``);
   - instanced meshes: a TLAS, through kernel B7, or through kernel B6 on
     its world-flattened routes where ``MRT_TLAS_KERNEL`` opts in
-    (``instance.wants_flat`` / ``wants_flat_parts``).
-Volumes, voxels, textures and lights join the port with their slices.
+    (``instance.wants_flat`` / ``wants_flat_parts``);
+  - volumes bounded by spheres (one uniform each), then volumes bounded
+    by meshes (kernel B7), drawing from the caller's sampler.
+With a texture atlas, EVE hits then get their normal maps, and a scene
+whose materials can fail the alpha test re-casts the rays whose winner
+did (``ALPHA_ROUNDS`` times).  Voxels and lights join the port with
+their slices.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..core.device import resolve
+from ..materials import shade
+from ..materials.background import CubeMap, SkySphere
+from ..ops import compact
+from ..textures.atlas import RAW
 from . import bvh as bvh_mod
 from . import instance as inst_mod
 from . import spheres as sphere_mod
 from . import triangles as tri_mod
+from . import volumes as vol_mod
 from .hit import Hits
 
 T_MIN = 1e-3  # intersect(ray, 0.001, inf), as in the reference
@@ -35,11 +47,22 @@ class Scene(nn.Module):
     spheres: Spheres or None; sphere_bvh: FlatBVH over the spheres (in
     BVH order) or None; triangles: a TriangleTable or None; bvh: FlatBVH
     over the triangles (in BVH order) or None for a brute-force scan;
-    tlas: TLAS or None.  ``has_mix`` is False when no material row is a
-    MIX (shading then skips the row resolution)."""
+    tlas: TLAS or None; volumes: VolumeSpheres or None; mesh_volumes: a
+    sequence of MeshVolume or None; atlas: TextureAtlas or None.
+    ``has_mix`` is False when no material row is a MIX (shading then
+    skips the row resolution); ``needs_alpha`` is True when a material
+    row can fail the alpha test (the re-cast rounds run);
+    ``mat_tex_raw`` is True when every texture a material row refers to
+    is a RAW atlas row (one texel lookup a sample)."""
+
+    # Re-cast rounds for alpha-tested winners: each sees through one more
+    # cutout per ray; stacked cutouts beyond it render opaque.
+    ALPHA_ROUNDS = 3
 
     def __init__(self, materials, background, spheres=None, has_mix=True,
-                 sphere_bvh=None, tlas=None, triangles=None, bvh=None):
+                 sphere_bvh=None, tlas=None, triangles=None, bvh=None,
+                 volumes=None, mesh_volumes=None, atlas=None,
+                 needs_alpha=False, mat_tex_raw=False):
         super().__init__()
         self.materials = materials
         self.background = background
@@ -48,7 +71,13 @@ class Scene(nn.Module):
         self.triangles = triangles
         self.bvh = bvh
         self.tlas = tlas
+        self.volumes = volumes
+        self.mesh_volumes = (nn.ModuleList(mesh_volumes) if mesh_volumes
+                             else None)
+        self.atlas = atlas
         self.has_mix = bool(has_mix)
+        self.needs_alpha = bool(needs_alpha)
+        self.mat_tex_raw = bool(mat_tex_raw)
 
     def world_bounds(self):
         """(bmin, bmax) of all geometry: the root boxes of the BVHs, or
@@ -74,9 +103,30 @@ class Scene(nn.Module):
         return (torch.amin(torch.stack(mins), dim=0),
                 torch.amax(torch.stack(maxs), dim=0))
 
-    def intersect(self, o, d, t_min=T_MIN, t_max=float("inf")) -> Hits:
+    def intersect(self, o, d, t_min=T_MIN, t_max=float("inf"),
+                  sampler=None) -> Hits:
         """Closest hit of each ray (o, d: (N, 3)) against every primitive
-        set; on equal t the earlier set keeps the hit."""
+        set; on equal t the earlier set keeps the hit.  `sampler` feeds
+        the volumes' free flights and the alpha test's Mix draws (scenes
+        with either need it).
+
+        Alpha test: the winner is tested, and rays whose winner fails are
+        cast again from just past it.  Every round runs and merges by
+        where(redo, ...), so the host never waits for the device; a round
+        with nothing to redo changes nothing, and the sampler's draws
+        advance the same either way."""
+        hits = self._intersect_once(o, d, t_min, t_max, sampler)
+        if self.needs_alpha and self.atlas is not None:
+            for _ in range(self.ALPHA_ROUNDS):
+                keep = shade.alpha_test(self, hits.material, hits.uv, sampler)
+                redo = hits.hit & ~keep
+                again = self._intersect_once(
+                    o, d, torch.where(redo, hits.t + 1e-4, t_min), t_max,
+                    sampler)
+                hits = hits.select(redo, again)
+        return hits
+
+    def _intersect_once(self, o, d, t_min, t_max, sampler):
         hits = Hits.none(o.shape[0], device=o.device)
         if self.spheres is not None:
             if self.sphere_bvh is not None:
@@ -106,32 +156,76 @@ class Scene(nn.Module):
             else:
                 hits = hits.closer_of(inst_mod.intersect_tlas(
                     self.tlas, o, d, t_min, t_max))
+        if (self.volumes is not None or self.mesh_volumes) and sampler is None:
+            raise ValueError("scene has volumes: intersect needs a sampler "
+                             "for the free flights")
+        if self.volumes is not None:
+            u = torch.stack([sampler.next1()
+                             for _ in range(self.volumes.count)], dim=-1)
+            hits = hits.closer_of(vol_mod.intersect(self.volumes, o, d, t_min,
+                                                    t_max, u))
+        for vol in self.mesh_volumes or ():
+            hits = hits.closer_of(vol_mod.intersect_mesh(
+                vol, o, d, t_min, t_max, sampler.next1()))
+        if self.atlas is not None:
+            hits = shade.apply_normal_maps(self, hits, d)
         return hits
 
     def background_eval(self, d):
-        return self.background.eval(d)
+        return self.background.eval(d, atlas=self.atlas)
 
     def background_eval_masked(self, d, mask):
-        """where(mask, background_eval(d), 0)."""
-        return torch.where(mask[:, None], self.background_eval(d), 0.0)
+        """where(mask, background_eval(d), 0).  For a texel-backed
+        background with ``MRT_BG_COMPACT=1`` (off by default, as in the
+        reference), the masked (miss) lanes are packed first and only
+        they are evaluated (``ops.compact``)."""
+        use = (isinstance(self.background, (CubeMap, SkySphere))
+               and os.environ.get("MRT_BG_COMPACT") == "1")
+        k = compact.rows_for(d.shape[0])
+        if not use or k >= d.shape[0]:
+            return torch.where(mask[:, None], self.background_eval(d), 0.0)
+        return compact.compact_apply(
+            lambda dc: self.background.eval(dc, atlas=self.atlas), mask, d,
+            k, pad_row=(1.0, 0.0, 0.0))
+
+
+def all_raw(texture_ids, atlas):
+    """True when every one of the atlas ids is a RAW row."""
+    kinds = atlas.kind.cpu().numpy()
+    return all(int(kinds[i]) == RAW for i in texture_ids)
+
+
+def with_atlas(scene: Scene, atlas) -> Scene:
+    """Attach a texture atlas to a built scene, with the ``mat_tex_raw``
+    it implies; returns the scene."""
+    m = scene.materials
+    ids = {int(i) for col in (m.tex, m.tex_no, m.tex_pmdg)
+           for i in col.cpu().tolist() if i >= 0}
+    scene.mat_tex_raw = all_raw(ids, atlas)
+    scene.atlas = atlas.to(m.mtype.device)
+    return scene
 
 
 class SceneBuilder:
-    """Host-side accumulator of spheres, meshes, instances and brute-force
-    triangle sets (the reference's World + Model pattern).  Volumes,
-    voxels, textures and lights join with their slices."""
+    """Host-side accumulator of spheres, meshes, instances, brute-force
+    triangle sets and volumes (the reference's World + Model pattern).
+    Voxels and lights join with their slices."""
 
     # Sphere sets at or above this size get a BVH.
     SPHERE_BVH_THRESHOLD = 64
 
-    def __init__(self, materials, background):
-        """materials: a MaterialBuilder; background: a background
-        module."""
+    def __init__(self, materials, background, atlas=None):
+        """materials: a MaterialBuilder (still open: volumes add rows);
+        background: a background module; atlas: a built TextureAtlas or
+        None."""
         self._materials = materials
         self._background = background
+        self._atlas = atlas
         self._sphere_rows = []
         self._registry = None
         self._tri_groups = []
+        self._volumes = []
+        self._mesh_volumes = []
 
     def _ensure_registry(self):
         if self._registry is None:
@@ -161,6 +255,20 @@ class SceneBuilder:
         """A small host Triangles set, intersected by brute force."""
         self._tri_groups.append(tris)
 
+    def add_volume_sphere(self, center, radius, density, albedo):
+        """A fog volume bounded by a sphere."""
+        mat = self._materials.isotropic(tuple(albedo))
+        self._volumes.append((tuple(center), float(radius),
+                              -1.0 / float(density), mat))
+
+    def add_volume_mesh(self, tris, density, albedo, translation=(0, 0, 0),
+                        rotation=(0, 0, 0), scale=(1, 1, 1)):
+        """A fog volume bounded by an instanced mesh; rotation in turns."""
+        mat = self._materials.isotropic(tuple(albedo))
+        reg = inst_mod.MeshRegistry()
+        reg.add_instance(reg.add_mesh(tris), translation, rotation, scale)
+        self._mesh_volumes.append((reg, -1.0 / float(density), mat))
+
     def build(self, device=None) -> Scene:
         """The Scene, on `device` (None: the CUDA card)."""
         device = resolve(device)
@@ -180,8 +288,21 @@ class SceneBuilder:
         tlas = None
         if self._registry is not None and self._registry._instances:
             tlas = self._registry.build()
-        scene = Scene(materials=self._materials.build(),
-                      background=self._background, spheres=spheres,
-                      has_mix=self._materials.has_mix(),
-                      sphere_bvh=sphere_bvh, tlas=tlas, triangles=triangles)
+        volumes = None
+        if self._volumes:
+            volumes = vol_mod.VolumeSpheres(*(
+                np.array([v[k] for v in self._volumes],
+                         np.int32 if k == 3 else np.float32)
+                for k in range(4)))
+        mesh_volumes = [vol_mod.MeshVolume(reg.build(), np.float32(nid), mat)
+                        for reg, nid, mat in self._mesh_volumes]
+        mats, atlas = self._materials, self._atlas
+        scene = Scene(materials=mats.build(), background=self._background,
+                      spheres=spheres, has_mix=mats.has_mix(),
+                      sphere_bvh=sphere_bvh, tlas=tlas, triangles=triangles,
+                      volumes=volumes, mesh_volumes=mesh_volumes,
+                      atlas=atlas,
+                      needs_alpha=atlas is not None and mats.may_alpha_test(),
+                      mat_tex_raw=(atlas is not None
+                                   and all_raw(mats.texture_ids(), atlas)))
         return scene.to(device)

@@ -47,13 +47,17 @@ def make_hits(spheres: Spheres, o, d, t, index) -> Hits:
     point = o + d * t_safe[:, None]
     outward = (point - c) / r[:, None]
     normal, front_face = set_face_normal(d, outward)
+    zeros = torch.zeros_like(point)
     return Hits(
         t=torch.where(hit, t, INF),
         point=point,
         normal=normal,
         front_face=front_face,
+        uv=zeros[:, :2],
         material=spheres.material[index],
         hit=hit,
+        tangent=zeros,
+        bitangent=zeros,
     )
 
 

@@ -232,8 +232,9 @@ def intersect_brute(tris: TriangleTable, o, d, t_min, t_max) -> Hits:
 def make_hits(tris: TriangleTable, o, d, t, index, u, v) -> Hits:
     """Expand winners (t, index, u, v) of a TriangleTable into Hits.
 
-    Smooth normal with barycentric weights (1-u-v, u, v), normalised
-    only on ``unit_normal`` sets."""
+    Smooth normal and UV with barycentric weights (1-u-v, u, v), the
+    normal normalised only on ``unit_normal`` sets; UV zero on triangles
+    without UVs; the tangent frame as stored."""
     hit = torch.isfinite(t)
     t_safe = torch.where(hit, t, 0.0)
     point = o + d * t_safe[:, None]
@@ -241,6 +242,8 @@ def make_hits(tris: TriangleTable, o, d, t, index, u, v) -> Hits:
     uu, vv = u[:, None], v[:, None]
     s = unpack_shading(tris.shading[index.to(torch.int64)])
     normal = s["na"] * w + s["nb"] * uu + s["nc"] * vv
+    uv = s["uva"] * w + s["uvb"] * uu + s["uvc"] * vv
+    uv = torch.where(s["has_uv"][:, None], uv, 0.0)
     if tris.unit_normal:
         # The instanced path's normalisation (instance.expand_winner):
         # the linear part is baked into the vertex normals, so
@@ -249,4 +252,5 @@ def make_hits(tris: TriangleTable, o, d, t, index, u, v) -> Hits:
         normal = normal / torch.clamp(norm, min=1e-20)
     normal, front_face = set_face_normal(d, normal)
     return Hits(t=torch.where(hit, t, INF), point=point, normal=normal,
-                front_face=front_face, material=s["material"], hit=hit)
+                front_face=front_face, uv=uv, material=s["material"],
+                hit=hit, tangent=s["tangent"], bitangent=s["bitangent"])

@@ -93,7 +93,8 @@ class LanePool:
         active = item < total
         q = torch.clamp(item, 0, total - 1) // self.samples
 
-        hits = scene.intersect(o, d, t_min=T_MIN)
+        vol_sampler = Sampler(self.seed, ray_id, salt=3 * b + 2)
+        hits = scene.intersect(o, d, t_min=T_MIN, sampler=vol_sampler)
         em_sampler = Sampler(self.seed, ray_id, salt=3 * b)
         sc_sampler = Sampler(self.seed, ray_id, salt=3 * b + 1)
         emitted, atten, new_dir, scattered = shade.shade_hit(

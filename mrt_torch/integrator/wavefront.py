@@ -26,7 +26,8 @@ def _bounce(scene, ray_id, seed, b, state):
     """One bounce: intersect, shade, terminate or continue."""
     o, d, throughput, radiance, alive, bounces = state
     # Every draw is a pure function of (seed, ray_id, bounce).
-    hits = scene.intersect(o, d, t_min=T_MIN)
+    vol_sampler = Sampler(seed, ray_id, salt=3 * b + 2)
+    hits = scene.intersect(o, d, t_min=T_MIN, sampler=vol_sampler)
     em_sampler = Sampler(seed, ray_id, salt=3 * b)
     sc_sampler = Sampler(seed, ray_id, salt=3 * b + 1)
     emitted, atten, new_dir, scattered = shade.shade_hit(

@@ -1,8 +1,10 @@
-"""Branch-free batched material shading (mirrors ``mrt.materials.shade``
-for the untextured classes).
+"""Branch-free batched material shading (mirrors ``mrt.materials.shade``).
 
 One call shades a whole wavefront: every class is evaluated for every
-ray and the result is selected by the hit's material type.
+ray and the result is selected by the hit's material type.  With a
+texture atlas, textured rows take their albedo from the atlas, EVE rows
+decode their packed textures, and EVE hits get tangent-space normal
+maps.
 
   Lambertian    normal + random unit vector, degenerate -> normal
   Metal         reflect(unit(d)) + fuzz * in_unit_sphere; absorbs when
@@ -13,14 +15,126 @@ ray and the result is selected by the hit's material type.
   Specular      Fresnel-gated mirror, else the inner Lambertian
   Mix           stochastic select of two rows, one fresh draw per level
   Null          never scatters
+  EVE           per hit Mix(roughness + dirt, Lambertian(colour),
+                Specular(1.8, colour)); emits glow mask * glow * 10
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+
 import torch
 
 from ..math import sampling, vec
+from ..ops import compact
 from . import table as T
+
+
+def sample_tex(scene, ids, uv, need=None):
+    """Atlas sample for a wavefront, zero on lanes outside `need` when it
+    is given.  With ``MRT_TEX_COMPACT=1`` (off by default, as in the
+    reference) and `need` given, the needing lanes are packed into
+    rounds of K rows (``ops.compact``: kernels B2 and B3) and only those
+    rows are sampled; callers mask every consumer by `need`."""
+    ids0 = torch.clamp(ids, min=0)
+    if need is None or os.environ.get("MRT_TEX_COMPACT") != "1":
+        s = scene.atlas.sample(ids0, uv, raw=scene.mat_tex_raw)
+        return s if need is None else torch.where(need[:, None], s, 0.0)
+    x = torch.cat([ids0.to(torch.float32)[:, None], uv], dim=-1)
+    fn = lambda xc: scene.atlas.sample(torch.round(xc[:, 0]).to(torch.int32),
+                                       xc[:, 1:3], raw=scene.mat_tex_raw)
+    return compact.compact_apply(fn, need, x, compact.rows_for(ids.shape[0]),
+                                 pad_row=(0.0, 0.5, 0.5))
+
+
+def surface_rgba(scene, rows, uv):
+    """Per-ray surface colour: the texture sample where the row has a
+    texture, else the row's solid albedo."""
+    m = scene.materials
+    solid = m.albedo[rows]
+    if scene.atlas is None:
+        return solid
+    tex = m.tex[rows]
+    sampled = scene.atlas.sample(torch.clamp(tex, min=0), uv,
+                                 raw=scene.mat_tex_raw)
+    return torch.where((tex >= 0)[:, None], sampled, solid)
+
+
+def _surface(scene, rows, uv, hit):
+    """The texel fetches shading needs for `rows` at `uv`: the sampled
+    base texture (zero where the row has none or `hit` is False; `hit`
+    None fetches every lane) and the EVE decode (colour, mix ratio, glow
+    emission) of ``eve_surface``."""
+    m = scene.materials
+    tex, tex_pmdg = m.tex[rows], m.tex_pmdg[rows]
+    need = lambda ids: None if hit is None else (ids >= 0) & hit
+    ar = sample_tex(scene, tex, uv, need(tex))
+    pmdg = sample_tex(scene, tex_pmdg, uv, need(tex_pmdg))
+    albedo, roughness = ar[..., :3], ar[..., 3]
+    paint, mat_mask = pmdg[..., 0:1], pmdg[..., 1]
+    dirt, glow = pmdg[..., 2], pmdg[..., 3]
+
+    # Faction palette lerped by mask * 3.
+    pal = m.palette[rows]                                    # (N, 4, 3)
+    i = mat_mask * 3.0
+    i0 = torch.clamp(torch.floor(i).to(torch.int64), 0, 3)
+    i1 = torch.clamp(torch.ceil(i).to(torch.int64), 0, 3)
+    frac = (i - i0.to(torch.float32))[..., None]
+    pick = lambda k: torch.gather(pal, 1, k[:, None, None].expand(-1, 1, 3))
+    mat_color = pick(i0)[:, 0] * (1.0 - frac) + pick(i1)[:, 0] * frac
+
+    # Dirt-darkened, paint-blended albedo.
+    dirt_c = torch.clamp(dirt, max=1.0)[..., None]
+    dirt_rgb = torch.stack([dirt * 0.01, dirt * 0.005, dirt * 0.0], dim=-1)
+    color = ((albedo * mat_color * (1.0 - paint) + albedo * paint)
+             * (1.0 - dirt_c) + dirt_rgb)
+    ratio = torch.clamp(roughness + dirt, max=1.0)
+    glow_e = m.glow3[rows] * glow[..., None] * 10.0
+    return ar, (color, ratio, glow_e)
+
+
+def eve_surface(scene, rows, uv, hit=None):
+    """EVE packed-PBR surface: (colour (N,3), mix ratio (N,), glow
+    emission (N,3)).  `hit`: the lanes to fetch texels for (zero
+    elsewhere; every consumer selects by material type)."""
+    return _surface(scene, rows, uv, hit)[1]
+
+
+def apply_normal_maps(scene, hits, d_in):
+    """Tangent-space normal mapping for EVE hits with a normal+occlusion
+    texture and a tangent frame: decode the packed XY (green, alpha),
+    rebuild Z, combine in the hit's frame about the outward normal, then
+    flip against the ray again."""
+    from ..geometry.hit import set_face_normal
+
+    m = scene.materials
+    rows = hits.material
+    tex_no = m.tex_no[rows]
+    has_frame = vec.dot(hits.tangent, hits.tangent) > 0.0
+    applies = (m.mtype[rows] == T.EVE) & (tex_no >= 0) & hits.hit & has_frame
+    px = sample_tex(scene, tex_no, hits.uv, applies) * 2.0 - 1.0
+    x = 1.0 - px[..., 1] ** 2 - px[..., 3] ** 2
+    z = vec.sqrt(torch.abs(x))
+    tn = vec.unit(torch.stack([px[..., 1], px[..., 3], z], dim=-1))
+    mapped = (hits.tangent * tn[..., 0:1] + hits.bitangent * tn[..., 1:2]
+              + hits.outward_normal * tn[..., 2:3])
+    normal, front_face = set_face_normal(d_in, mapped)
+    return dataclasses.replace(
+        hits, normal=torch.where(applies[:, None], normal, hits.normal),
+        front_face=torch.where(applies, front_face, hits.front_face))
+
+
+def alpha_test(scene, rows, uv, sampler):
+    """The alpha test over a wavefront: True keeps the hit.  Textured
+    Lambertian, Metal and Specular rows keep it where the sampled alpha
+    is not 0; every other row passes.  Mix rows re-roll."""
+    rows = resolve_rows(scene, rows, sampler)
+    rgba = surface_rgba(scene, rows, uv)
+    mtype = scene.materials.mtype[rows]
+    tests = ((mtype == T.LAMBERTIAN) | (mtype == T.METAL)
+             | (mtype == T.SPECULAR))
+    return ~tests | (rgba[..., 3] != 0.0)
 
 
 def resolve_mix(materials: T.MaterialTable, rows, u_draws):
@@ -49,15 +163,19 @@ def resolve_rows(scene, rows, sampler):
 
 def emitted(scene, hits, sampler):
     """Per-ray emission; Mix rows re-roll their branch with their own
-    draws."""
+    draws.  EVE rows emit their glow."""
     rows = resolve_rows(scene, hits.material, sampler)
     m = scene.materials
-    return _emitted_from(m.mtype[rows], m.emit[rows], hits)
+    return _emitted_from(scene, rows, m.mtype[rows], m.emit[rows], hits)
 
 
-def _emitted_from(mtype, emit_rgb, hits):
+def _emitted_from(scene, rows, mtype, emit_rgb, hits, surf=None):
     is_light = mtype == T.DIFFUSE_LIGHT
     e = emit_rgb * is_light[:, None].to(torch.float32)
+    if scene.atlas is not None:
+        if surf is None:
+            surf = _surface(scene, rows, hits.uv, hits.hit)
+        e = torch.where((mtype == T.EVE)[:, None], surf[1][2], e)
     return torch.where(hits.hit[:, None], e, 0.0)
 
 
@@ -77,10 +195,12 @@ def scatter(scene, hits, d_in, sampler):
     lights, null) get scattered=False."""
     rows = resolve_rows(scene, hits.material, sampler)
     m = scene.materials
-    return _scatter_from(m.mtype[rows], m.params[rows], hits, d_in, sampler)
+    return _scatter_from(scene, rows, m.mtype[rows], m.params[rows], hits,
+                         d_in, sampler)
 
 
-def _scatter_from(mtype, params, hits, d_in, sampler):
+def _scatter_from(scene, rows, mtype, params, hits, d_in, sampler,
+                  surf=None):
     normal = hits.normal
 
     # Shared random draws (each class consumes what it needs).
@@ -89,6 +209,13 @@ def _scatter_from(mtype, params, hits, d_in, sampler):
     rand_unit = sampling.unit_vector(u1, u2)
     unit_d = vec.unit(d_in)
     albedo = params[:, :3]
+    textured = scene.atlas is not None
+    if textured:
+        if surf is None:
+            surf = _surface(scene, rows, hits.uv, hits.hit)
+        tex = scene.materials.tex[rows]
+        albedo = torch.where(((tex >= 0) & hits.hit)[:, None],
+                             surf[0][:, :3], albedo)
 
     # Lambertian
     lam_dir = normal + rand_unit
@@ -117,22 +244,34 @@ def _scatter_from(mtype, params, hits, d_in, sampler):
     one = torch.ones_like(albedo)
     spec_atten = torch.where(rc, one, albedo)
 
+    # EVE: per hit Mix(ratio, Lambertian(colour), Specular(1.8, colour));
+    # the Specular arm is the Fresnel gate above (ior 1.8 in the row).
+    w = torch.where
+    is_eve = (mtype == T.EVE)[:, None]
+    if textured:
+        eve_color, eve_ratio, _ = surf[1]
+        pick_lam = (sampler.next1() < eve_ratio)[:, None]
+        eve_dir = w(pick_lam, lam_dir, spec_dir)
+        eve_atten = w(pick_lam | ~rc, eve_color, one)
+    else:
+        is_eve = torch.zeros_like(is_eve)
+        eve_dir, eve_atten = normal, one
+
     # Select by class
     is_lam = (mtype == T.LAMBERTIAN)[:, None]
     is_metal = (mtype == T.METAL)[:, None]
     is_diel = (mtype == T.DIELECTRIC)[:, None]
     is_iso = (mtype == T.ISOTROPIC)[:, None]
     is_spec = (mtype == T.SPECULAR)[:, None]
-    w = torch.where
     new_dir = w(is_lam, lam_dir,
                 w(is_metal, metal_dir,
                   w(is_diel, diel_dir,
                     w(is_iso, unit_sphere,
-                      w(is_spec, spec_dir, normal)))))
+                      w(is_spec, spec_dir, w(is_eve, eve_dir, normal))))))
     atten = w(is_lam | is_metal | is_iso, albedo,
-              w(is_spec, spec_atten, one))
+              w(is_spec, spec_atten, w(is_eve, eve_atten, one)))
     scattered = hits.hit & (
-        (is_lam | is_diel | is_iso | is_spec)[:, 0]
+        (is_lam | is_diel | is_iso | is_spec | is_eve)[:, 0]
         | (is_metal[:, 0] & metal_ok))
     return atten, new_dir, scattered
 
@@ -151,5 +290,9 @@ def shade_hit(scene, hits, d_in, em_sampler, sc_sampler):
     m = scene.materials
     params = m.params[rows]
     mtype = m.mtype[rows]
-    e = _emitted_from(mtype, params[:, 6:9], hits)
-    return (e, *_scatter_from(mtype, params, hits, d_in, sc_sampler))
+    # One set of texel fetches serves both: the rows are the same.
+    surf = (None if scene.atlas is None
+            else _surface(scene, rows, hits.uv, hits.hit))
+    e = _emitted_from(scene, rows, mtype, params[:, 6:9], hits, surf)
+    return (e, *_scatter_from(scene, rows, mtype, params, hits, d_in,
+                              sc_sampler, surf))

@@ -2,6 +2,7 @@
 
     python -m mrt_torch.profile --scene sphere_grid
     MRT_TLAS_KERNEL=flat python -m mrt_torch.profile --scene lucy
+    MRT_BG_COMPACT=1 MRT_TEX_COMPACT=1 python -m mrt_torch.profile --scene eve
 
 Renders one unprofiled pass (its wall time), then one pass under
 ``torch.profiler`` with a ``record_function`` range around each layer of
@@ -47,6 +48,7 @@ LAYERS = (
 )
 TOP = 15  # device kernels listed by device time
 KERNELS = {"B1": "nearest_t_kernel", "B2": "deposit_kernel",
+           "B3": "row_gather_kernel",
            "B5": "sphere_bvh_kernel", "B6": "tri_bvh_kernel",
            "B7": "tlas_kernel"}
 
@@ -153,6 +155,8 @@ def main(argv=None):
              if v in e.key}
     out = dict(scene=args.scene,
                tlas_route=os.environ.get("MRT_TLAS_KERNEL", ""),
+               compaction={k: os.environ.get(k, "") for k in (
+                   "MRT_BG_COMPACT", "MRT_TEX_COMPACT")},
                width=args.width, height=args.height,
                depth=args.depth, spp=args.spp, pool=args.pool,
                device=torch.cuda.get_device_name(0),

@@ -22,4 +22,5 @@ def get(name):
     return _REGISTRY[name]
 
 
-from . import cornell, lucy, playground, rtiow, sphere_grid  # noqa: E402,F401
+from . import (cornell, eve, lucy, menger,  # noqa: E402,F401
+               playground, rtiow, sphere_grid)

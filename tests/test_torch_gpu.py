@@ -10,13 +10,16 @@ versions, so results must be bit-equal (B2: on dyadic values, whose
 sums are exact in any order).  B5, B6 and B7 include rays on a NaN slab
 plane and, for B7, a TLAS past 448 KB of tables; B6 runs on lucy's flat
 parts and on a SAH statue with per-lane t bounds and zero directions.
+B3 copies rows, at the eve fleet's compaction shapes; ``compact_apply``
+through B2 and B3 equals its plain version on the CPU.
 """
 
 import pytest
 import torch
 
-from mrt_torch.ops import bvh
+from mrt_torch.ops import bvh, compact
 from mrt_torch.ops import deposit as B2
+from mrt_torch.ops import gather as B3
 from mrt_torch.ops import spheres as B1
 
 pytestmark = pytest.mark.gpu
@@ -230,3 +233,47 @@ def test_b6_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         bvh.tri_bvh_hit(tree.nodes, tree.meta, rows, o.to(cuda), d.to(cuda),
                         1e-3, 1.0)
+
+
+@pytest.mark.parametrize("cols", [3, 4])
+def test_b3_kernel_matches_plain(cuda, cols):
+    # The eve fleet at 1080p: 2^17 lanes, K = 32,768 compacted rows.
+    g = torch.Generator().manual_seed(3)
+    p, k = 1 << 17, 32768
+    table = (torch.randn((k, cols), generator=g)
+             * 10.0 ** torch.randint(-20, 20, (k, cols), generator=g))
+    idx = torch.randint(-5, k + 5, (p,), generator=g, dtype=torch.int32)
+    idx[:7] = torch.tensor([-1, k, k + 1, 0, k - 1, -(2 ** 31), 2 ** 31 - 1],
+                           dtype=torch.int32)
+    before = B3.gather.launches
+    got = B3.gather(table.to(cuda), idx.to(cuda))
+    want = B3.gather_plain(table.to(cuda), idx.to(cuda))
+    torch.cuda.synchronize()
+    assert B3.gather.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.cpu(), B3.gather_plain(table, idx))
+    assert (got[:3] == 0).all() and (got[5:7] == 0).all()
+
+
+def test_b3_wrapper_raises_instead_of_falling_back(cuda):
+    table = torch.zeros((8, 3), device=cuda)
+    with pytest.raises(TypeError):
+        B3.gather(table, torch.zeros(4, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        B3.gather(table.t(), torch.zeros(4, dtype=torch.int32, device=cuda))
+
+
+def test_compact_apply_through_kernels(cuda):
+    g = torch.Generator().manual_seed(4)
+    p, k = 20000, 2048  # 10 rounds
+    x = torch.randn((p, 3), generator=g)
+    mask = torch.rand((p,), generator=g) < 0.3
+    fn = lambda v: v[:, 0:2] * v[:, 1:3] + 3.0
+    b2, b3 = B2.deposit.launches, B3.gather.launches
+    got = compact.compact_apply(fn, mask.to(cuda), x.to(cuda), k,
+                                pad_row=(1.0, 0.0, 0.0))
+    torch.cuda.synchronize()
+    assert B2.deposit.launches == b2 + 10 and B3.gather.launches == b3 + 10
+    want = compact.compact_apply(fn, mask, x, k, pad_row=(1.0, 0.0, 0.0))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, torch.where(mask[:, None], fn(x), 0.0))

@@ -50,6 +50,7 @@ from mrt_torch.runtime.render import render, render_pass_persistent
 from mrt_torch.scenes import _REGISTRY
 from mrt_torch.scenes import get as tget
 from mrt_torch.scenes import playground as TPG
+from mrt_torch.textures.atlas import TextureAtlas
 from test_torch_flat import flat_tables_equal
 
 torch.set_num_threads(2)
@@ -57,7 +58,10 @@ torch.set_num_threads(2)
 HERE = os.path.dirname(os.path.abspath(__file__))
 INPUT = os.path.join(HERE, "..", "assets", "playground_input.bin")
 MAX_FLIPPED = 5  # 1% of 576 pixels
-SCENES = ["cornell", "lucy", "playground", "rtiow", "sphere_grid"]
+SCENES = ["cornell", "eve", "lucy", "menger", "playground", "rtiow",
+          "sphere_grid"]
+# The port builds menger's sponge from instanced meshes only.
+PORT_KW = {"menger": dict(voxel=False)}
 
 
 class JaxSide:
@@ -142,32 +146,61 @@ def scene_arrays_equal(js, ts):
     flat_tables_equal(jt, tt)
 
 
+def _arr(obj, keys):
+    return {k: np.asarray(getattr(obj, k)) for k in keys}
+
+
+def _bvh(b):
+    return None if b is None else _arr(b, TB.FlatBVH.FIELDS)
+
+
+def tlas_numpy(tl):
+    """convert's mapping for a JAX TLAS (None for None)."""
+    if tl is None:
+        return None
+    tlas = {**_arr(tl, TI.FIELDS), "tris": _arr(tl.tris, TT.FIELDS),
+            "flat_bvh": _bvh(tl.flat_bvh)}
+    if tl.flat_tris is not None:
+        tlas["flat_tris"] = _arr(tl.flat_tris, TT.FIELDS)
+    if tl.flat_parts is not None:
+        tlas["flat_parts"] = [
+            dict(tris=_arr(p.tris, ("va", "e_ab", "e_ac")),
+                 bvh=_bvh(p.bvh), packed=np.asarray(p.packed))
+            for p in tl.flat_parts]
+    return tlas
+
+
+def _background(bg):
+    if hasattr(bg, "faces"):
+        return dict(faces=np.asarray(bg.faces),
+                    transform=np.asarray(bg.transform),
+                    faces_raw=bg.faces_raw)
+    if hasattr(bg, "tex"):
+        return dict(tex=np.asarray(bg.tex))
+    color = getattr(bg, "color", None)
+    return None if color is None else np.asarray(color)
+
+
 def scene_numpy(js):
     """convert.scene_from_numpy's arguments for a JAX scene."""
-    arr = lambda obj, keys: {k: np.asarray(getattr(obj, k)) for k in keys}
-    bvh = lambda b: None if b is None else arr(b, TB.FlatBVH.FIELDS)
-    tl, tlas = js.tlas, None
-    if tl is not None:
-        tlas = {**arr(tl, TI.FIELDS), "tris": arr(tl.tris, TT.FIELDS),
-                "flat_bvh": bvh(tl.flat_bvh)}
-        if tl.flat_tris is not None:
-            tlas["flat_tris"] = arr(tl.flat_tris, TT.FIELDS)
-        if tl.flat_parts is not None:
-            tlas["flat_parts"] = [
-                dict(tris=arr(p.tris, ("va", "e_ab", "e_ac")),
-                     bvh=bvh(p.bvh), packed=np.asarray(p.packed))
-                for p in tl.flat_parts]
-    color = getattr(js.background, "color", None)
+    vol_keys = ("center", "radius", "neg_inv_density", "material")
     return dict(
         spheres=(None if js.spheres is None
-                 else arr(js.spheres, ("center", "radius", "material"))),
-        materials=arr(js.materials, MaterialTable.FIELDS),
+                 else _arr(js.spheres, ("center", "radius", "material"))),
+        materials=_arr(js.materials, MaterialTable.FIELDS),
         has_mix=js.has_mix, mix_depth=js.materials.mix_depth,
-        background=None if color is None else np.asarray(color),
-        sphere_bvh=bvh(js.sphere_bvh), tlas=tlas,
+        background=_background(js.background),
+        sphere_bvh=_bvh(js.sphere_bvh), tlas=tlas_numpy(js.tlas),
         triangles=(None if js.triangles is None
-                   else arr(js.triangles, TT.FIELDS)),
-        bvh=bvh(js.bvh))
+                   else _arr(js.triangles, TT.FIELDS)),
+        bvh=_bvh(js.bvh),
+        atlas=(None if js.atlas is None
+               else _arr(js.atlas, TextureAtlas.FIELDS)),
+        volumes=None if js.volumes is None else _arr(js.volumes, vol_keys),
+        mesh_volumes=[dict(tlas=tlas_numpy(v.tlas),
+                           **_arr(v, ("neg_inv_density", "material")))
+                      for v in js.mesh_volumes or ()],
+        needs_alpha=js.needs_alpha, mat_tex_raw=js.mat_tex_raw)
 
 
 def cameras_equal(jc, tc):
@@ -188,18 +221,18 @@ def _xla_tan(x):
 def test_camera_matches(name, monkeypatch):
     # ROADMAP C8: cornell's 37 deg is the one FOV of the registry where
     # XLA:CPU's float32 tan is one ulp from torch's correctly rounded
-    # one (rtiow 20, lucy and sphere_grid 40, playground 50 agree).  With
-    # XLA's value in its place the cornell camera is bit-equal too, so
-    # that one ulp is the whole difference.
+    # one (menger 15, rtiow 20, lucy and sphere_grid 40, eve and
+    # playground 50 agree).  With XLA's value in its place the cornell
+    # camera is bit-equal too, so that one ulp is the whole difference.
     assert sorted(_REGISTRY) == SCENES
-    for deg, ulp in ((20.0, 0), (37.0, 1), (40.0, 0), (50.0, 0)):
+    for deg, ulp in ((15.0, 0), (20.0, 0), (37.0, 1), (40.0, 0), (50.0, 0)):
         want, got = _xla_tan(_half_fov(deg)), torch.tan(_half_fov(deg))
         apart = want.view(torch.int32).item() - got.view(torch.int32).item()
         assert abs(apart) == ulp, (deg, apart)
     jc = jget(name)().generate()[1]
     if name == "cornell":
         monkeypatch.setattr(torch, "tan", _xla_tan)
-    tc = tget(name)().generate(device="cpu")[1]
+    tc = tget(name)(**PORT_KW.get(name, {})).generate(device="cpu")[1]
     cameras_equal(jc, tc)
 
 

@@ -150,8 +150,11 @@ def test_port_imports_neither_jax_nor_mrt():
         "from mrt_torch.math import m4\n"
         "from mrt_torch.ops import budget, bvh\n"
         "from mrt_torch.runtime import assets, input, physics\n"
-        "from mrt_torch.scenes import (cornell, get, lucy, playground,\n"
-        "                              sphere_grid)\n"
+        "from mrt_torch.scenes import (cornell, envmaps, eve, get, lucy,\n"
+        "                              menger, playground, sphere_grid)\n"
+        "from mrt_torch.ops import compact, gather\n"
+        "from mrt_torch.geometry import volumes\n"
+        "from mrt_torch.textures import atlas\n"
         "from mrt_torch.runtime.film import Film\n"
         "from mrt_torch.runtime.render import render, "
         "render_pass_persistent\n"
@@ -160,8 +163,12 @@ def test_port_imports_neither_jax_nor_mrt():
         "                        ('sphere_grid', dict(dim=4), ''),\n"
         "                        ('playground', {}, 'flat'),\n"
         "                        ('lucy', dict(grid=2), 'flat'),\n"
-        "                        ('lucy', dict(grid=2), '')):\n"
-        "    os.environ['MRT_TLAS_KERNEL'] = route\n"
+        "                        ('lucy', dict(grid=2), ''),\n"
+        "                        ('menger', dict(level=1, voxel=False), ''),\n"
+        "                        ('eve', {}, 'compact'), ('eve', {}, '')):\n"
+        "    flag = '1' if route == 'compact' else '0'\n"
+        "    os.environ['MRT_TLAS_KERNEL'] = '' if flag == '1' else route\n"
+        "    os.environ.update(MRT_BG_COMPACT=flag, MRT_TEX_COMPACT=flag)\n"
         "    scene, camera = get(name)(aspect_ratio=1.0, **kw).generate(\n"
         "        device='cpu')\n"
         "    film = render(scene, camera, 6, 4, spp=1, max_depth=3)\n"
@@ -186,7 +193,8 @@ def test_port_imports_neither_jax_nor_mrt():
 
 
 @pytest.mark.parametrize("entry", ["rtiow", "cornell", "sphere_grid", "lucy",
-                                   "playground", "film", "load_state"])
+                                   "playground", "eve", "menger", "film",
+                                   "load_state"])
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     # Without a card and without device="cpu" the entry points raise;
     # they never carry on quietly on the CPU.

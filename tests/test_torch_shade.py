@@ -97,7 +97,9 @@ def _hits(rs, n, rows):
     jh = JHits(uv=jnp.asarray(z2), tangent=jnp.asarray(z3),
                bitangent=jnp.asarray(z3), prim_area=jnp.zeros(n),
                **{k: jnp.asarray(v) for k, v in arrays.items()})
-    th = Hits(**{k: torch.from_numpy(v) for k, v in arrays.items()})
+    th = Hits(uv=torch.from_numpy(z2), tangent=torch.from_numpy(z3),
+              bitangent=torch.from_numpy(z3),
+              **{k: torch.from_numpy(v) for k, v in arrays.items()})
     return jh, th, d
 
 
