@@ -52,7 +52,26 @@ Each phase prints one line:
      environment, EVE materials) at 1920x1080, depth 50, spp 2, pool
      2^17, once as it is (B1, B7, B2 and no other kernel) and once with
      MRT_BG_COMPACT=1 MRT_TEX_COMPACT=1 (B1, B7, B2, B3); the two films'
-     bounce counts equal, their radiance within f32 reassociation.
+     bounce counts equal, their radiance within f32 reassociation;
+ 16. kernel B4 (the pend film mode's masked deposit) against its plain
+     version, 2^17 lanes into a 1920x1080x4 film with ~1/3 of them dying,
+     beside Tensor.index_add_ of the masked values;
+ 17. the goldens of the lights and voxels slice through both integrators
+     on the card: cornell_nee_24 (NEE with MIS) under the C2 rule, also
+     through the pend film mode (B4), and menger2_voxel_24 (the voxel
+     DDA) under C10's;
+ 18. the slice's main paths at 1920x1080, depth 50, spp 2, pool 2^17:
+     cornell with next-event estimation four times: on the default film
+     (B1, B7, B2, no B4), with MRT_FILM_PEND=1 (B1, B7, B4, no B2), and
+     both again with rr_depth=3; the film modes' bounce counts equal and
+     radiance within f32 reassociation, Russian roulette's bounces no more
+     than without; then menger at its defaults (level 5, voxel=True: 243^3
+     cells walked by the DDA, the ground through B7, B2), with its DDA
+     steps a wavefront step;
+ 19. the probes P1-P3 (``python -m mrt_torch.tools.probe_stream``): P1
+     against its closed form, P2 visiting all 1,024 chain entries through
+     a paged shared-memory cache, L2 and shared memory, P3 succeeding up
+     to the card's opt-in shared memory a block and refused past it.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after.  Then a JSON line with each kernel's numbers, and as
@@ -201,8 +220,8 @@ def path_rays(name, dev):
     half = RAYS // 2
     ob, db, rb = o[half:], d[half:], ray_id[half:]
     hits = scene.intersect(ob, db)
-    _, _, new_dir, scat = shade.shade_hit(scene, hits, db, Sampler(1, rb, 0),
-                                          Sampler(1, rb, 1))
+    new_dir, scat = shade.shade_hit(scene, hits, db, Sampler(1, rb, 0),
+                                    Sampler(1, rb, 1))[2:4]
     keep = scat[:, None]
     o = torch.cat([o[:half], torch.where(keep, hits.point, ob)])
     d = torch.cat([d[:half], torch.where(keep, new_dir, db)])
@@ -346,20 +365,47 @@ def phase_golden(phase, name, dev, build=None, max_outside=None, **kw):
         + f" (of 576; allowed: {rule})")
 
 
-def reset_launches():
+def _wrappers():
     from mrt_torch.ops import bvh, deposit, gather, spheres
+    from mrt_torch.tools import probe_stream
 
-    for fn in (spheres.nearest_t, deposit.deposit, gather.gather,
-               bvh.sphere_bvh_hit, bvh.tri_bvh_hit, bvh.tlas_hit):
+    return {"B1": spheres.nearest_t, "B2": deposit.deposit,
+            "B3": gather.gather, "B4": deposit.deposit_pending,
+            "B5": bvh.sphere_bvh_hit, "B6": bvh.tri_bvh_hit,
+            "B7": bvh.tlas_hit, "P1": probe_stream.probe_a,
+            "P2": probe_stream.probe_b, "P3": probe_stream.probe_c}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def read_launches():
-    from mrt_torch.ops import bvh, deposit, gather, spheres
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
-    return {"B1": spheres.nearest_t.launches, "B2": deposit.deposit.launches,
-            "B3": gather.gather.launches, "B5": bvh.sphere_bvh_hit.launches,
-            "B6": bvh.tri_bvh_hit.launches, "B7": bvh.tlas_hit.launches}
+
+@contextlib.contextmanager
+def counting_steps():
+    """Yields a dict whose "steps" counts LanePool.step calls and "dda"
+    the voxel walk's steps inside the block."""
+    from mrt_torch.geometry import voxels
+    from mrt_torch.integrator import persistent
+
+    out = {"steps": 0}
+    step = persistent.LanePool.step
+
+    def counted(self, *a, **k):
+        out["steps"] += 1
+        return step(self, *a, **k)
+
+    persistent.LanePool.step = counted
+    voxels.counts.update(calls=0, steps=0)
+    try:
+        yield out
+    finally:
+        persistent.LanePool.step = step
+        out["dda"] = voxels.counts["steps"]
 
 
 @contextlib.contextmanager
@@ -378,31 +424,39 @@ def environ(**values):
                 os.environ[k] = v
 
 
-def phase_main(phase, name, dev, kernels, route=None, film_out=None):
+def phase_main(phase, name, dev, kernels, route=None, film_out=None,
+               nee=False, rr_depth=None, absent=()):
     """One render_pass_persistent of scene `name` at 1080p, depth 50,
-    spp 2, pool 2^17, with MRT_TLAS_KERNEL=`route` (None: unset), launch
-    counts set to 0 just before; each kernel in `kernels`, and neither B3
-    nor a BVH kernel outside it, must have launched.  Returns (launches,
-    mean radiance); the film goes into film_out["film"] if given."""
+    spp 2, pool 2^17, with MRT_TLAS_KERNEL=`route` (None: unset), the
+    scene's light table if `nee`, Russian roulette from `rr_depth`, launch
+    counts set to 0 just before; each kernel in `kernels`, and neither B3,
+    B4, a BVH kernel nor one in `absent` outside it, must have launched.
+    Returns (launches, mean radiance); the film, the seconds, the steps
+    and the DDA steps go into film_out if given."""
+    from mrt_torch.geometry.scene import attach_lights
     from mrt_torch.runtime.film import Film
     from mrt_torch.runtime.render import render_pass_persistent
     from mrt_torch.scenes import get
 
     with tlas_route(route):
         scene, camera = get(name)().generate(device=dev)
+        if nee:
+            scene = attach_lights(scene)
         film = Film.create(WIDTH, HEIGHT, device=dev)
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
-        film = render_pass_persistent(scene, camera, film, 1, 0, width=WIDTH,
-                                      height=HEIGHT, max_depth=50, samples=2,
-                                      pool=RAYS)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        with counting_steps() as steps:
+            t0 = time.perf_counter()
+            film = render_pass_persistent(scene, camera, film, 1, 0,
+                                          width=WIDTH, height=HEIGHT,
+                                          max_depth=50, samples=2, pool=RAYS,
+                                          rr_depth=rr_depth)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
     launches = read_launches()
     check(all(launches[k] > 0 for k in kernels)
-          and all(launches[k] == 0 for k in ("B3", "B5", "B6", "B7")
-                  if k not in kernels),
+          and all(launches[k] == 0 for k in ("B3", "B4", "B5", "B6", "B7")
+                  + tuple(absent) if k not in kernels),
           f"{name}: the path's kernels {kernels} did not launch alone: "
           f"{launches}")
     check(film.sum.shape == (HEIGHT, WIDTH, 3) and film.samples == 2,
@@ -415,14 +469,21 @@ def phase_main(phase, name, dev, kernels, route=None, film_out=None):
     rays = WIDTH * HEIGHT * 2
     where = f" (MRT_TLAS_KERNEL={route})" if route else ""
     flags = " ".join(f"{k}={os.environ[k]}" for k in (
-        "MRT_BG_COMPACT", "MRT_TEX_COMPACT") if k in os.environ)
+        "MRT_BG_COMPACT", "MRT_TEX_COMPACT", "MRT_FILM_PEND")
+        if k in os.environ)
+    flags += (" NEE" if nee else "") + (f" rr_depth={rr_depth}"
+                                        if rr_depth is not None else "")
+    n = max(steps["steps"], 1)
+    per_step = {k: round(v / n, 3) for k, v in launches.items() if v}
+    dda = f", {steps['dda'] / n:.2f} DDA steps a step" if steps["dda"] else ""
     log(phase, f"main path: {name}{where} {flags} {WIDTH}x{HEIGHT} depth 50 "
                f"spp 2 pool {RAYS}: {seconds:.3f} s, {rays / seconds:.1f} "
                f"camera rays/s, bounces {depth_sum} ({depth_sum / rays:.3f} "
-               f"per camera ray), mean radiance {mean:.6f}, launches "
-               f"{launches}")
+               f"per camera ray), mean radiance {mean:.6f}, {n} steps"
+               f"{dda}, launches {launches}, a step {per_step}")
     if film_out is not None:
-        film_out.update(film=film, seconds=seconds)
+        film_out.update(film=film, seconds=seconds, steps=n,
+                        dda_per_step=steps["dda"] / n)
     return launches, mean
 
 
@@ -714,6 +775,18 @@ def phase_b3(dev):
     return dict(out[4], background_c3=out[3])
 
 
+def films_agree(what, a, b):
+    """Equal bounce counts; radiance within f32 reassociation of the
+    film's atomic adds.  Returns the largest radiance difference."""
+    check(torch.equal(a.depth_sum, b.depth_sum), f"{what}: bounce counts "
+                                                 "differ")
+    diff = (a.sum - b.sum).abs().max().item()
+    scale = a.sum.abs().max().item()
+    check(diff <= 1e-5 * scale, f"{what}: radiance differs by {diff} (max "
+                                f"{scale})")
+    return diff, scale
+
+
 def phase_eve(dev):
     """The eve fleet twice: as it is, then with the background and texel
     fetches compacted (B3).  Equal bounce counts; radiance within f32
@@ -729,12 +802,7 @@ def phase_eve(dev):
                                         film_out=runs[key])
         runs[key].update(launches=launches, mean=mean)
     a, b = runs["plain"]["film"], runs["compact"]["film"]
-    check(torch.equal(a.depth_sum, b.depth_sum),
-          "eve: bounce counts differ with compaction")
-    diff = (a.sum - b.sum).abs().max().item()
-    scale = a.sum.abs().max().item()
-    check(diff <= 1e-5 * scale, f"eve: radiance differs by {diff} (max "
-                                f"{scale}) with compaction")
+    diff, scale = films_agree("eve with compaction", a, b)
     secs = [runs[k]["seconds"] for k in ("plain", "compact")]
     log(15, f"eve: depth sums equal ({int(a.depth_sum.sum())}), max radiance "
             f"difference {diff:.3g} of {scale:.3g}; pass {secs[0]:.3f} s "
@@ -756,6 +824,171 @@ def phase_texture_goldens(dev):
     # op-by-op JAX render).
     phase_golden(14, "menger2", dev, build=TG.FACTORIES["menger2"],
                  max_outside=40)
+
+
+def phase_b4(dev):
+    """B4 against its plain version at the main path's shapes, beside
+    index_add_ of the masked values (the same library call as B2's)."""
+    from mrt_torch.ops import deposit as B4
+
+    idx, vals = b2_lanes(dev)
+    g = torch.Generator(device=dev).manual_seed(17)
+    die = (torch.rand((RAYS,), device=dev, generator=g) < 0.35).contiguous()
+    # The pending column 3 sums bounce counts: small integers.
+    vals[:, 3] = torch.randint(0, 8, (RAYS,), device=dev, generator=g).float()
+    vals[::13] = 0.0  # dying lanes with nothing to add
+    vals = vals.contiguous()
+    shape = (WIDTH * HEIGHT, 4)
+    film_k = B4.deposit_pending(torch.zeros(shape, device=dev), idx, vals, die)
+    film_p = B4.deposit_pending_plain(torch.zeros(shape, device=dev), idx,
+                                      vals, die)
+    torch.cuda.synchronize()
+    err = (film_k - film_p).abs().max().item()
+    scale = film_p.abs().max().item()
+    check(err <= 1e-4 * scale, f"B4 err {err} (scale {scale})")
+    check(torch.equal(film_k[:, 3], film_p[:, 3]), "B4 depth column")
+    film = torch.zeros(shape, device=dev)
+    kernel = lambda: B4.deposit_pending(film, idx, vals, die)
+    plain = lambda: B4.deposit_pending_plain(film, idx, vals, die)
+    keep = (die & (vals != 0).any(1) & (idx >= 0) & (idx < shape[0]))
+    rows = torch.where(keep, idx, 0).to(torch.int64)
+    v = torch.where(keep[:, None], vals, 0.0)
+    library = lambda: film.index_add_(0, rows, v)
+    ms, plain_ms = graph_ms(kernel, 50), graph_ms(plain, 20)
+    library_ms = graph_ms(library, 20)
+    # Bytes: each lane's die flag and slot; the depositing lanes' values
+    # and their film rows, read and written.
+    depositing = int(keep.sum())
+    touched = int(torch.unique(idx[keep]).numel())
+    moved = RAYS * (1 + 4) + depositing * 16 + touched * 16 * 2
+    log(16, f"B4 {RAYS} lanes into {shape}, {int(die.sum())} dying, "
+            f"{depositing} depositing onto {touched} rows: max abs err "
+            f"{err:.3g} (max {scale:.3g}), depth column exact; device time a "
+            f"call (CUDA graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"index_add_ of the masked values {library_ms:.4f} ms; call time "
+            f"(CUDA events): wrapper {call_ms(kernel, 50):.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, **bound(moved, depositing * 4))
+
+
+def phase_light_goldens(dev):
+    """cornell_nee_24 on both integrators and through the pend film mode
+    (B4 launched, B2 not), menger2_voxel_24 under C10's rule."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_golden_scenes as TG
+
+    phase_golden(17, "cornell_nee", dev, build=TG.FACTORIES["cornell_nee"])
+    reset_launches()
+    with environ(MRT_FILM_PEND="1"):
+        phase_golden(17, "cornell_nee", dev, build=TG.FACTORIES["cornell_nee"])
+    launches = read_launches()
+    check(launches["B4"] > 0 and launches["B2"] == 0,
+          f"cornell_nee_24 with MRT_FILM_PEND=1: launches {launches}")
+    log(17, f"cornell_nee_24 with MRT_FILM_PEND=1: B4 launched "
+            f"{launches['B4']} times, B2 {launches['B2']}")
+    phase_golden(17, "menger2_voxel", dev, build=TG.FACTORIES["menger2_voxel"],
+                 max_outside=40)
+
+
+def phase_nee(dev):
+    """cornell with NEE on both film modes, without and with Russian
+    roulette."""
+    runs = {}
+    for rr in (None, 3):
+        for pend in (False, True):
+            key = (rr, pend)
+            runs[key] = {}
+            kernels = ("B1", "B7") + (("B4",) if pend else ("B2",))
+            with environ(MRT_FILM_PEND="1" if pend else "0"):
+                launches, mean = phase_main(
+                    18, "cornell", dev, kernels, nee=True, rr_depth=rr,
+                    film_out=runs[key], absent=("B2",) if pend else ())
+            runs[key].update(launches=launches, mean=mean)
+        a, b = runs[(rr, False)]["film"], runs[(rr, True)]["film"]
+        diff, scale = films_agree(f"cornell NEE rr_depth={rr}", a, b)
+        log(18, f"cornell NEE rr_depth={rr}: the B2 and B4 films' bounce "
+                f"counts equal ({int(a.depth_sum.sum())}), max radiance "
+                f"difference {diff:.3g} of {scale:.3g}")
+    full = int(runs[(None, False)]["film"].depth_sum.sum())
+    rr = int(runs[(3, False)]["film"].depth_sum.sum())
+    check(rr <= full, f"Russian roulette added bounces: {rr} > {full}")
+    log(18, f"cornell NEE: {rr} bounces with rr_depth=3, {full} without")
+    for run in runs.values():
+        run.pop("film")
+    return runs
+
+
+def phase_menger(dev):
+    run = {}
+    launches, mean = phase_main(18, "menger", dev, ("B2", "B7"),
+                                film_out=run, absent=("B1",))
+    check(run["dda_per_step"] > 0, "menger: the voxel walk did not run")
+    run.pop("film")
+    return dict(run, launches=launches, mean=mean)
+
+
+def phase_probes(dev):
+    """P1-P3 through the probe entry point (launch counts set to 0 just
+    before), then each kernel timed beside its plain version."""
+    from mrt_torch.ops import _build
+    from mrt_torch.tools import probe_stream as P
+
+    reset_launches()
+    res = P.run(dev)
+    launches = read_launches()
+    check(all(launches[k] > 0 for k in ("P1", "P2", "P3")),
+          f"probes: launches {launches}")
+    f, i = P.tables(dev)
+    out = torch.empty((1,), device=dev)
+    cyc = torch.empty((4,), dtype=torch.int64, device=dev)
+    chain = torch.from_numpy(P.chain()).to(dev)
+    visited = torch.empty((1,), dtype=torch.int32, device=dev)
+    x = torch.ones((1,), device=dev)
+    codes = torch.zeros((2,), dtype=torch.int32)
+    kb = max(k for k in P.P3_KB if k * 1024 <= res["smem_optin_bytes"])
+    kernels = {
+        "P1": (lambda: _build.launch("mrt_probe_a", dev, f, i, out, cyc),
+               lambda: P.probe_a_plain(f, i), 4 * 10 * P.PAGE * 4 + 4),
+        "P2": (lambda: _build.launch("mrt_probe_b", dev, chain, P.CHAIN, 0,
+                                     visited, cyc),
+               None, P.CHAIN * 4 + 4),
+        "P3": (lambda: _build.launch("mrt_probe_c", dev, x, out, kb * 1024,
+                                     codes),
+               lambda: P.probe_c_plain(x), 8),
+    }
+    rows = {}
+    for name, (kernel, plain, moved) in kernels.items():
+        # P3's entry raises the kernel's shared memory attribute, which a
+        # CUDA graph capture does not take: CUDA events around its calls.
+        ms = call_ms(kernel, 20) if name == "P3" else graph_ms(kernel, 20)
+        if plain is None:  # the Python walk syncs: host time of one call
+            t0 = time.perf_counter()
+            P.probe_b_plain(chain)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        else:
+            plain_ms = graph_ms(plain, 20)
+        rows[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, launches=launches[name],
+                          **bound(moved, 0))
+    p1, p2 = res["p1"], res["p2"]
+    rows["P1"]["page_copy_ns"] = p1["page_copy_ns"]
+    rows["P2"]["ns_per_step"] = {k: v["ns_per_step"] for k, v in p2.items()}
+    rows["P3"].update(sizes=res["p3"], smem_optin_bytes=res["smem_optin_bytes"])
+    log(19, f"P1 {p1['value']} (closed form {p1['closed_form']}), page copies "
+            + ", ".join(f"{c:.0f} ns" for c in p1["page_copy_ns"])
+            + f" at {res['clock_khz']} kHz; kernel {rows['P1']['ms']:.4f} ms "
+            f"a call, plain {rows['P1']['plain_ms']:.4f} ms")
+    log(19, "P2 1024 visited on each walk; a dependent step: "
+            + ", ".join(f"{k} {v['ns_per_step']:.1f} ns "
+                        f"({v['cycles_per_step']:.1f} cycles)"
+                        for k, v in p2.items())
+            + f"; paged kernel {rows['P2']['ms']:.4f} ms a call, Python walk "
+            f"{rows['P2']['plain_ms']:.3f} ms")
+    log(19, "P3 " + ", ".join(f"{k} KB: {v}" for k, v in res["p3"].items())
+            + f"; opt-in limit {res['smem_optin_bytes']} B; kernel "
+            f"{rows['P3']['ms']:.4f} ms a call ({kb} KB, CUDA events), plain "
+            f"{rows['P3']['plain_ms']:.4f} ms")
+    return rows
 
 
 def main():
@@ -788,6 +1021,11 @@ def main():
     b3 = phase_b3(dev)
     phase_texture_goldens(dev)
     eve = phase_eve(dev)
+    b4 = phase_b4(dev)
+    phase_light_goldens(dev)
+    nee = phase_nee(dev)
+    menger = phase_menger(dev)
+    probes = phase_probes(dev)
 
     kernels = [
         dict(name="B1 sphere nearest hit", route="cuda",
@@ -802,6 +1040,11 @@ def main():
              source="mrt_torch/csrc/gather.cu",
              replaces="mrt/ops/pallas_onehot.py:218",
              launches=eve["compact"]["launches"]["B3"], **b3),
+        dict(name="B4 pending film deposit", route="cuda",
+             source="mrt_torch/csrc/deposit.cu",
+             replaces="mrt/ops/pallas_deposit.py:38",
+             launches=nee[(None, True)]["launches"]["B4"],
+             launches_rr3=nee[(3, True)]["launches"]["B4"], **b4),
         dict(name="B5 sphere-BVH closest hit", route="cuda",
              source="mrt_torch/csrc/bvh.cu",
              replaces="mrt/ops/pallas_bvh.py:79",
@@ -815,7 +1058,17 @@ def main():
              route="cuda", source="mrt_torch/csrc/bvh.cu",
              replaces="mrt/ops/pallas_bvh.py:523",
              launches=grid["B7"], launches_lucy=meshes["lucy"][0]["B7"],
-             **b7),
+             launches_cornell_nee=nee[(None, False)]["launches"]["B7"],
+             launches_menger=menger["launches"]["B7"], **b7),
+        dict(name="P1 paged table copy probe", route="cuda",
+             source="mrt_torch/csrc/probe_stream.cu",
+             replaces="tools/probe_stream.py:22", **probes["P1"]),
+        dict(name="P2 paged chain walk probe", route="cuda",
+             source="mrt_torch/csrc/probe_stream.cu",
+             replaces="tools/probe_stream.py:55", **probes["P2"]),
+        dict(name="P3 shared memory size probe", route="cuda",
+             source="mrt_torch/csrc/probe_stream.cu",
+             replaces="tools/probe_stream.py:147", **probes["P3"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,12 @@ Layout:
     mrt_torch.core        camera, the entry points' default device
     mrt_torch.geometry    hit records, spheres, triangles, BVHs,
                           instances (TLAS and its world-flattened
-                          tables), the scene and its builder
+                          tables), voxel grids, volumes, the scene and
+                          its builder
     mrt_torch.loaders     OBJ + MTL, PLY and STL mesh loaders
-    mrt_torch.materials   material table, shading, backgrounds
+    mrt_torch.materials   material table, shading, backgrounds, lights
     mrt_torch.scenes      scene registry (rtiow, cornell, sphere_grid,
-                          lucy, playground)
+                          lucy, playground, eve, menger)
     mrt_torch.integrator  wavefront and persistent integrators
     mrt_torch.runtime     film, render driver, asset lookup, input
                           record/replay, character physics
@@ -21,6 +22,7 @@ Layout:
     mrt_torch.csrc        CUDA sources, built with nvcc at first use
     mrt_torch.convert     numpy parameters -> port modules
     mrt_torch.profile     step profile of one pass on the card
+    mrt_torch.tools       hardware probes (probe_stream: P1-P3)
 
 Scene, materials and camera are ``nn.Module``s holding buffers, so
 ``.to(device)`` moves them.  Scene factories and ``Film.create`` build

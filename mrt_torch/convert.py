@@ -17,8 +17,10 @@ from .geometry.spheres import Spheres
 from .geometry.triangles import FIELDS as TRI_FIELDS
 from .geometry.triangles import TriangleTable, Triangles
 from .geometry.volumes import MeshVolume, VolumeSpheres
+from .geometry.voxels import VoxelGrid
 from .materials.background import (CubeMap, SkyBackground, SkySphere,
                                    SolidBackground)
+from .materials.lights import LightTable
 from .materials.table import MaterialTable
 from .textures.atlas import TextureAtlas
 
@@ -38,7 +40,8 @@ def _background(spec):
 def scene_from_numpy(spheres, materials, *, has_mix, background=None,
                      mix_depth=None, sphere_bvh=None, tlas=None,
                      triangles=None, bvh=None, atlas=None, volumes=None,
-                     mesh_volumes=None, needs_alpha=False, mat_tex_raw=False):
+                     mesh_volumes=None, needs_alpha=False, mat_tex_raw=False,
+                     voxels=None, lights=None):
     """spheres: mapping with "center" (S,3), "radius" (S,), "material"
     (S,); materials: mapping with the MaterialTable.FIELDS arrays;
     background: None for the sky gradient, an RGB color for a solid
@@ -55,7 +58,10 @@ def scene_from_numpy(spheres, materials, *, has_mix, background=None,
     TextureAtlas.FIELDS arrays; volumes: None, or a mapping with
     "center", "radius", "neg_inv_density", "material"; mesh_volumes:
     None, or mappings with "tlas" (as ``tlas``), "neg_inv_density" and
-    "material"; needs_alpha, mat_tex_raw: the Scene's flags.
+    "material"; needs_alpha, mat_tex_raw: the Scene's flags; voxels:
+    None, or mappings with "origin", "cell", "material", "levels",
+    "rule" and, for rule "dense", "mips" (the reference's pyramid);
+    lights: None, or a mapping with the LightTable.FIELDS arrays.
 
     The scene is built on the CPU; ``.to(device)`` moves it."""
     table_kw = {k: np.asarray(materials[k]) for k in MaterialTable.FIELDS}
@@ -80,6 +86,10 @@ def scene_from_numpy(spheres, materials, *, has_mix, background=None,
     mesh_vols = [MeshVolume(TLAS.from_numpy(v["tlas"]),
                             *arrays(v, ("neg_inv_density", "material")))
                  for v in mesh_volumes or ()]
+    grids = [VoxelGrid(np.asarray(g["origin"]), np.asarray(g["cell"]),
+                       int(g["levels"]), np.asarray(g["material"]),
+                       rule=g["rule"], mips=g.get("mips"))
+             for g in voxels or ()]
     return Scene(materials=MaterialTable(**table_kw),
                  background=_background(background), spheres=sph,
                  has_mix=has_mix, sphere_bvh=flat_bvh(sphere_bvh),
@@ -88,7 +98,10 @@ def scene_from_numpy(spheres, materials, *, has_mix, background=None,
                  volumes=vols, mesh_volumes=mesh_vols,
                  atlas=None if atlas is None else TextureAtlas(**{
                      k: np.asarray(atlas[k]) for k in TextureAtlas.FIELDS}),
-                 needs_alpha=needs_alpha, mat_tex_raw=mat_tex_raw)
+                 needs_alpha=needs_alpha, mat_tex_raw=mat_tex_raw,
+                 voxels=grids,
+                 lights=None if lights is None else LightTable(**{
+                     k: np.asarray(lights[k]) for k in LightTable.FIELDS}))
 
 
 def camera_from_numpy(origin, lower_left, horizontal, vertical, u, v,

@@ -3,8 +3,9 @@
 A wavefront of N rays produces parallel tensors; materials are integer
 rows into the scene's MaterialTable.  Primitives without UVs (spheres,
 volumes) carry zero texture coordinates and a zero tangent frame.  The
-light-pdf area of the hit primitive joins the record with next-event
-estimation.
+``prim_area`` is the light-pdf geometry of the hit primitive for
+next-event estimation (``materials/lights.py``): the world triangle area
+(> 0), minus the sphere radius (< 0), or 0 (volumes, voxels, misses).
 """
 
 from __future__ import annotations
@@ -29,6 +30,11 @@ class Hits:
     hit: torch.Tensor         # (N,)  bool
     tangent: torch.Tensor     # (N,3) tangent frame for normal mapping
     bitangent: torch.Tensor   # (N,3)
+    prim_area: torch.Tensor = None  # (N,)  zeros when not given
+
+    def __post_init__(self):
+        if self.prim_area is None:
+            self.prim_area = torch.zeros_like(self.t)
 
     @classmethod
     def none(cls, n, device=None):
@@ -43,6 +49,7 @@ class Hits:
             hit=torch.zeros((n,), dtype=torch.bool, device=device),
             tangent=torch.zeros((n, 3), device=device),
             bitangent=torch.zeros((n, 3), device=device),
+            prim_area=torch.zeros((n,), device=device),
         )
 
     @property

@@ -37,7 +37,7 @@ import torch
 from torch import nn
 
 from ..math import m4
-from ..math.vec import dot, sqrt
+from ..math.vec import cross, dot, length, sqrt
 from ..ops import budget
 from ..ops import bvh as kernel
 from . import bvh as bvh_mod
@@ -484,7 +484,11 @@ def expand_winner(tlas: TLAS, o, d, best_t, best_inst, best_tri, best_u,
     tangent = dot(lin, s["tangent"][:, None, :])
     bitangent = dot(lin, s["bitangent"][:, None, :])
     normal_w, front_face = set_face_normal(d, normal_w)
+    # World triangle area for the MIS light pdf: the edges through the
+    # instance's forward linear part.
+    area = 0.5 * length(cross(dot(lin, s["e_ab"][:, None, :]),
+                              dot(lin, s["e_ac"][:, None, :])))
     return Hits(t=torch.where(hit, best_t, INF), point=point,
                 normal=normal_w, front_face=front_face, uv=uv,
                 material=material, hit=hit, tangent=tangent,
-                bitangent=bitangent)
+                bitangent=bitangent, prim_area=torch.where(hit, area, 0.0))

@@ -11,12 +11,15 @@ set keeps the hit):
   - instanced meshes: a TLAS, through kernel B7, or through kernel B6 on
     its world-flattened routes where ``MRT_TLAS_KERNEL`` opts in
     (``instance.wants_flat`` / ``wants_flat_parts``);
+  - voxel grids, walked by a hierarchical DDA in PyTorch
+    (``geometry/voxels.py``);
   - volumes bounded by spheres (one uniform each), then volumes bounded
     by meshes (kernel B7), drawing from the caller's sampler.
-With a texture atlas, EVE hits then get their normal maps, and a scene
-whose materials can fail the alpha test re-casts the rays whose winner
-did (``ALPHA_ROUNDS`` times).  Voxels and lights join the port with
-their slices.
+With a texture atlas, EVE hits then get their normal maps (unless the
+caller asks only for occlusion, as shadow rays do), and a scene whose
+materials can fail the alpha test re-casts the rays whose winner did
+(``ALPHA_ROUNDS`` times).  A scene with a light table (``lights``) is
+rendered with next-event estimation (``materials/lights.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from . import instance as inst_mod
 from . import spheres as sphere_mod
 from . import triangles as tri_mod
 from . import volumes as vol_mod
+from . import voxels as vox_mod
 from .hit import Hits
 
 T_MIN = 1e-3  # intersect(ray, 0.001, inf), as in the reference
@@ -47,8 +51,10 @@ class Scene(nn.Module):
     spheres: Spheres or None; sphere_bvh: FlatBVH over the spheres (in
     BVH order) or None; triangles: a TriangleTable or None; bvh: FlatBVH
     over the triangles (in BVH order) or None for a brute-force scan;
-    tlas: TLAS or None; volumes: VolumeSpheres or None; mesh_volumes: a
-    sequence of MeshVolume or None; atlas: TextureAtlas or None.
+    tlas: TLAS or None; voxels: a sequence of VoxelGrid or None; volumes:
+    VolumeSpheres or None; mesh_volumes: a sequence of MeshVolume or
+    None; atlas: TextureAtlas or None; lights: a LightTable (next-event
+    estimation) or None.
     ``has_mix`` is False when no material row is a MIX (shading then
     skips the row resolution); ``needs_alpha`` is True when a material
     row can fail the alpha test (the re-cast rounds run);
@@ -62,7 +68,8 @@ class Scene(nn.Module):
     def __init__(self, materials, background, spheres=None, has_mix=True,
                  sphere_bvh=None, tlas=None, triangles=None, bvh=None,
                  volumes=None, mesh_volumes=None, atlas=None,
-                 needs_alpha=False, mat_tex_raw=False):
+                 needs_alpha=False, mat_tex_raw=False, voxels=None,
+                 lights=None):
         super().__init__()
         self.materials = materials
         self.background = background
@@ -71,17 +78,20 @@ class Scene(nn.Module):
         self.triangles = triangles
         self.bvh = bvh
         self.tlas = tlas
+        self.voxels = nn.ModuleList(voxels) if voxels else None
         self.volumes = volumes
         self.mesh_volumes = (nn.ModuleList(mesh_volumes) if mesh_volumes
                              else None)
         self.atlas = atlas
+        self.lights = lights
         self.has_mix = bool(has_mix)
         self.needs_alpha = bool(needs_alpha)
         self.mat_tex_raw = bool(mat_tex_raw)
 
     def world_bounds(self):
-        """(bmin, bmax) of all geometry: the root boxes of the BVHs, or
-        the spheres' own bounds when they have no BVH."""
+        """(bmin, bmax) of all geometry: the root boxes of the BVHs, the
+        spheres' own bounds when they have no BVH, and the voxel grids'
+        boxes."""
         mins, maxs = [], []
         if self.tlas is not None:
             mins.append(self.tlas.t_bmin[0])
@@ -96,6 +106,10 @@ class Scene(nn.Module):
             r = self.spheres.radius[:, None]
             mins.append(torch.amin(self.spheres.center - r, dim=0))
             maxs.append(torch.amax(self.spheres.center + r, dim=0))
+        for grid in self.voxels or ():
+            lo, hi = grid.world_bounds()
+            mins.append(lo)
+            maxs.append(hi)
         if not mins:
             device = self.materials.mtype.device
             return (torch.zeros(3, device=device),
@@ -104,29 +118,30 @@ class Scene(nn.Module):
                 torch.amax(torch.stack(maxs), dim=0))
 
     def intersect(self, o, d, t_min=T_MIN, t_max=float("inf"),
-                  sampler=None) -> Hits:
+                  sampler=None, shading_aux=True) -> Hits:
         """Closest hit of each ray (o, d: (N, 3)) against every primitive
         set; on equal t the earlier set keeps the hit.  `sampler` feeds
         the volumes' free flights and the alpha test's Mix draws (scenes
-        with either need it).
+        with either need it).  shading_aux=False skips what only shading
+        needs (normal maps), for occlusion queries.
 
         Alpha test: the winner is tested, and rays whose winner fails are
         cast again from just past it.  Every round runs and merges by
         where(redo, ...), so the host never waits for the device; a round
         with nothing to redo changes nothing, and the sampler's draws
         advance the same either way."""
-        hits = self._intersect_once(o, d, t_min, t_max, sampler)
+        hits = self._intersect_once(o, d, t_min, t_max, sampler, shading_aux)
         if self.needs_alpha and self.atlas is not None:
             for _ in range(self.ALPHA_ROUNDS):
                 keep = shade.alpha_test(self, hits.material, hits.uv, sampler)
                 redo = hits.hit & ~keep
                 again = self._intersect_once(
                     o, d, torch.where(redo, hits.t + 1e-4, t_min), t_max,
-                    sampler)
+                    sampler, shading_aux)
                 hits = hits.select(redo, again)
         return hits
 
-    def _intersect_once(self, o, d, t_min, t_max, sampler):
+    def _intersect_once(self, o, d, t_min, t_max, sampler, shading_aux):
         hits = Hits.none(o.shape[0], device=o.device)
         if self.spheres is not None:
             if self.sphere_bvh is not None:
@@ -156,6 +171,8 @@ class Scene(nn.Module):
             else:
                 hits = hits.closer_of(inst_mod.intersect_tlas(
                     self.tlas, o, d, t_min, t_max))
+        for grid in self.voxels or ():
+            hits = hits.closer_of(vox_mod.intersect(grid, o, d, t_min, t_max))
         if (self.volumes is not None or self.mesh_volumes) and sampler is None:
             raise ValueError("scene has volumes: intersect needs a sampler "
                              "for the free flights")
@@ -167,7 +184,7 @@ class Scene(nn.Module):
         for vol in self.mesh_volumes or ():
             hits = hits.closer_of(vol_mod.intersect_mesh(
                 vol, o, d, t_min, t_max, sampler.next1()))
-        if self.atlas is not None:
+        if self.atlas is not None and shading_aux:
             hits = shade.apply_normal_maps(self, hits, d)
         return hits
 
@@ -189,6 +206,18 @@ class Scene(nn.Module):
             k, pad_row=(1.0, 0.0, 0.0))
 
 
+def attach_lights(scene: Scene) -> Scene:
+    """Opt in to next-event estimation: collect the scene's emissive
+    geometry into its light table (nothing changes when it has none).
+    Returns the scene."""
+    from ..materials.lights import collect_lights
+
+    table = collect_lights(scene)
+    if table is not None:
+        scene.lights = table
+    return scene
+
+
 def all_raw(texture_ids, atlas):
     """True when every one of the atlas ids is a RAW row."""
     kinds = atlas.kind.cpu().numpy()
@@ -208,8 +237,8 @@ def with_atlas(scene: Scene, atlas) -> Scene:
 
 class SceneBuilder:
     """Host-side accumulator of spheres, meshes, instances, brute-force
-    triangle sets and volumes (the reference's World + Model pattern).
-    Voxels and lights join with their slices."""
+    triangle sets, voxel grids and volumes (the reference's World + Model
+    pattern)."""
 
     # Sphere sets at or above this size get a BVH.
     SPHERE_BVH_THRESHOLD = 64
@@ -226,6 +255,7 @@ class SceneBuilder:
         self._tri_groups = []
         self._volumes = []
         self._mesh_volumes = []
+        self._voxels = []
 
     def _ensure_registry(self):
         if self._registry is None:
@@ -269,8 +299,15 @@ class SceneBuilder:
         reg.add_instance(reg.add_mesh(tris), translation, rotation, scale)
         self._mesh_volumes.append((reg, -1.0 / float(density), mat))
 
-    def build(self, device=None) -> Scene:
-        """The Scene, on `device` (None: the CUDA card)."""
+    def add_voxel_grid(self, origin, cell, levels, material, rule="menger",
+                       occupancy=None):
+        """An axis-aligned grid of solid cells (``voxels.VoxelGrid``)."""
+        self._voxels.append(vox_mod.VoxelGrid.create(
+            origin, cell, levels, material, rule=rule, occupancy=occupancy))
+
+    def build(self, device=None, nee=False) -> Scene:
+        """The Scene, on `device` (None: the CUDA card); nee=True attaches
+        its light table (next-event estimation)."""
         device = resolve(device)
         spheres = sphere_bvh = None
         if self._sphere_rows:
@@ -301,8 +338,9 @@ class SceneBuilder:
                       spheres=spheres, has_mix=mats.has_mix(),
                       sphere_bvh=sphere_bvh, tlas=tlas, triangles=triangles,
                       volumes=volumes, mesh_volumes=mesh_volumes,
-                      atlas=atlas,
+                      voxels=self._voxels, atlas=atlas,
                       needs_alpha=atlas is not None and mats.may_alpha_test(),
                       mat_tex_raw=(atlas is not None
                                    and all_raw(mats.texture_ids(), atlas)))
-        return scene.to(device)
+        scene = scene.to(device)
+        return attach_lights(scene) if nee else scene

@@ -58,6 +58,7 @@ def make_hits(spheres: Spheres, o, d, t, index) -> Hits:
         hit=hit,
         tangent=zeros,
         bitangent=zeros,
+        prim_area=torch.where(hit, -r, 0.0),  # < 0: a sphere (MIS pdf)
     )
 
 

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..math.vec import cross, dot, sqrt
+from ..math.vec import cross, dot, length, sqrt
 from .hit import INF, Hits, set_face_normal
 
 DET_EPS = 1e-6
@@ -251,6 +251,8 @@ def make_hits(tris: TriangleTable, o, d, t, index, u, v) -> Hits:
         norm = sqrt(dot(normal, normal))[:, None]
         normal = normal / torch.clamp(norm, min=1e-20)
     normal, front_face = set_face_normal(d, normal)
+    area = 0.5 * length(cross(s["e_ab"], s["e_ac"]))
     return Hits(t=torch.where(hit, t, INF), point=point, normal=normal,
                 front_face=front_face, uv=uv, material=s["material"],
-                hit=hit, tangent=s["tangent"], bitangent=s["bitangent"])
+                hit=hit, tangent=s["tangent"], bitangent=s["bitangent"],
+                prim_area=torch.where(hit, area, 0.0))

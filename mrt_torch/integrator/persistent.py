@@ -12,23 +12,52 @@ bounce) as in the wavefront integrator, so both give the same
 estimator; only the order of the film's float additions differs.
 
 Each step deposits [radiance, scattered] of every active lane straight
-into the packed (npix, 4) film with kernel B2 (``ops.deposit``).  The
-loop checks for termination every FLUSH_STEPS steps; steps that find
-the queue empty deposit nothing.
+into the packed (npix, 4) film with kernel B2 (``ops.deposit``).  In
+the pending-deposit film mode (``pend``, ``MRT_FILM_PEND=1``) each lane
+instead sums its path's contributions in a per-lane accumulator, and
+only the lanes whose path ends this step add theirs to the film, with
+kernel B4 (``ops.deposit.deposit_pending``).  The loop checks for
+termination every FLUSH_STEPS steps; steps that find the queue empty
+deposit nothing.
+
+Russian roulette (``rr_depth``) and next-event estimation (a scene with
+a light table) are the wavefront integrator's, per lane; the MIS pdf of
+a path's last continuation rides with the lane (``prev_pdf``, zero on a
+new camera ray).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from ..materials import shade
 from ..math.rng import MASK, Sampler, mul32
-from ..ops.deposit import deposit
-from .wavefront import MAX_DEPTH, T_MIN
+from ..ops.deposit import deposit, deposit_pending
+from .wavefront import (MAX_DEPTH, T_MIN, mis_emission, next_event,
+                        roulette)
 
 POOL = 1 << 17
 # Steps between termination checks (each check syncs with the device).
 FLUSH_STEPS = 8
+# The pend film mode's default when neither the caller nor MRT_FILM_PEND
+# chooses, as in the reference.
+PEND_AUTO_ON = False
+
+
+def pend_enabled(pend=None):
+    """Resolve the pending-deposit film mode: True or False as given;
+    None reads MRT_FILM_PEND ("1" on, "0" off) and else PEND_AUTO_ON.
+    The reference also gates the mode on its TPU kernel's layout (pool %
+    1024, film rows * 4 % 128); kernel B4 takes any shape, so the port
+    has no such gate."""
+    if pend is not None:
+        return bool(pend)
+    flag = os.environ.get("MRT_FILM_PEND")
+    if flag in ("0", "1"):
+        return flag == "1"
+    return PEND_AUTO_ON
 
 
 class LanePool:
@@ -36,8 +65,9 @@ class LanePool:
     pool of lanes."""
 
     def __init__(self, scene, camera, width, height, seed, sample_start,
-                 samples, max_depth):
+                 samples, max_depth, rr_depth=None, pend=False):
         self.scene, self.camera = scene, camera
+        self.rr_depth, self.pend = rr_depth, pend
         self.width = width
         self.seed = seed
         self.sample_start, self.samples = sample_start, samples
@@ -77,12 +107,17 @@ class LanePool:
     def init_state(self, pool):
         lane = torch.arange(pool, dtype=torch.int64, device=self.device)
         o, d, ray_id = self.make_rays(lane)
-        return dict(
+        st = dict(
             item=lane,
             bounce=torch.zeros((pool,), dtype=torch.int64, device=self.device),
             o=o, d=d, throughput=torch.ones_like(o), ray_id=ray_id,
+            prev_pdf=torch.zeros((pool,), device=self.device),
             next_work=torch.tensor(pool, dtype=torch.int64,
                                    device=self.device))
+        if self.pend:
+            # Per-lane pending (radiance, bounce count) of the lane's path.
+            st["acc"] = torch.zeros((pool, 4), device=self.device)
+        return st
 
     def step(self, st, film):
         """One wavefront step: intersect, shade, deposit into `film`
@@ -90,28 +125,51 @@ class LanePool:
         scene, total = self.scene, self.total
         item, b, o, d = st["item"], st["bounce"], st["o"], st["d"]
         throughput, ray_id = st["throughput"], st["ray_id"]
+        seed = self.seed
         active = item < total
         q = torch.clamp(item, 0, total - 1) // self.samples
 
-        vol_sampler = Sampler(self.seed, ray_id, salt=3 * b + 2)
+        vol_sampler = Sampler(seed, ray_id, salt=3 * b + 2)
         hits = scene.intersect(o, d, t_min=T_MIN, sampler=vol_sampler)
-        em_sampler = Sampler(self.seed, ray_id, salt=3 * b)
-        sc_sampler = Sampler(self.seed, ray_id, salt=3 * b + 1)
-        emitted, atten, new_dir, scattered = shade.shade_hit(
+        em_sampler = Sampler(seed, ray_id, salt=3 * b)
+        sc_sampler = Sampler(seed, ray_id, salt=3 * b + 1)
+        emitted, atten, new_dir, scattered, lobe = shade.shade_hit(
             scene, hits, d, em_sampler, sc_sampler)
         hit = hits.hit & active
         miss = ~hits.hit & active
         background = scene.background_eval_masked(d, miss)
+        emitted = mis_emission(scene, hits, o, d, st["prev_pdf"], emitted)
         radiance_add = background + torch.where(hit[:, None], emitted, 0.0)
         radiance_add = torch.where(active[:, None],
                                    throughput * radiance_add, 0.0)
+        direct, did_nee, next_pdf = next_event(scene, hits, hit, lobe,
+                                               new_dir, seed, ray_id, b)
+        if direct is not None:
+            radiance_add = radiance_add + torch.where(
+                did_nee[:, None], throughput * atten * direct, 0.0)
 
         scat = hit & scattered
         cont = scat & (b + 1 < self.max_depth)
+        if self.rr_depth is not None:
+            # On `scat`, not the depth-gated `cont`, so bounce counts
+            # match the wavefront integrator's.
+            scat, apply_rr, p_survive = roulette(
+                seed, ray_id, b, self.rr_depth, scat, throughput * atten)
+            cont = cont & scat
+            atten = torch.where(apply_rr[:, None],
+                                atten / p_survive[:, None], atten)
         contrib = torch.cat([radiance_add, scat.to(torch.float32)[:, None]],
                             dim=1)
         slot = torch.where(active, q, -1).to(torch.int32)
-        deposit(film, slot, contrib)
+        out = {}
+        if self.pend:
+            # Only the lanes whose path ends now touch the film.
+            acc = st["acc"] + contrib
+            dying = active & ~cont
+            deposit_pending(film, slot, acc, dying)
+            out["acc"] = torch.where(dying[:, None], 0.0, acc)
+        else:
+            deposit(film, slot, contrib)
 
         # Regenerate dead (and idle) lanes: the k-th claiming lane takes
         # item next_work + k while the queue lasts.
@@ -124,6 +182,7 @@ class LanePool:
         no, nd, nrid = self.make_rays(torch.where(takes, new_item, 0))
         c3, t3 = cont[:, None], takes[:, None]
         return dict(
+            out,
             item=item,
             bounce=torch.where(cont, b + 1, 0),
             o=torch.where(c3, hits.point, torch.where(t3, no, self.neutral_o)),
@@ -132,6 +191,7 @@ class LanePool:
                 c3, throughput * atten,
                 torch.where(t3, torch.ones_like(throughput), throughput)),
             ray_id=torch.where(cont, ray_id, torch.where(takes, nrid, ray_id)),
+            prev_pdf=torch.where(cont, next_pdf, 0.0),
             next_work=next_work)
 
     def busy(self, st):
@@ -142,14 +202,17 @@ class LanePool:
 
 def render_samples_persistent(scene, camera, width, height, seed,
                               sample_start, samples, max_depth=MAX_DEPTH,
-                              pool=POOL, film_sum=None, depth_sum=None):
+                              pool=POOL, film_sum=None, depth_sum=None,
+                              rr_depth=None, pend=None):
     """Render `samples` spp of the frame with a pool of `pool` lanes.
+    rr_depth: Russian roulette from that bounce on (None: off); pend:
+    the pending-deposit film mode (None: ``pend_enabled``'s default).
 
     Returns (film_sum (npix, 3) float32, depth_sum (npix,) int32); pass
     them back in to accumulate further passes.
     """
     lanes = LanePool(scene, camera, width, height, seed, sample_start,
-                     samples, max_depth)
+                     samples, max_depth, rr_depth, pend_enabled(pend))
     device = lanes.device
     film = torch.zeros((lanes.npix, 4), dtype=torch.float32, device=device)
     if film_sum is not None:

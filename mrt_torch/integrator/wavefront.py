@@ -9,48 +9,110 @@ matches the reference:
   absorbed (no scatter) -> emitted only
   scatter               -> emitted + atten * recurse
 Each ray also reports its bounce count, for the Depth display mode.
+
+Two opt-in changes of estimator, as in the reference:
+  - Russian roulette (``rr_depth``): from that bounce on, a scattered
+    path survives with probability clip(max(throughput), 0.05, 1) and
+    is reweighted by its inverse;
+  - next-event estimation with MIS (a scene with a light table,
+    ``materials/lights.py``): every NEE-capable vertex adds a light
+    sample, and emission found by the BSDF continuation is weighed by
+    the power heuristic against it (``prev_pdf`` carries the
+    continuation's pdf to the next bounce).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..materials import lights as lights_mod
 from ..materials import shade
+from ..materials import table as T
+from ..math import vec
 from ..math.rng import MASK, Sampler
 
 MAX_DEPTH = 50  # the reference default
 T_MIN = 1e-3
 
 
-def _bounce(scene, ray_id, seed, b, state):
+def mis_emission(scene, hits, o, d, prev_pdf, emitted):
+    """With NEE, emission reached by a BSDF continuation of an NEE vertex
+    (prev_pdf > 0) weighed by the power heuristic; else `emitted`."""
+    if scene.lights is None:
+        return emitted
+    is_light = scene.materials.mtype[hits.material] == T.DIFFUSE_LIGHT
+    w_b = lights_mod.mis_bsdf_weight(scene, hits, o, d, prev_pdf)
+    return emitted * torch.where(is_light & (prev_pdf > 0.0), w_b,
+                                 1.0)[:, None]
+
+
+def next_event(scene, hits, hit, lobe, new_dir, seed, ray_id, b):
+    """With NEE: (direct light (N, 3) to weigh by throughput * atten,
+    the lanes that took a light sample, the continuation's pdf (N,)).
+    Without: (None, None, zeros)."""
+    if scene.lights is None:
+        return None, None, torch.zeros_like(hits.t)
+    # A salt past every 3b + k bounce salt.
+    nee_sampler = Sampler(seed, ray_id, salt=(1 << 30) + 3 * b)
+    direct, did_nee = lights_mod.sample_direct(scene, hits, nee_sampler,
+                                               lobe)
+    return direct, did_nee & hit, lights_mod.bsdf_pdf(
+        lobe, vec.unit(hits.normal), vec.unit(new_dir))
+
+
+def roulette(seed, ray_id, b, rr_depth, scat, tp_next):
+    """Russian roulette from bounce rr_depth on: (scat with the paths
+    that lost removed, the survivors' weight 1 / p_survive where it
+    applied, else 1)."""
+    rr_sampler = Sampler(seed, ray_id, salt=(1 << 29) + b)
+    p_survive = torch.clamp(torch.amax(tp_next, dim=-1), 0.05, 1.0)
+    roll = rr_sampler.next1() < p_survive
+    apply_rr = scat & (b >= rr_depth)
+    return scat & (~apply_rr | roll), apply_rr, p_survive
+
+
+def _bounce(scene, ray_id, seed, b, state, rr_depth=None):
     """One bounce: intersect, shade, terminate or continue."""
-    o, d, throughput, radiance, alive, bounces = state
+    o, d, throughput, radiance, alive, bounces, prev_pdf = state
     # Every draw is a pure function of (seed, ray_id, bounce).
     vol_sampler = Sampler(seed, ray_id, salt=3 * b + 2)
     hits = scene.intersect(o, d, t_min=T_MIN, sampler=vol_sampler)
     em_sampler = Sampler(seed, ray_id, salt=3 * b)
     sc_sampler = Sampler(seed, ray_id, salt=3 * b + 1)
-    emitted, atten, new_dir, scattered = shade.shade_hit(
+    emitted, atten, new_dir, scattered, lobe = shade.shade_hit(
         scene, hits, d, em_sampler, sc_sampler)
     background = scene.background_eval(d)
 
     hit = hits.hit & alive
     miss = ~hits.hit & alive
+    emitted = mis_emission(scene, hits, o, d, prev_pdf, emitted)
     contrib = (torch.where(miss[:, None], background, 0.0)
                + torch.where(hit[:, None], emitted, 0.0))
     radiance = radiance + throughput * contrib
+    direct, did_nee, next_pdf = next_event(scene, hits, hit, lobe, new_dir,
+                                           seed, ray_id, b)
+    if direct is not None:
+        radiance = radiance + torch.where(did_nee[:, None],
+                                          throughput * atten * direct, 0.0)
 
     cont = hit & scattered
     c3 = cont[:, None]
     throughput = torch.where(c3, throughput * atten, throughput)
+    if rr_depth is not None:
+        cont, apply_rr, p_survive = roulette(seed, ray_id, b, rr_depth,
+                                             cont, throughput)
+        c3 = cont[:, None]
+        throughput = torch.where(apply_rr[:, None],
+                                 throughput / p_survive[:, None], throughput)
     o = torch.where(c3, hits.point, o)
     d = torch.where(c3, new_dir, d)
     bounces = bounces + cont.to(torch.int32)
-    return o, d, throughput, radiance, cont, bounces
+    return (o, d, throughput, radiance, cont, bounces,
+            torch.where(cont, next_pdf, 0.0))
 
 
 def trace_wavefront(scene, o, d, ray_id, seed, max_depth=MAX_DEPTH,
-                    alive0=None):
+                    alive0=None, rr_depth=None):
     """Trace N rays to completion; stops early once every ray is dead.
 
     Returns (radiance (N,3), bounces (N,) int32)."""
@@ -58,10 +120,11 @@ def trace_wavefront(scene, o, d, ray_id, seed, max_depth=MAX_DEPTH,
     alive = (torch.ones((n,), dtype=torch.bool, device=o.device)
              if alive0 is None else alive0)
     state = (o, d, torch.ones_like(o), torch.zeros_like(o), alive,
-             torch.zeros((n,), dtype=torch.int32, device=o.device))
+             torch.zeros((n,), dtype=torch.int32, device=o.device),
+             torch.zeros((n,), device=o.device))
     b = 0
     while b < max_depth and bool(state[4].any()):
-        state = _bounce(scene, ray_id, seed, b, state)
+        state = _bounce(scene, ray_id, seed, b, state, rr_depth)
         b += 1
     return state[3], state[5]
 
@@ -72,12 +135,13 @@ RAY_BATCH = 1 << 17
 
 
 def trace_batched(scene, o, d, ray_id, seed, max_depth=MAX_DEPTH,
-                  batch_size=RAY_BATCH):
+                  batch_size=RAY_BATCH, rr_depth=None):
     """trace_wavefront over fixed-size sequential batches; pad lanes
     trace a throwaway +z ray and start dead."""
     n = o.shape[0]
     if n <= batch_size:
-        return trace_wavefront(scene, o, d, ray_id, seed, max_depth)
+        return trace_wavefront(scene, o, d, ray_id, seed, max_depth,
+                               rr_depth=rr_depth)
     radiance, bounces = [], []
     for s in range(0, n, batch_size):
         e = min(s + batch_size, n)
@@ -89,14 +153,15 @@ def trace_batched(scene, o, d, ray_id, seed, max_depth=MAX_DEPTH,
             db = torch.cat([db, db.new_ones((pad, 3))])
             ib = torch.cat([ib, ib.new_zeros((pad,))])
             alive[e - s:] = False
-        r, c = trace_wavefront(scene, ob, db, ib, seed, max_depth, alive)
+        r, c = trace_wavefront(scene, ob, db, ib, seed, max_depth, alive,
+                               rr_depth)
         radiance.append(r[:e - s])
         bounces.append(c[:e - s])
     return torch.cat(radiance), torch.cat(bounces)
 
 
 def render_sample(scene, camera, width, height, seed, sample_index,
-                  max_depth=MAX_DEPTH):
+                  max_depth=MAX_DEPTH, rr_depth=None):
     """One 1-spp pass over the full frame.
 
     Returns (radiance (H,W,3), bounces (H,W) int32)."""
@@ -117,6 +182,7 @@ def render_sample(scene, camera, width, height, seed, sample_index,
     o, d = camera.rays(s, t, du, dv)
     sample_salt = (sample * 0x85EBCA6B) & MASK
     radiance, bounces = trace_batched(scene, o, d, ray_id ^ sample_salt,
-                                      seed, max_depth=max_depth)
+                                      seed, max_depth=max_depth,
+                                      rr_depth=rr_depth)
     return (radiance.reshape(height, width, 3),
             bounces.reshape(height, width))

@@ -6,9 +6,9 @@ usemtl/mtllib, 1-based indices, triangular faces, the ``v//n`` form
 corner), group filtering, and ``SimpleTexturedBuilder``, which parses
 the .mtl's newmtl/Kd rows into Lambertian materials and flips V.
 
-Textures (``map_Kd``) need the texture atlas, which the port does not
-have yet: ``SimpleTexturedBuilder`` raises on a ``map_Kd`` row instead of
-dropping the texture.
+Textures (``map_Kd``) need a PNG reader, which the port does not have
+yet: ``SimpleTexturedBuilder`` takes a texture atlas as the reference's
+does, but raises on a ``map_Kd`` row instead of dropping the texture.
 """
 
 from __future__ import annotations
@@ -155,15 +155,18 @@ class SimpleTexturedBuilder(ObjBuilder):
 
     Args:
       materials: a MaterialBuilder (rows added per .mtl material).
-      atlas: the texture atlas for ``map_Kd`` rows.  The port has no
-        atlas yet: it must be None, and a ``map_Kd`` row raises.
+      atlas: an AtlasBuilder for ``map_Kd`` textures, or None.  The port
+        has no PNG reader yet, so a ``map_Kd`` row raises either way.
       filtered_groups: group names to exclude.
+      wrap: the atlas wrap mode of ``map_Kd`` textures (None: REPEAT).
     """
 
-    def __init__(self, materials, atlas=None, filtered_groups=()):
-        if atlas is not None:
-            raise NotImplementedError("mrt_torch has no texture atlas yet")
+    def __init__(self, materials, atlas=None, filtered_groups=(), wrap=None):
+        from ..textures.atlas import REPEAT
+
         self.materials = materials
+        self.atlas = atlas
+        self.wrap = REPEAT if wrap is None else wrap
         self.filtered = set(filtered_groups)
         self._mtl_rows = {}     # material name -> row id
         self._faces = []        # (corner_a, corner_b, corner_c, row)
@@ -181,7 +184,7 @@ class SimpleTexturedBuilder(ObjBuilder):
             print(f"unable to load material library: {e}")
 
     def _parse_mtl(self, path):
-        """newmtl/Kd rows; map_Kd raises (no atlas)."""
+        """newmtl/Kd rows; map_Kd raises (no PNG reader)."""
         current = None
         diffuse = {}
         with open(path, "r", errors="replace") as f:
@@ -200,7 +203,7 @@ class SimpleTexturedBuilder(ObjBuilder):
                 elif parts[0] == "map_Kd" and current and len(parts) > 1:
                     raise NotImplementedError(
                         f"{path}: material {current!r} has a map_Kd "
-                        f"texture; mrt_torch has no texture atlas yet")
+                        f"texture; mrt_torch has no PNG reader yet")
         for name, kd in diffuse.items():
             if name not in self._mtl_rows:
                 self._mtl_rows[name] = self.materials.lambertian(

@@ -191,8 +191,8 @@ def _schlick(cos_theta, refraction_ratio):
 
 def scatter(scene, hits, d_in, sampler):
     """Batched scatter: (attenuation (N,3), new_direction (N,3),
-    scattered (N,) bool).  Absorbed rays (metal below the horizon,
-    lights, null) get scattered=False."""
+    scattered (N,) bool, lobe (N,) int32).  Absorbed rays (metal below
+    the horizon, lights, null) get scattered=False and lobe 0."""
     rows = resolve_rows(scene, hits.material, sampler)
     m = scene.materials
     return _scatter_from(scene, rows, m.mtype[rows], m.params[rows], hits,
@@ -273,14 +273,25 @@ def _scatter_from(scene, rows, mtype, params, hits, d_in, sampler,
     scattered = hits.hit & (
         (is_lam | is_diel | is_iso | is_spec | is_eve)[:, 0]
         | (is_metal[:, 0] & metal_ok))
-    return atten, new_dir, scattered
+
+    # Scatter lobe for NEE and MIS: 1 where the direction came from a
+    # cosine lobe (Lambertian, and the Lambertian outcomes of Specular and
+    # EVE), 2 for the isotropic phase, 0 otherwise and where nothing
+    # scattered.
+    cosine = is_lam | (is_spec & ~rc)
+    if textured:
+        cosine = cosine | (is_eve & (pick_lam | ~rc))
+    lobe = torch.where(cosine[:, 0], 1, torch.where(is_iso[:, 0], 2, 0))
+    lobe = torch.where(scattered, lobe, 0).to(torch.int32)
+    return atten, new_dir, scattered, lobe
 
 
 def shade_hit(scene, hits, d_in, em_sampler, sc_sampler):
     """Emission and scatter for a wavefront: (emitted (N,3),
-    attenuation (N,3), new_direction (N,3), scattered (N,)).  Random
-    streams are those of emitted() then scatter(); without Mix rows the
-    row resolution is the identity and both share one row lookup."""
+    attenuation (N,3), new_direction (N,3), scattered (N,), lobe (N,)).
+    Random streams are those of emitted() then scatter(); without Mix
+    rows the row resolution is the identity and both share one row
+    lookup."""
     if scene.has_mix:
         e = emitted(scene, hits, em_sampler)
         return (e, *scatter(scene, hits, d_in, sc_sampler))

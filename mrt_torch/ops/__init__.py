@@ -1,7 +1,8 @@
 """Kernel wrappers and their plain PyTorch versions.
 
-B1 ``spheres.nearest_t`` (csrc/spheres.cu), B2 ``deposit.deposit``
-(csrc/deposit.cu), B3 ``gather.gather`` (csrc/gather.cu), B5
+B1 ``spheres.nearest_t`` (csrc/spheres.cu), B2 ``deposit.deposit`` and
+B4 ``deposit.deposit_pending`` (csrc/deposit.cu), B3 ``gather.gather``
+(csrc/gather.cu), B5
 ``bvh.sphere_bvh_hit``, B6 ``bvh.tri_bvh_hit`` and B7 ``bvh.tlas_hit``
 (csrc/bvh.cu).  ``compact`` packs masked lanes through B2 and B3.
 ``budget`` is the JAX package's table budget, kept as a routing rule.

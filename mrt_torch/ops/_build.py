@@ -39,6 +39,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "mrt_nearest_t": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P),
     "mrt_deposit": (_P, _I, _I, _P, _P, _I, _I, _P),
+    "mrt_deposit_pending": (_P, _I, _P, _P, _P, _I, _P),
+    "mrt_probe_a": (_P, _P, _P, _P, _P),
+    "mrt_probe_b": (_P, _I, _I, _P, _P, _P),
+    "mrt_probe_c": (_P, _P, _I, _P, _P),
+    "mrt_probe_attributes": (_P, _P, _P),
     "mrt_gather": (_P, _I, _I, _P, _I, _P, _P),
     "mrt_sphere_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
     "mrt_tri_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,

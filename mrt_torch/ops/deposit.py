@@ -1,14 +1,19 @@
-"""Kernel B2: film segment-add, ``film[idx[p]] += vals[p]``.
+"""Kernels B2, film segment-add ``film[idx[p]] += vals[p]``, and B4,
+the pend film mode's masked deposit ``dest[slot[p]] += val[p]`` where
+``die[p]``.
 
-``deposit`` is the wrapper: on CPU tensors it runs the plain PyTorch
+``deposit`` is B2's wrapper: on CPU tensors it runs the plain PyTorch
 version ``deposit_plain``; on CUDA tensors it launches the CUDA kernel
 ``csrc/deposit.cu`` (which replaces the TPU kernels
 ``mrt/ops/pallas_onehot.py::onehot_deposit`` and ``onehot_deposit_f32``)
-or raises.  ``deposit.launches`` counts kernel launches.
+or raises.  ``deposit_pending`` is B4's, with ``deposit_pending_plain``,
+in the same way (it replaces ``mrt/ops/pallas_deposit.py::deposit_add``).
+``deposit.launches`` and ``deposit_pending.launches`` count kernel
+launches.
 
-Both versions add into ``film`` in place and return it.  Lanes whose
-index lies outside [0, n_rows) are dropped; with ``drop_nonfinite``,
-non-finite values are skipped (added as nothing).
+Every version adds into its destination in place and returns it.  Lanes
+whose index lies outside [0, n_rows) are dropped; with B2's
+``drop_nonfinite``, non-finite values are skipped (added as nothing).
 """
 
 from __future__ import annotations
@@ -68,3 +73,42 @@ def deposit(film, idx, vals, drop_nonfinite=False):
 
 
 deposit.launches = 0
+
+
+def deposit_pending_plain(dest, slot, val, die):
+    """Plain PyTorch version of B4: ``index_add_`` of the lanes that die
+    with a nonzero value (every other lane adds an exact zero to row 0;
+    never a device sync)."""
+    keep = (die & (val != 0.0).any(dim=1) & (slot >= 0)
+            & (slot < dest.shape[0]))
+    v = torch.where(keep[:, None], val, 0.0)
+    rows = torch.where(keep, slot, 0).to(torch.int64)
+    return dest.index_add_(0, rows, v)
+
+
+def deposit_pending(dest, slot, val, die):
+    """dest (R, 4) float32 += val (P, 4) float32 at rows slot (P,) int32
+    of the lanes where die (P,) bool, skipping lanes whose four values
+    are all zero.  In place; returns dest."""
+    _check(dest, slot, val)
+    if die.dtype != torch.bool or die.shape != slot.shape:
+        raise TypeError(f"deposit_pending: die is {die.dtype} "
+                        f"{tuple(die.shape)}, not bool {tuple(slot.shape)}")
+    if die.device != dest.device or not die.is_contiguous():
+        raise ValueError(f"deposit_pending: die on {die.device}, "
+                         f"contiguous {die.is_contiguous()}")
+    if dest.shape[1] != 4:
+        raise ValueError(f"deposit_pending: dest {tuple(dest.shape)} is not "
+                         "(R, 4)")
+    if dest.device.type == "cpu":
+        return deposit_pending_plain(dest, slot, val, die)
+    if dest.device.type != "cuda":
+        raise ValueError(f"deposit_pending: no kernel for device "
+                         f"{dest.device}")
+    _build.launch("mrt_deposit_pending", dest.device, dest, dest.shape[0],
+                  slot, val, die, slot.shape[0])
+    deposit_pending.launches += 1
+    return dest
+
+
+deposit_pending.launches = 0

@@ -3,15 +3,21 @@
     python -m mrt_torch.profile --scene sphere_grid
     MRT_TLAS_KERNEL=flat python -m mrt_torch.profile --scene lucy
     MRT_BG_COMPACT=1 MRT_TEX_COMPACT=1 python -m mrt_torch.profile --scene eve
+    MRT_FILM_PEND=1 python -m mrt_torch.profile --scene cornell --nee
+    python -m mrt_torch.profile --scene menger --steps 40
 
 Renders one unprofiled pass (its wall time), then one pass under
 ``torch.profiler`` with a ``record_function`` range around each layer of
-the step (camera rays, intersection, shading, background, film
-deposit), and prints the device time of each layer (the kernels
+the step (camera rays, intersection with its voxel walk, shading,
+background, next-event estimation, film deposit), and prints the device time of each layer (the kernels
 launched inside its range), of each hand kernel and of the busiest
 kernels, the launches a step and the device's idle share (1 - kernel
-time / unprofiled pass time), then one JSON line with the same numbers.
-Needs a CUDA device; imports no JAX.
+time / unprofiled pass time), the DDA steps a wavefront step on voxel
+scenes, then one JSON line with the same numbers.  --nee attaches the
+scene's light table, --rr-depth turns Russian roulette on, and --steps N
+measures only the first N steps of each pass (rounded up to a multiple
+of 8; for scenes whose profiled pass is too long, such as menger's voxel
+walk).  Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -41,14 +47,18 @@ LAYERS = (
     # (range name, module path, attribute)
     ("L1 make_rays", "mrt_torch.integrator.persistent", "LanePool.make_rays"),
     ("L2 intersect", "mrt_torch.geometry.scene", "Scene.intersect"),
+    ("L2v voxel DDA", "mrt_torch.geometry.voxels", "intersect"),
     ("L3 shade_hit", "mrt_torch.materials.shade", "shade_hit"),
     ("L3 background", "mrt_torch.geometry.scene",
      "Scene.background_eval_masked"),
+    ("L3n sample_direct", "mrt_torch.materials.lights", "sample_direct"),
     ("L4 deposit", "mrt_torch.integrator.persistent", "deposit"),
+    ("L4 deposit_pending", "mrt_torch.integrator.persistent",
+     "deposit_pending"),
 )
 TOP = 15  # device kernels listed by device time
 KERNELS = {"B1": "nearest_t_kernel", "B2": "deposit_kernel",
-           "B3": "row_gather_kernel",
+           "B3": "row_gather_kernel", "B4": "deposit_pending_kernel",
            "B5": "sphere_bvh_kernel", "B6": "tri_bvh_kernel",
            "B7": "tlas_kernel"}
 
@@ -83,19 +93,44 @@ def instrumented():
 
 
 def one_pass(scene, camera, args):
+    """One pass; with args.steps, stopped once that many steps ran."""
+    from .integrator import persistent
     from .runtime.film import Film
     from .runtime.render import render_pass_persistent
 
+    busy = persistent.LanePool.busy
+    if args.steps is not None:
+        ran = [0]
+        step = persistent.LanePool.step
+
+        def counted(self, *a, **k):
+            ran[0] += 1
+            return step(self, *a, **k)
+
+        persistent.LanePool.step = counted
+        persistent.LanePool.busy = lambda self, st: (ran[0] < args.steps
+                                                     and busy(self, st))
     film = Film.create(args.width, args.height, device=camera.origin.device)
-    return render_pass_persistent(scene, camera, film, 1, 0,
-                                  width=args.width, height=args.height,
-                                  max_depth=args.depth, samples=args.spp,
-                                  pool=args.pool)
+    try:
+        return render_pass_persistent(scene, camera, film, 1, 0,
+                                      width=args.width, height=args.height,
+                                      max_depth=args.depth, samples=args.spp,
+                                      pool=args.pool, rr_depth=args.rr_depth)
+    finally:
+        if args.steps is not None:
+            persistent.LanePool.step = step
+            persistent.LanePool.busy = busy
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--scene", default="sphere_grid")
+    parser.add_argument("--nee", action="store_true",
+                        help="next-event estimation (attach_lights)")
+    parser.add_argument("--rr-depth", type=int, default=None,
+                        help="Russian roulette from this bounce on")
+    parser.add_argument("--steps", type=int, default=None,
+                        help="measure only the first N steps of a pass")
     args = parser.parse_args(argv)
     # chip_smoke.py's main path.
     args.width, args.height, args.depth, args.spp, args.pool = (
@@ -106,10 +141,14 @@ def main(argv=None):
 
     from torch.profiler import ProfilerActivity, profile
 
+    from .geometry import voxels
+    from .geometry.scene import attach_lights
     from .integrator import persistent
     from .scenes import get
 
     scene, camera = get(args.scene)().generate()
+    if args.nee:
+        scene = attach_lights(scene)
     one_pass(scene, camera, args)  # warm-up: kernel build, allocator
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -125,6 +164,7 @@ def main(argv=None):
         return step(self, *a, **k)
 
     persistent.LanePool.step = counted
+    voxels.counts.update(calls=0, steps=0)
     try:
         with instrumented(), profile(activities=[ProfilerActivity.CPU,
                                                  ProfilerActivity.CUDA]) as prof:
@@ -153,7 +193,9 @@ def main(argv=None):
                for k, v in KERNELS.items() if v in e.key}
     calls = {k: e.count for e in device for k, v in KERNELS.items()
              if v in e.key}
-    out = dict(scene=args.scene,
+    out = dict(scene=args.scene, nee=args.nee, rr_depth=args.rr_depth,
+               steps_limit=args.steps,
+               film_pend=os.environ.get("MRT_FILM_PEND", ""),
                tlas_route=os.environ.get("MRT_TLAS_KERNEL", ""),
                compaction={k: os.environ.get(k, "") for k in (
                    "MRT_BG_COMPACT", "MRT_TEX_COMPACT")},
@@ -167,12 +209,14 @@ def main(argv=None):
                # host is: the unprofiled pass is the wall time to use.
                idle_share=1.0 - kernel_us / 1e6 / wall,
                layer_device_ms=layers, kernel_device_ms=kernels,
-               kernel_calls=calls)
+               kernel_calls=calls,
+               dda_steps_per_step=voxels.counts["steps"] / max(steps[0], 1))
     print(f"{args.scene} {args.width}x{args.height} depth {args.depth} spp "
           f"{args.spp} pool {args.pool}: pass {wall:.3f} s unprofiled, "
           f"{profiled_wall:.3f} s profiled, {steps[0]} steps, "
           f"{launches} device kernels, {kernel_us / 1e3:.1f} ms device time, "
-          f"idle {out['idle_share']:.3f}")
+          f"idle {out['idle_share']:.3f}, "
+          f"{out['dda_steps_per_step']:.2f} DDA steps a step")
     for name, ms in layers.items():
         print(f"  {name}: {ms:.2f} ms")
     for name, ms in kernels.items():

@@ -2,12 +2,14 @@
 
 20^level cubes in the Menger corner/edge pattern, a vast fuzzy-metal
 floor and the star+nebula environment cube map; camera 15 deg from
-(2680, 140, 2000).  The port renders the sponge through instanced
-triangle meshes (``voxel=False``): `bake` levels fused into one
-greedy-meshed block, the remaining `level - bake` levels instanced
-(bake=0: one cube a cell, as the reference).  ``voxel=True``, the JAX
-package's default (one procedural voxel grid walked by a DDA), raises
-until the voxel grid is ported.
+(2680, 140, 2000).  The sponge renders through one of two equal
+surfaces:
+  - voxel=True (the default): one procedural voxel grid of 3^level cells
+    a side under the Menger digit rule, walked by the hierarchical DDA
+    (``geometry/voxels.py``);
+  - voxel=False: instanced triangle meshes, `bake` levels fused into one
+    greedy-meshed block and the remaining `level - bake` levels
+    instanced (bake=0: one cube a cell, as the reference).
 """
 
 from __future__ import annotations
@@ -124,10 +126,6 @@ class Menger:
 
     def generate(self, t=0.0, frame=0, input=None, device=None):
         device = resolve(device)
-        if self.voxel:
-            raise NotImplementedError(
-                "menger: the voxel grid is not ported yet; pass voxel=False "
-                "for the instanced-mesh sponge")
         mat = MaterialBuilder()
         atlas = AtlasBuilder()
         white = mat.lambertian((1.0, 1.0, 1.0))
@@ -135,13 +133,17 @@ class Menger:
 
         background = environment(atlas, "j02", rotation=(0.4, 0.2, 0.1))
         sb = SceneBuilder(mat, background, atlas=atlas.build())
-        if self.bake > 0:
+        if self.voxel:
+            half = 2.0 * 3.0 ** self.level / 2.0
+            sb.add_voxel_grid(origin=(-half, -half, -half), cell=2.0,
+                              levels=self.level, material=white)
+        elif self.bake > 0:
             block = sb.add_mesh(sponge_block_mesh(self.bake, dims=2.0))
             for p in sponge_positions(self.level - self.bake,
                                       dims=2.0 * 3.0 ** self.bake):
                 sb.add_instance(block, tuple(p), material=white)
         mesh = sb.add_mesh(cube(size=2.0))
-        if self.bake == 0:
+        if not self.voxel and self.bake == 0:
             for p in sponge_positions(self.level):
                 sb.add_instance(mesh, tuple(p), material=white)
         sb.add_instance(mesh, (0.0, -244.0, 0.0),

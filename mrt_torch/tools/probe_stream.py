@@ -1,0 +1,219 @@
+"""Probes P1-P3 of on-chip table residency on the card (mirrors
+``tools/probe_stream.py``, whose TPU probes asked the same of SMEM).
+
+    python -m mrt_torch.tools.probe_stream
+
+P1 (``probe_a``) pages four 256-column slices of an (8, 1024) f32 and a
+(2, 1024) i32 table into shared memory and sums one element of each;
+P2 (``probe_b``) walks a 1,024-entry chain through a 2-slot shared-memory
+page cache, and also through L2 and through a shared-memory copy of the
+whole chain, timing each dependent step; P3 (``probe_c``) asks for a
+dynamic shared buffer of `kb` KB, writes its first and last word and
+returns 3x, or reports the refusal past the card's opt-in limit.  The
+kernels are ``csrc/probe_stream.cu``; each wrapper runs its plain
+PyTorch version on CPU tensors and counts its launches (``launches``).
+
+``main`` checks every probe against its plain version and prints one
+line a probe and a JSON line; it needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import numpy as np
+import torch
+
+from ..ops import _build
+
+PAGE = 256
+# Chain length of P2 (four pages).
+CHAIN = 4 * PAGE
+# P3's sizes: the card's own, up to the H100's 227 KB opt-in limit, and
+# one past it.
+P3_KB = (48, 100, 164, 227, 228)
+
+
+def tables(device):
+    """P1's inputs, as the TPU probe makes them: f (8, 1024) f32 and i
+    (2, 1024) i32, each arange."""
+    f = torch.arange(8 * 4 * PAGE, dtype=torch.float32).reshape(8, 4 * PAGE)
+    i = torch.arange(2 * 4 * PAGE, dtype=torch.int32).reshape(2, 4 * PAGE)
+    return f.to(device), i.to(device)
+
+
+def closed_form():
+    """P1's expected sum (``tools/probe_stream.py:49``)."""
+    f, i = tables("cpu")
+    return float(sum(f[1, k * PAGE + 7] + i[0, k * PAGE + 3]
+                     for k in range(4)))
+
+
+def probe_a_plain(f, i):
+    """The indexed sum: (acc + f[1, 256k + 7]) + i[0, 256k + 3] over k,
+    in float32, as (1,)."""
+    acc = torch.zeros((1,), dtype=torch.float32, device=f.device)
+    for k in range(4):
+        acc = acc + f[1, k * PAGE + 7] + i[0, k * PAGE + 3].to(torch.float32)
+    return acc
+
+
+def probe_a(f, i):
+    """(sum (1,) f32, SM cycles of each page's copy (4,) int64; None on
+    the CPU)."""
+    if f.shape != (8, 4 * PAGE) or i.shape != (2, 4 * PAGE):
+        raise ValueError(f"probe_a: f {tuple(f.shape)}, i {tuple(i.shape)}")
+    if f.device.type == "cpu":
+        return probe_a_plain(f, i), None
+    out = torch.empty((1,), dtype=torch.float32, device=f.device)
+    cycles = torch.empty((4,), dtype=torch.int64, device=f.device)
+    _build.launch("mrt_probe_a", f.device, f.contiguous(), i.contiguous(),
+                  out, cycles)
+    probe_a.launches += 1
+    return out, cycles
+
+
+def chain(n=CHAIN, seed=0):
+    """P2's input as the TPU probe makes it: a random permutation of n
+    entries as a linked chain from entry 0, the last pointing to -1."""
+    perm = np.random.default_rng(seed).permutation(n).astype(np.int32)
+    perm = np.roll(perm, -int(np.where(perm == 0)[0][0]))
+    nxt = np.full((n,), -1, np.int32)
+    nxt[perm[:-1]] = perm[1:]
+    return nxt
+
+
+def probe_b_plain(chain_t):
+    """A Python walk of the chain: the entries visited, as (1,) int32."""
+    c = chain_t.tolist()
+    e = visited = 0
+    while e >= 0:
+        e = c[e]
+        visited += 1
+    return torch.tensor([visited], dtype=torch.int32)
+
+
+# P2's variants: the paged 2-slot cache, L2 directly, shared memory.
+VARIANTS = ("paged", "l2", "shared")
+
+
+def probe_b(chain_t, variant="paged"):
+    """(visited (1,) int32, SM cycles of the walk (1,) int64; None on
+    the CPU)."""
+    if chain_t.dtype != torch.int32 or chain_t.dim() != 1:
+        raise TypeError(f"probe_b: chain {chain_t.dtype} "
+                        f"{tuple(chain_t.shape)}, not int32 (n,)")
+    if chain_t.device.type == "cpu":
+        return probe_b_plain(chain_t), None
+    visited = torch.empty((1,), dtype=torch.int32, device=chain_t.device)
+    cycles = torch.empty((1,), dtype=torch.int64, device=chain_t.device)
+    _build.launch("mrt_probe_b", chain_t.device, chain_t.contiguous(),
+                  chain_t.shape[0], VARIANTS.index(variant), visited, cycles)
+    probe_b.launches += 1
+    return visited, cycles
+
+
+def probe_c_plain(x):
+    return 3.0 * x
+
+
+def probe_c(x, kb):
+    """(3x (1,), None) with a dynamic shared buffer of `kb` KB, or
+    (None, (attribute code, launch code)) where the card refused it.  On
+    the CPU, the plain version."""
+    if x.device.type == "cpu":
+        return probe_c_plain(x), None
+    out = torch.zeros((1,), dtype=torch.float32, device=x.device)
+    codes = torch.zeros((2,), dtype=torch.int32)
+    _build.launch("mrt_probe_c", x.device, x.contiguous(), out, kb * 1024,
+                  codes)
+    if codes.any():
+        return None, tuple(codes.tolist())
+    probe_c.launches += 1
+    return out, None
+
+
+probe_a.launches = probe_b.launches = probe_c.launches = 0
+
+
+def attributes(device):
+    """(the opt-in shared memory a block may have in bytes, the SM clock
+    rate in kHz), as the CUDA runtime reports them."""
+    smem, khz = torch.zeros((1,), dtype=torch.int32), torch.zeros(
+        (1,), dtype=torch.int32)
+    _build.launch("mrt_probe_attributes", device, smem, khz)
+    return int(smem), int(khz)
+
+
+def error_name(code):
+    return _build.library().mrt_error_string(code).decode()
+
+
+def run(device):
+    """Every probe on the card against its plain version; returns a dict
+    of results.  Raises where a result is wrong: P1 off its closed form,
+    P2 not visiting every entry, P3 refused at or below the opt-in limit
+    or accepted past it."""
+    smem_optin, khz = attributes(device)
+    ns = lambda cycles: cycles / khz * 1e6  # SM cycles -> ns
+
+    f, i = tables(device)
+    got, cycles = probe_a(f, i)
+    want = closed_form()
+    if got.item() != want or probe_a_plain(f, i).item() != want:
+        raise RuntimeError(f"P1: {got.item()}, closed form {want}")
+    page_cycles = cycles.tolist()
+
+    c = torch.from_numpy(chain()).to(device)
+    walks = {}
+    for variant in VARIANTS:
+        visited, cyc = probe_b(c, variant)
+        if visited.item() != CHAIN or probe_b_plain(c).item() != CHAIN:
+            raise RuntimeError(f"P2 {variant}: visited {visited.item()}, "
+                               f"not {CHAIN}")
+        walks[variant] = dict(cycles_per_step=cyc.item() / CHAIN,
+                              ns_per_step=ns(cyc.item() / CHAIN))
+
+    x = torch.ones((1,), device=device)
+    sizes = {}
+    for kb in P3_KB:
+        out, codes = probe_c(x, kb)
+        fits = kb * 1024 <= smem_optin
+        if fits and (codes is not None or out.item() != 3.0):
+            raise RuntimeError(f"P3 {kb} KB within the {smem_optin} B "
+                               f"limit: {codes or out.item()}")
+        if not fits and codes is None:
+            raise RuntimeError(f"P3 {kb} KB past the {smem_optin} B limit "
+                               "was accepted")
+        sizes[kb] = ("3.0" if codes is None else
+                     f"refused ({', '.join(error_name(k) for k in codes)})")
+    return dict(p1=dict(value=got.item(), closed_form=want,
+                        page_copy_cycles=page_cycles,
+                        page_copy_ns=[ns(x) for x in page_cycles]),
+                p2=walks, p3=sizes, smem_optin_bytes=smem_optin,
+                clock_khz=khz)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("probe_stream: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    res = run(dev)
+    p1 = res["p1"]
+    print(f"P1: {p1['value']} (closed form {p1['closed_form']}); page copy "
+          + ", ".join(f"{c} cycles" for c in p1["page_copy_cycles"]))
+    for variant, w in res["p2"].items():
+        print(f"P2 {variant}: {CHAIN} visited, {w['cycles_per_step']:.1f} "
+              f"cycles ({w['ns_per_step']:.1f} ns) a dependent step")
+    for kb, what in res["p3"].items():
+        print(f"P3 {kb} KB: {what}")
+    print(f"opt-in shared memory a block {res['smem_optin_bytes']} B, SM "
+          f"clock {res['clock_khz']} kHz ({torch.cuda.get_device_name(0)})")
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

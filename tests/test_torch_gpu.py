@@ -11,7 +11,10 @@ sums are exact in any order).  B5, B6 and B7 include rays on a NaN slab
 plane and, for B7, a TLAS past 448 KB of tables; B6 runs on lucy's flat
 parts and on a SAH statue with per-lane t bounds and zero directions.
 B3 copies rows, at the eve fleet's compaction shapes; ``compact_apply``
-through B2 and B3 equals its plain version on the CPU.
+through B2 and B3 equals its plain version on the CPU.  B4 adds the
+dying lanes' dyadic values like its plain version; the probes P1-P3 give
+their plain versions' values (P3 up to the card's opt-in limit and a
+refusal past it).
 """
 
 import pytest
@@ -277,3 +280,37 @@ def test_compact_apply_through_kernels(cuda):
     want = compact.compact_apply(fn, mask, x, k, pad_row=(1.0, 0.0, 0.0))
     assert torch.equal(got.cpu(), want)
     assert torch.equal(want, torch.where(mask[:, None], fn(x), 0.0))
+
+
+def test_b4_kernel_matches_plain(cuda):
+    g = torch.Generator().manual_seed(4)
+    rows, p = 1000, 20001  # p is not a multiple of the block size
+    slot = torch.randint(-10, rows + 10, (p,), generator=g,
+                         dtype=torch.int32)
+    slot[:500] = 17  # many dying lanes on one row
+    val = torch.randint(-64, 64, (p, 4), generator=g).float() / 8
+    val[::7] = 0.0  # all-zero lanes add nothing
+    die = torch.rand((p,), generator=g) < 0.35
+    slot, val, die = slot.to(cuda), val.to(cuda), die.to(cuda)
+    before = B2.deposit_pending.launches
+    k = B2.deposit_pending(torch.ones((rows, 4), device=cuda), slot, val, die)
+    q = B2.deposit_pending_plain(torch.ones((rows, 4), device=cuda), slot,
+                                 val, die)
+    torch.cuda.synchronize()
+    assert B2.deposit_pending.launches == before + 1
+    assert torch.equal(k, q) and not torch.equal(k, torch.ones_like(k))
+    with pytest.raises(TypeError):
+        B2.deposit_pending(torch.ones((rows, 4), device=cuda), slot, val,
+                           die.to(torch.uint8))
+    with pytest.raises(ValueError):
+        B2.deposit_pending(torch.ones((rows, 4), device=cuda), slot.cpu(),
+                           val, die)
+
+
+def test_probes_match_plain(cuda):
+    from mrt_torch.tools import probe_stream as P
+
+    res = P.run(cuda)  # raises where a probe disagrees with its plain one
+    assert res["p1"]["value"] == P.closed_form()
+    assert set(res["p2"]) == set(P.VARIANTS)
+    assert res["p3"][227] == "3.0" and res["p3"][228].startswith("refused")

@@ -4,9 +4,9 @@
 All of it is host code on both sides, so the outputs must be equal:
 vertices, faces, Triangles arrays (byte-equal) and material rows, on
 the JAX loader tests' fixtures and on the playground level.  One
-stated difference: the port has no texture atlas yet, so its
+stated difference: the port has no PNG reader yet, so its
 ``SimpleTexturedBuilder`` raises on a ``map_Kd`` row where the JAX one
-loads the texture.
+loads the texture; without one, both take a texture atlas alike.
 """
 
 import os
@@ -26,6 +26,7 @@ from mrt_torch.materials.table import MaterialBuilder as TMaterialBuilder
 from mrt_torch.materials.table import MaterialTable
 from mrt_torch.runtime import assets as TA
 from mrt_torch.runtime import input as TIN
+from mrt_torch.textures.atlas import AtlasBuilder as TAtlasBuilder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LEVEL = os.path.join(ROOT, "assets", "level", "playground_level.obj")
@@ -72,10 +73,10 @@ def _equal(want, got, what):
     assert want.tobytes() == got.tobytes(), what
 
 
-def _textured(path, filtered=()):
+def _textured(path, filtered=(), port_atlas=None):
     jm, tm = JMaterialBuilder(), TMaterialBuilder()
     jb = JL.SimpleTexturedBuilder(jm, AtlasBuilder(), filtered_groups=filtered)
-    tb = TL.SimpleTexturedBuilder(tm, filtered_groups=filtered)
+    tb = TL.SimpleTexturedBuilder(tm, port_atlas, filtered_groups=filtered)
     JL.load_obj(path, jb)
     TL.load_obj(path, tb)
     return jb.finish(), tb.finish(), jm.build(), tm.build()
@@ -106,10 +107,20 @@ def test_playground_level_matches():
 
 def test_map_kd_raises_instead_of_dropping_the_texture(tmp_path):
     path = _write_obj(tmp_path, MTL + "newmtl tex\nmap_Kd checker.png\n")
-    with pytest.raises(NotImplementedError, match="map_Kd"):
-        TL.load_obj(path, TL.SimpleTexturedBuilder(TMaterialBuilder()))
-    with pytest.raises(NotImplementedError, match="atlas"):
-        TL.SimpleTexturedBuilder(TMaterialBuilder(), atlas=object())
+    for atlas in (None, TAtlasBuilder()):
+        with pytest.raises(NotImplementedError, match="map_Kd.*PNG reader"):
+            TL.load_obj(path, TL.SimpleTexturedBuilder(TMaterialBuilder(),
+                                                       atlas))
+
+
+def test_textured_builder_takes_an_atlas(tmp_path):
+    # An .mtl without map_Kd rows, built with an atlas: the material rows
+    # of JAX's builder, and the atlas untouched.
+    atlas = TAtlasBuilder()
+    jt, tt, jtable, ttable = _textured(_write_obj(tmp_path),
+                                       port_atlas=atlas)
+    _same_build(jt, tt, jtable, ttable)
+    assert not atlas._rows
 
 
 @pytest.mark.parametrize("text", [

@@ -1,0 +1,53 @@
+"""Port parity for the probes P1-P3 (``mrt_torch.tools.probe_stream`` vs
+``tools/probe_stream.py``): their plain versions, which the card's
+kernels are held to, give the values the TPU probes check, and P1's and
+P2's equal the outputs of the TPU probes run in interpret mode on the
+CPU.  All values are small integers or 3.0: exact."""
+
+import importlib.util
+import os
+import re
+
+import pytest
+import torch
+
+from mrt_torch.tools import probe_stream as P
+
+# The TPU probes: a script of the repository's tools/, loaded by path.
+_SPEC = importlib.util.spec_from_file_location(
+    "tpu_probe_stream", os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "..", "tools", "probe_stream.py"))
+JP = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(JP)
+
+
+def _printed(capsys, key):
+    return float(re.search(rf"{key}=([-0-9.]+)", capsys.readouterr().out)[1])
+
+
+def test_p1_indexed_sum(capsys):
+    f, i = P.tables("cpu")
+    got, cycles = P.probe_a(f, i)  # the plain version on the CPU
+    assert cycles is None
+    assert got.item() == P.closed_form() == 7208.0
+    assert JP.probe_a(True)
+    assert got.item() == _printed(capsys, "out")
+
+
+def test_p2_chain_walk(capsys):
+    c = torch.from_numpy(P.chain())
+    assert sorted(c.tolist()) == [-1] + list(range(1, P.CHAIN))
+    got, cycles = P.probe_b(c)
+    assert cycles is None and got.item() == P.CHAIN == 1024
+    assert JP.probe_b(True)
+    assert got.item() == _printed(capsys, "visited")
+    with pytest.raises(TypeError):
+        P.probe_b(c.long())
+
+
+def test_p3_three_x():
+    x = torch.ones((1,))
+    got, refused = P.probe_c(x, 227)
+    assert refused is None and got.item() == 3.0
+    assert P.probe_c_plain(torch.tensor([2.5])).item() == 7.5
+    assert P.probe_a.launches == P.probe_b.launches == P.probe_c.launches == 0

@@ -153,7 +153,10 @@ def test_port_imports_neither_jax_nor_mrt():
         "from mrt_torch.scenes import (cornell, envmaps, eve, get, lucy,\n"
         "                              menger, playground, sphere_grid)\n"
         "from mrt_torch.ops import compact, gather\n"
-        "from mrt_torch.geometry import volumes\n"
+        "from mrt_torch.geometry import volumes, voxels\n"
+        "from mrt_torch.materials import lights\n"
+        "from mrt_torch.tools import probe_stream\n"
+        "from mrt_torch import profile\n"
         "from mrt_torch.textures import atlas\n"
         "from mrt_torch.runtime.film import Film\n"
         "from mrt_torch.runtime.render import render, "
@@ -165,6 +168,7 @@ def test_port_imports_neither_jax_nor_mrt():
         "                        ('lucy', dict(grid=2), 'flat'),\n"
         "                        ('lucy', dict(grid=2), ''),\n"
         "                        ('menger', dict(level=1, voxel=False), ''),\n"
+        "                        ('menger', dict(level=1), ''),\n"
         "                        ('eve', {}, 'compact'), ('eve', {}, '')):\n"
         "    flag = '1' if route == 'compact' else '0'\n"
         "    os.environ['MRT_TLAS_KERNEL'] = '' if flag == '1' else route\n"
@@ -181,6 +185,14 @@ def test_port_imports_neither_jax_nor_mrt():
         "    if name == 'lucy' and route:\n"
         "        assert len(scene.tlas.flat_parts) > 1\n"
         "assert scene.sphere_bvh is None and scene.tlas is not None\n"
+        "from mrt_torch.geometry.scene import attach_lights\n"
+        "scene, camera = get('cornell')(aspect_ratio=1.0).generate(\n"
+        "    device='cpu')\n"
+        "film = render_pass_persistent(attach_lights(scene), camera,\n"
+        "                              Film.create(6, 4, device='cpu'), 1,\n"
+        "                              0, width=6, height=4, max_depth=3,\n"
+        "                              pool=16, rr_depth=1, pend=True)\n"
+        "assert film.depth_sum.sum() > 0\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mrt'))\n"
         "assert not bad, bad\n"

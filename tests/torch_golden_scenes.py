@@ -1,12 +1,13 @@
 """The port's builds of the golden scenes of tests/golden_scenes.py that
-the texture slice reaches (textured, eve_ball, volume, menger2): the
-same builder calls, through mrt_torch, so the port renders them from
-its own factories.  Imports no JAX."""
+the texture slice reaches (textured, eve_ball, volume, menger2) and the
+lights and voxels slice (cornell_nee, menger2_voxel): the same builder
+calls, through mrt_torch, so the port renders them from its own
+factories.  Imports no JAX."""
 
 import numpy as np
 
 from mrt_torch.core.camera import Camera
-from mrt_torch.geometry.scene import SceneBuilder
+from mrt_torch.geometry.scene import SceneBuilder, attach_lights
 from mrt_torch.geometry.shapes import cube, quad, sphere_mesh
 from mrt_torch.materials.background import SkyBackground, SolidBackground
 from mrt_torch.materials.table import MaterialBuilder
@@ -14,7 +15,8 @@ from mrt_torch.scenes import get
 from mrt_torch.scenes.eve import GLOW, PALETTES, _synth_packed_textures
 from mrt_torch.textures.atlas import REPEAT, AtlasBuilder
 
-NAMES = ("textured", "eve_ball", "volume", "menger2")
+NAMES = ("textured", "eve_ball", "volume", "menger2", "cornell_nee",
+         "menger2_voxel")
 
 
 def textured(device):
@@ -81,5 +83,15 @@ def menger2(device):
                          voxel=False).generate(device=device)
 
 
+def cornell_nee(device):
+    scene, camera = get("cornell")(aspect_ratio=1.0).generate(device=device)
+    return attach_lights(scene), camera
+
+
+def menger2_voxel(device):
+    return get("menger")(aspect_ratio=1.0, level=2).generate(device=device)
+
+
 FACTORIES = dict(textured=textured, eve_ball=eve_ball, volume=volume,
-                 menger2=menger2)
+                 menger2=menger2, cornell_nee=cornell_nee,
+                 menger2_voxel=menger2_voxel)
