@@ -8,7 +8,8 @@ Each phase prints one line:
 
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from mrt_torch/csrc (one nvcc a source,
-     all started together), with ptxas's register report;
+     all started together), with each kernel's registers, stack frame,
+     spills and static shared memory from ptxas's report;
   3. kernel B1 (sphere nearest hit) against its plain PyTorch version on
      2^17 RTIOW camera and first-bounce rays x 484 spheres;
   4. kernel B2 (film segment-add) against its plain version, 2^17 lanes
@@ -21,9 +22,12 @@ Each phase prints one line:
   7. kernel B5 (sphere-BVH closest hit) against its plain version on
      2^17 sphere_grid camera and first-bounce rays x 10,000 spheres;
   8. kernel B7 (two-level TLAS closest hit) against its plain version on
-     2^17 cornell camera and first-bounce rays, and on rays through an
-     8,000-instance TLAS whose tables (1.2 MB) are past the TPU kernel's
-     448 KB (B8's regime);
+     2^17 camera and first-bounce rays each of cornell, playground, eve
+     and lucy (lucy's tables in shared memory; each set of tables that
+     fits also timed in the other regime), and on rays through an
+     8,000-instance TLAS whose tables (1,987,552 B) are past the card's
+     shared memory (global memory, B8's regime); work counted in the
+     kernel's order and in the escape order;
   9. the cornell_24 golden through both integrators on the card;
  10. the slice's main path: one render_pass_persistent of sphere_grid
      (10,000 spheres under a BVH, an instanced ground cube) at 1920x1080,
@@ -31,13 +35,15 @@ Each phase prints one line:
  11. kernel B6 (triangle-BVH closest hit) against its plain version on
      2^17 playground camera and first-bounce rays through its world-
      flattened BVH (210 triangles, 15 nodes), and on 2^17 lucy rays
-     through each of its 16 flat parts;
+     through its 16 flat parts in one launch (the forest), against the
+     reference's fold of one walk a part;
  12. the meshes-from-files main paths: one render_pass_persistent each of
      lucy (121 statues, SAH BVH) and playground (OBJ level, glass
      platform, posed character) at 1920x1080, depth 50, spp 2, pool
      2^17, on the two-level route (B7) and with MRT_TLAS_KERNEL=flat (B6:
-     playground's flat set, lucy's flat parts), and the two routes' mean
-     radiance held within 1% of each other on each scene.
+     playground's flat set, lucy's flat parts, one launch a step), and
+     the two routes' mean radiance held within 1% of each other on each
+     scene.
  13. kernel B3 (row gather, the expand half of lane compaction) against
      its plain version at the eve fleet's compaction shapes (2^17 lanes,
      32,768 rows, 3 and 4 columns, indices out of range on some lanes):
@@ -83,7 +89,9 @@ Bounds (``bound_ms``): the larger of the bytes the function must move
 FP32 operations over 67 TFLOP/s, the H100 SXM's published peaks at
 700 W.  For B5, B6 and B7 the operations are counted from this run's data:
 node visits and leaf primitive tests per ray, counted by the plain
-traversal on the same rays, times the operations of one visit or test.
+traversal on the same rays in the kernel's own visit order (B6 and B7:
+the trees' threading tables, octant orders on trees of 32 nodes or more),
+times the operations of one visit or test.
 """
 
 from __future__ import annotations
@@ -219,7 +227,8 @@ def path_rays(name, dev):
     o, d, ray_id = lanes.make_rays(items)
     half = RAYS // 2
     ob, db, rb = o[half:], d[half:], ray_id[half:]
-    hits = scene.intersect(ob, db)
+    # Volumes and alpha tests draw from a sampler (eve's fog).
+    hits = scene.intersect(ob, db, sampler=Sampler(1, rb, 2))
     new_dir, scat = shade.shade_hit(scene, hits, db, Sampler(1, rb, 0),
                                     Sampler(1, rb, 1))[2:4]
     keep = scat[:, None]
@@ -565,143 +574,201 @@ def many_instances(n_inst, dev, seed=0):
     return reg.build().to(dev)
 
 
-def tlas_bytes(tl):
-    return sum(getattr(tl, k).numel() * 4 for k in
-               ("tnodes", "tmeta", "inst", "imeta", "bnodes", "bmeta",
-                "tris"))
+def events_ms(fn):
+    """(fn's result, its milliseconds between CUDA events): one call of a
+    plain traversal, which syncs on its loop."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def forced_regime(K, regime):
+    """B7's regime (``K.tlas_regime``) forced inside the block, through
+    the size limits it reads."""
+    saved = K.SHARED_MIN_BYTES, K.smem_optin
+    if regime == "shared":
+        K.SHARED_MIN_BYTES = 0
+    else:
+        K.smem_optin = lambda device: 0
+    try:
+        yield
+    finally:
+        K.SHARED_MIN_BYTES, K.smem_optin = saved
 
 
 def b7_case(tl, o, d, dev):
-    """Kernel against plain on one TLAS; returns the kernel's entry."""
-    from mrt_torch.ops import _build
+    """Kernel against plain on one TLAS; returns the kernel's numbers.
+    The plain walk in the kernel's order gives the comparison,
+    the plain time and the work behind the bound; the escape order's
+    work is counted beside it.  Tables that fit shared memory are timed
+    in both regimes."""
     from mrt_torch.ops import bvh as K
 
     n = o.shape[0]
     lo = torch.full((n,), 1e-3, device=dev)
     hi = torch.full((n,), float("inf"), device=dev)
     k = K.tlas_hit(tl, o, d, lo, hi)
-    counts = {}
-    p = K.tlas_plain(tl, o, d, lo, hi, counts=counts)
-    torch.cuda.synchronize()
+    counts, escape = {}, {}
+    p, plain_ms = events_ms(lambda: K.tlas_plain(tl, o, d, lo, hi,
+                                                 counts=counts, ordered=True))
+    q = K.tlas_plain(tl, o, d, lo, hi, counts=escape)
     # One id for (instance, triangle): agreement of the pair.
     pair = lambda w: w[1].to(torch.int64) * (1 << 31) + w[2]
     err, rel, agree = compare_hits("B7", k[0], pair(k), p[0], pair(p),
                                    uv=((k[3], p[3]), (k[4], p[4])))
-    outs = [torch.empty_like(x) for x in k]
-    kernel = lambda: _build.launch(
-        "mrt_tlas", dev, tl.tnodes, tl.tmeta, tl.tnodes.shape[0], tl.inst,
-        tl.imeta, tl.bnodes, tl.bmeta, tl.tris, tl.tris.shape[0], o, d, lo,
-        hi, n, *outs)
-    ms = graph_ms(kernel, 20)
-    plain_ms = call_ms(lambda: K.tlas_plain(tl, o, d, lo, hi), 1)
+    compare_hits("B7 (escape order)", k[0], pair(k), q[0], pair(q),
+                 uv=((k[3], q[3]), (k[4], q[4])))
+    ms = graph_ms(lambda: K.tlas_hit(tl, o, d, lo, hi), 20)
+    regime = K.tlas_regime(tl)
+    other, other_ms = None, None
+    if K.tlas_table_bytes(tl) <= K.smem_optin(dev):
+        # Tables that fit run in either regime: the same walk, timed in
+        # the regime the wrapper did not pick too.
+        other = "global" if regime == "shared" else "shared"
+        with forced_regime(K, other):
+            check(K.tlas_regime(tl) == other, f"B7 not forced {other}")
+            w = K.tlas_hit(tl, o, d, lo, hi)
+            check(all(torch.equal(a, b) for a, b in zip(w, k)),
+                  f"B7 {other} differs from B7 {regime}")
+            other_ms = graph_ms(lambda: K.tlas_hit(tl, o, d, lo, hi), 20)
     ops = ((counts.get("tlas_nodes", 0) + counts.get("blas_nodes", 0))
            * OPS_NODE + counts.get("enters", 0) * OPS_ENTER
            + counts.get("prims", 0) * OPS_TRI_TEST)
-    per_ray = {k: v / n for k, v in counts.items()}
+    per_ray = lambda c: {key: v / n for key, v in c.items()}
     return dict(max_abs_err=err, rel=rel, agree=agree, ms=ms,
-                plain_ms=plain_ms, per_ray=per_ray,
+                plain_ms=plain_ms, per_ray=per_ray(counts),
+                per_ray_escape=per_ray(escape), regime=regime,
+                other_regime=other, other_ms=other_ms, table_bytes=K.tlas_table_bytes(tl),
                 hit_share=torch.isfinite(p[0]).float().mean().item(),
-                **bound(n * 52 + tlas_bytes(tl), ops))
+                **bound(n * 52 + K.tlas_table_bytes(tl), ops))
 
 
 def phase_b7(dev):
-    scene, o, d = path_rays("cornell", dev)
-    main = b7_case(scene.tlas, o, d, dev)
+    cases = {}
+    for name in ("cornell", "playground", "eve", "lucy"):
+        scene, o, d = path_rays(name, dev)
+        cases[name] = (RAYS, b7_case(scene.tlas, o, d, dev))
+    check(cases["lucy"][1]["regime"] == "shared",
+          f"lucy's B7 tables ran {cases['lucy'][1]['regime']}")
     tl = many_instances(B8_INSTANCES, dev)
     g = torch.Generator(device=dev).manual_seed(11)
     ob = torch.rand((B8_RAYS, 3), device=dev, generator=g) * 20 - 10
     db = torch.randn((B8_RAYS, 3), device=dev, generator=g)
     big = b7_case(tl, ob, db, dev)
-    nbytes = tlas_bytes(tl)
-    check(nbytes > 448 * 1024, f"B8 tables only {nbytes} bytes")
-    for what, r, rays, tb in (("cornell", main, RAYS, tlas_bytes(scene.tlas)),
-                              (f"{B8_INSTANCES} instances", big, B8_RAYS,
-                               nbytes)):
-        visits = ", ".join(f"{v:.2f} {k}" for k, v in r["per_ray"].items())
-        log(8, f"B7 {rays} rays, {what} ({tb} B of tables): (instance, "
-               f"triangle) agreement {r['agree']:.6f}, hit share "
-               f"{r['hit_share']:.4f}, max |dt| {r['max_abs_err']:.3g} (rel "
-               f"{r['rel']:.3g}); per ray {visits}; device time a call: "
-               f"kernel {r['ms']:.4f} ms (CUDA graph), plain "
-               f"{r['plain_ms']:.2f} ms (CUDA events)")
-    entry = {k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by")}
+    check(big["regime"] == "global",
+          f"{B8_INSTANCES} instances' B7 tables ran {big['regime']}")
+    cases[f"{B8_INSTANCES} instances"] = (B8_RAYS, big)
+    work = lambda c: ", ".join(f"{v:.2f} {k}" for k, v in c.items())
+    for what, (rays, r) in cases.items():
+        other = ("" if r["other_ms"] is None else
+                 f", {r['other_regime']} {r['other_ms']:.4f} ms")
+        log(8, f"B7 {rays} rays, {what} ({r['table_bytes']} B of kernel "
+               f"tables, {r['regime']} memory{other}): (instance, triangle) "
+               f"agreement {r['agree']:.6f}, hit share {r['hit_share']:.4f}, "
+               f"max |dt| {r['max_abs_err']:.3g} (rel {r['rel']:.3g}); per "
+               f"ray in the kernel's order {work(r['per_ray'])}; in escape "
+               f"order {work(r['per_ray_escape'])}; device time a call: "
+               f"kernel "
+               f"{r['ms']:.4f} ms (CUDA graph), plain {r['plain_ms']:.2f} ms "
+               f"(CUDA events); bound {r['bound_ms']:.5f} ms "
+               f"({r['bound_by']})")
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "agree",
+            "regime", "table_bytes", "other_regime", "other_ms")
+    main = cases["cornell"][1]
+    entry = {k: main[k] for k in keep}
+    for name in ("playground", "eve", "lucy"):
+        entry[name] = {k: cases[name][1][k] for k in keep}
     entry["b8_regime"] = dict(rays=B8_RAYS, instances=B8_INSTANCES,
-                              table_bytes=nbytes,
-                              **{k: big[k] for k in (
-                                  "max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "agree")})
+                              **{k: big[k] for k in keep})
     return dict(entry, library_ms=None)
 
 
-def b6_case(tree, rows, o, d, dev):
-    """B6 against its plain version on one BVH; returns its numbers."""
-    from mrt_torch.ops import _build
-    from mrt_torch.ops import bvh as K
-
-    n = o.shape[0]
-    lo = torch.full((n,), 1e-3, device=dev)
-    hi = torch.full((n,), float("inf"), device=dev)
-    k = K.tri_bvh_hit(tree.nodes, tree.meta, rows, o, d, lo, hi)
-    counts = {}
-    p = K.tri_bvh_plain(tree.nodes, tree.meta, rows, o, d, lo, hi,
-                        counts=counts)
-    torch.cuda.synchronize()
-    err, rel, agree = compare_hits("B6", k[0], k[1], p[0], p[1],
-                                   uv=((k[2], p[2]), (k[3], p[3])))
-    outs = [torch.empty_like(x) for x in k]
-    kernel = lambda: _build.launch("mrt_tri_bvh", dev, tree.nodes, tree.meta,
-                                   tree.n_nodes, rows, rows.shape[0], o, d,
-                                   lo, hi, n, *outs)
-    ms = graph_ms(kernel, 20)
-    plain_ms = call_ms(lambda: K.tri_bvh_plain(tree.nodes, tree.meta, rows,
-                                               o, d, lo, hi), 1)
+def b6_numbers(n, kernel, plain_ms, counts, escape, nodes, tris, agree):
+    """B6's numbers: kernel time, bound from the work in the kernel's
+    order (its tables: packed nodes, threading, packed rows)."""
+    err, rel, agree = agree
     ops = counts["nodes"] * OPS_NODE + counts.get("prims", 0) * OPS_TRI_TEST
-    moved = n * 48 + tree.n_nodes * 48 + rows.shape[0] * 36
-    return dict(max_abs_err=err, rel=rel, agree=agree, ms=ms,
-                plain_ms=plain_ms, nodes=tree.n_nodes, tris=rows.shape[0],
-                visits=counts["nodes"] / n, tests=counts.get("prims", 0) / n,
-                hit_share=torch.isfinite(p[0]).float().mean().item(),
-                **bound(moved, ops))
+    moved = n * 48 + nodes * (32 + 64) + tris * 48
+    per_ray = lambda c: (c["nodes"] / n, c.get("prims", 0) / n)
+    return dict(max_abs_err=err, rel=rel, agree=agree,
+                ms=graph_ms(kernel, 20), plain_ms=plain_ms, nodes=nodes,
+                tris=tris, per_ray=per_ray(counts),
+                per_ray_escape=per_ray(escape), **bound(moved, ops))
 
 
 def phase_b6(dev):
+    from mrt_torch.ops import bvh as K
+
+    lo = torch.full((RAYS,), 1e-3, device=dev)
+    hi = torch.full((RAYS,), float("inf"), device=dev)
     scene, o, d = path_rays("playground", dev)
     tl = scene.tlas
-    check(tl.flat_tris.count == 210 and tl.flat_bvh.n_nodes == 15,
-          f"playground flat set: {tl.flat_tris.count} triangles, "
-          f"{tl.flat_bvh.n_nodes} nodes")
-    pg = b6_case(tl.flat_bvh, tl.flat_tris.rows, o, d, dev)
+    tree, tris = tl.flat_bvh, tl.flat_tris
+    check(tris.count == 210 and tree.n_nodes == 15,
+          f"playground flat set: {tris.count} triangles, {tree.n_nodes} "
+          "nodes")
+    card = (tree.knodes, tree.order, tris.krows)
+    k = K.tri_bvh_hit(tree.nodes, tree.meta, tris.rows, o, d, lo, hi,
+                      card=card)
+    counts, escape = {}, {}
+    p, plain_ms = events_ms(lambda: K.tri_bvh_plain(
+        tree.nodes, tree.meta, tris.rows, o, d, lo, hi, counts=counts,
+        order=tree.order))
+    q = K.tri_bvh_plain(tree.nodes, tree.meta, tris.rows, o, d, lo, hi,
+                        counts=escape)
+    agree = compare_hits("B6", k[0], k[1], p[0], p[1],
+                         uv=((k[2], p[2]), (k[3], p[3])))
+    compare_hits("B6 (escape order)", k[0], k[1], q[0], q[1])
+    pg = b6_numbers(RAYS, lambda: K.tri_bvh_hit(
+        tree.nodes, tree.meta, tris.rows, o, d, lo, hi, card=card), plain_ms,
+        counts, escape, tree.n_nodes, tris.count, agree)
+    pg["hit_share"] = torch.isfinite(p[0]).float().mean().item()
+
     with tlas_route("flat"):
         scene, o, d = path_rays("lucy", dev)
     parts = scene.tlas.flat_parts
     check(parts is not None and len(parts) == 16,
           f"lucy has {0 if parts is None else len(parts)} flat parts, not 16")
-    lucy = [b6_case(p.bvh, p.rows, o, d, dev) for p in parts]
-    for what, r in [("playground flat set", pg)] + [
-            (f"lucy part {i}", r) for i, r in enumerate(lucy)]:
+    forest = parts.forest
+    rows = torch.cat([part.rows for part in parts])
+    k = K.tri_bvh_parts_hit(parts, o, d, lo, hi)
+    counts, escape = {}, {}
+    # The reference's fold: one escape-order walk a part.
+    p, plain_ms = events_ms(lambda: K.tri_bvh_parts_plain(
+        parts, o, d, lo, hi, counts=escape))
+    # The kernel's own walk: the forest in octant order.
+    q = K.tri_bvh_plain(forest.nodes, forest.meta, rows, o, d, lo, hi,
+                        counts=counts, order=forest.order)
+    agree = compare_hits("B6 fused", k[0], k[1], p[0], p[1],
+                         uv=((k[2], p[2]), (k[3], p[3])))
+    compare_hits("B6 fused (forest walk)", k[0], k[1], q[0], q[1],
+                 uv=((k[2], q[2]), (k[3], q[3])))
+    lucy = b6_numbers(RAYS, lambda: K.tri_bvh_parts_hit(parts, o, d, lo, hi),
+                      plain_ms, counts, escape, forest.n_nodes,
+                      rows.shape[0], agree)
+    lucy["hit_share"] = torch.isfinite(p[0]).float().mean().item()
+    for what, r, ways in (
+            ("playground flat set", pg, ("the kernel's order",
+                                         "escape order")),
+            ("lucy's 16 flat parts in one launch", lucy,
+             ("the forest's octant order", "16 escape-order walks"))):
         log(11, f"B6 {RAYS} rays, {what} ({r['tris']} triangles, "
                 f"{r['nodes']} nodes): triangle agreement {r['agree']:.6f}, "
                 f"hit share {r['hit_share']:.4f}, max |dt| "
                 f"{r['max_abs_err']:.3g} (rel {r['rel']:.3g}); per ray "
-                f"{r['visits']:.2f} node visits, {r['tests']:.2f} triangle "
-                f"tests; device time a call: kernel {r['ms']:.4f} ms (CUDA "
-                f"graph), plain {r['plain_ms']:.2f} ms (CUDA events); bound "
+                f"{r['per_ray'][0]:.2f} node visits, {r['per_ray'][1]:.2f} "
+                f"triangle tests in {ways[0]}, {r['per_ray_escape'][0]:.2f} "
+                f"and {r['per_ray_escape'][1]:.2f} in {ways[1]}; device time "
+                f"a call: kernel {r['ms']:.4f} ms (CUDA graph), plain "
+                f"{r['plain_ms']:.2f} ms (CUDA events); bound "
                 f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
-    # The entry: one call a part, averaged over lucy's 16 parts (a lucy
-    # flat-parts step launches all 16).
-    mean = lambda k: sum(r[k] for r in lucy) / len(lucy)
-    by = max(("bytes", "operations"),
-             key=lambda b: sum(r["bound_by"] == b for r in lucy))
     keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "agree")
-    return dict(max_abs_err=max(r["max_abs_err"] for r in lucy),
-                ms=mean("ms"), plain_ms=mean("plain_ms"),
-                bound_ms=mean("bound_ms"), bound_by=by, library_ms=None,
-                lucy_16_parts=dict(ms=16 * mean("ms"),
-                                   plain_ms=16 * mean("plain_ms"),
-                                   bound_ms=16 * mean("bound_ms"),
-                                   ms_min=min(r["ms"] for r in lucy),
-                                   ms_max=max(r["ms"] for r in lucy)),
+    return dict({k: lucy[k] for k in keep}, library_ms=None,
                 playground={k: pg[k] for k in keep})
 
 
@@ -711,13 +778,18 @@ def phase_meshes(dev):
     runs = {}
     for name, extra in (("lucy", ("B1",)), ("playground", ())):
         two, two_mean = phase_main(12, name, dev, ("B2", "B7") + extra)
+        out = {}
         flat, flat_mean = phase_main(12, name, dev, ("B2", "B6") + extra,
-                                     route="flat")
+                                     route="flat", film_out=out)
+        check(flat["B6"] == out["steps"],
+              f"{name} flat: {flat['B6']} B6 launches in {out['steps']} "
+              "steps, not one a step")
         gap = abs(flat_mean - two_mean) / two_mean
         check(gap <= 0.01, f"{name}: mean radiance {flat_mean} on the flat "
                            f"route, {two_mean} on the two-level route")
         log(12, f"{name}: mean radiance two-level {two_mean:.6f}, flat "
-                f"{flat_mean:.6f}, relative gap {gap:.3g} (allowed 0.01)")
+                f"{flat_mean:.6f}, relative gap {gap:.3g} (allowed 0.01); "
+                f"flat: {flat['B6']} B6 launches in {out['steps']} steps")
         runs[name] = (two, flat)
     return runs
 
@@ -1004,9 +1076,11 @@ def main():
     _build.library()
     log(2, f"kernels built with nvcc and loaded in "
            f"{time.perf_counter() - t0:.2f} s: {_build.library_path().name}")
-    for line in _build.build_report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(2, line.strip())
+    for k in _build.kernel_resources():
+        log(2, f"{k['name']}: {k['registers']} registers, {k['stack']} B "
+               f"stack frame, {k['spill_stores']} B spill stores, "
+               f"{k['spill_loads']} B spill loads, {k['smem']} B static "
+               "shared memory")
 
     b1 = phase_b1(dev)
     b2 = phase_b2(dev)

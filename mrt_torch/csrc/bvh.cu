@@ -1,62 +1,93 @@
-// Kernels B5 (sphere-BVH closest hit), B6 (triangle-BVH closest hit) and
-// B7 (two-level TLAS closest hit).
+// Kernels B5 (sphere-BVH closest hit), B6 (triangle-BVH closest hit)
+// and B7 (two-level TLAS closest hit).
 //
 // B5 replaces mrt/ops/pallas_bvh.py::_kernel (wrapper
 // intersect_bvh_spheres).  B6 replaces pallas_bvh.py::_tri_kernel (wrapper
 // traverse_bvh_tris): the single-level mesh walk of the world-flattened
-// TLAS routes and of a scene's own mesh BVH.  B7 replaces pallas_bvh.py::_tlas_kernel and
+// TLAS routes and of a scene's own mesh BVH; over a TLAS's flat parts it
+// walks one forest (a top tree over the parts' roots, the parts' trees as
+// its subtrees) in one launch, where the reference folds one traversal a
+// part.  B7 replaces pallas_bvh.py::_tlas_kernel and
 // ::_tlas_kernel_ordered (wrapper intersect_tlas), and also
 // mrt/ops/pallas_stream.py::_build_kernel: that kernel pages tables past
-// the TPU's 448 KB of SMEM in from HBM; here every table is read from
-// global memory through the read-only cache at any size, so B7 is its
-// counterpart too.  The TPU kernels walk one traversal cursor per
-// 1024-ray packet; here each thread walks its own ray, so no ray visits
-// a node that its own slab test culled.
+// the TPU's 448 KB of SMEM in from HBM; here B7 copies its whole table
+// set into each block's shared memory where it fits the card's opt-in
+// limit and is not too small to pay for the copy (the "shared" regime;
+// ops/bvh.py::tlas_regime) and reads global memory otherwise
+// ("global").  The TPU kernels walk one traversal cursor per 1024-ray
+// packet; here each thread walks its own ray, so no ray visits a node
+// that its own slab test culled.
 //
-// All three walk the flattened BVH stacklessly: a hit inner node continues at
-// node + 1, anything else at its escape index.  The arithmetic mirrors
-// the plain PyTorch versions in mrt_torch/ops/bvh.py operation for
-// operation (the library is built with --fmad=false, so nothing is
-// contracted into an FMA) and results are bit-equal to them:
+// Walks.  B5 goes stacklessly in the build's escape order: a hit inner
+// node continues at node + 1, anything else at its escape index.  B6 and
+// B7 go stacklessly front to back: a walk follows the threading of one
+// direction octant (bit a set <=> d[a] < 0) of the tree
+// (geometry/bvh.py::thread_octants, the reference's), which enters the
+// nearer child first, so the best t shrinks early and culls far
+// subtrees: a hit continues at order[oct][node].x, anything else at .y
+// (a leaf's two are equal), until the tree's sentinel.  A small tree's
+// table holds the escape order in every octant (card_order).  B6 takes each
+// ray's octant.  B7 walks its TLAS in the octant of the ray's warp (on
+// each axis the sign of most of its 32 rays, so the warp's lanes meet
+// the same instances in the same order) and a BLAS in the octant of the
+// ray in instance space; one node visit (visit()) serves B6 and B7's
+// BLAS steps.
+//
+// The arithmetic mirrors the plain PyTorch versions in
+// mrt_torch/ops/bvh.py operation for operation (the library is built
+// with --fmad=false, so nothing is contracted into an FMA) and results
+// are bit-equal to them:
 //   - the slab test propagates NaN like torch.minimum/maximum (fminf and
 //     fmaxf would drop it): a ray on a slab plane with a zero direction
-//     component gets 0 * inf = NaN and culls the box;
+//     component gets 0 * inf = NaN and culls the box; its far limit is
+//     min(best, t_max) and a box passes on near <= far;
 //   - B5 leaf test in the reference traversal's own form
 //     (mrt/geometry/bvh.py:459-479): oc = o - c, half_b = oc.d,
 //     c = oc.oc - r^2, disc = half_b^2 - a c, roots (-half_b -+ sq) / a
 //     as a multiply by 1/a; near root first; equal t -> lower index;
 //   - B6 and B7 share the leaf test (tri_test): Möller–Trumbore with
 //     DET_EPS = 1e-6 and inv_det = 1 / (det_ok ? det : 1), t accepted in
-//     [t_min, t_max]; the slab's far limit is min(best, t_max).  B6: equal
-//     t -> the lower triangle index.  B7 first warps the ray into the
+//     [t_min, t_max].  B6: equal t -> the lower triangle index (over a
+//     forest the lower global row: the reference's fold, in which equal
+//     t keeps the earlier part).  B7 first warps the ray into the
 //     instance as ((r0 ox + r1 oy) + r2 oz) + t0 (the Pallas order,
 //     pallas_bvh.py:577-586); equal t -> the lexicographically lower
-//     (instance, triangle).  So the visit order never changes the winner.
+//     (instance, triangle).  So the winner does not depend on the visit
+//     order, up to the slab test's rounding (ROADMAP C15).
 //
 // Tables (row-major, one row per node / primitive):
-//   nodes  float4 x2 per node: (bmin xyz, 0), (bmax xyz, 0)
-//   meta   int4 per node: (first, count, escape, 0); count 0 = inner node
-//   sph    float4 per sphere: (center xyz, radius)
-//   tnodes as nodes; tmeta int4: (instance or -1, escape, 0, 0)
-//   inst   12 floats per instance: inverse rows R00..R22, then t0 t1 t2
-//   imeta  int2 per instance: (blas_root, blas_end)
-//   tris   9 floats per triangle: va, e_ab, e_ac
+//   B5: nodes  float4 x2 per node: (bmin xyz, 0), (bmax xyz, 0)
+//       meta   int4 per node: (first, count, escape, 0); count 0 = inner
+//       sph    float4 per sphere: (center xyz, radius)
+//   B6, B7 (ops/bvh.py card_nodes, card_tris):
+//       knodes float4 x2 per node: (bmin xyz, a), (bmax xyz, b), ints
+//              bit-cast: a BVH's (first, count), a TLAS's (instance or
+//              -1, 0): a visit issues two independent 16-byte loads and
+//              the order load beside them, not a chain;
+//       order  int2 per octant and node: (next on a hit, next on a miss)
+//       rows   float4 x3 per triangle: (va, 0), (e_ab, 0), (e_ac, 0)
+//       inst   float4 x3 per instance: the inverse transform's rows
+//              R00..R22 then t0 t1 t2;  imeta int2: (blas_root, blas_end)
 //
 // Bound: FP32 issue rate.  A node visit costs ~26 operations (slab test
-// and advance), a sphere test ~32, a triangle test ~58; the tables of
-// sphere_grid (1,023 nodes, 10,000 spheres: 209 KB), of an 8,000-
-// instance TLAS (~1.2 MB) and of a lucy flat part (~6,000 triangles,
-// ~230 KB) stay in L2, and rays and results move ~40-52 bytes a ray.
-// Threads of a warp diverge in their walks; these first kernels do
-// nothing about it (no packets, no ray sorting, no front-to-back order,
-// no shared-memory tables).
+// and advance), a sphere test ~32, a triangle test ~58; rays and results
+// move ~40-52 bytes a ray.  B5's and B6's tables stay in L2 (sphere_grid
+// 209 KB, lucy's forest ~4.3 MB).  Threads of a warp diverge in their
+// walks, which keeps all three far from the bound: B6, and B7 in shared
+// memory, fetch their rays a warp at a time from a global counter in
+// persistent blocks, so a warp that finishes early takes new rays
+// instead of idling while its block's slowest warp walks on, and B7's
+// table copy serves every ray its block takes.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kSharedThreads = 256;  // B7 with its tables in shared memory
 constexpr float kDetEps = 1e-6f;
 
 // NaN-propagating min / max (torch.minimum / torch.maximum).
@@ -81,33 +112,6 @@ __device__ __forceinline__ bool slab(const float4* __restrict__ nodes,
   const float far = minp(
       minp(minp(maxp(t0x, t1x), maxp(t0y, t1y)), maxp(t0z, t1z)), t_max);
   return near <= far;
-}
-
-// Möller–Trumbore against triangle row `tr` (va, e_ab, e_ac): true if the
-// ray hits it at t in [lo, hi]; t, u, v out.
-__device__ __forceinline__ bool tri_test(const float* __restrict__ tr,
-                                         float ox, float oy, float oz,
-                                         float dx, float dy, float dz,
-                                         float lo, float hi, float& t,
-                                         float& u, float& v) {
-  const float vax = __ldg(tr + 0), vay = __ldg(tr + 1), vaz = __ldg(tr + 2);
-  const float abx = __ldg(tr + 3), aby = __ldg(tr + 4), abz = __ldg(tr + 5);
-  const float acx = __ldg(tr + 6), acy = __ldg(tr + 7), acz = __ldg(tr + 8);
-  const float px = dy * acz - dz * acy;
-  const float py = dz * acx - dx * acz;
-  const float pz = dx * acy - dy * acx;
-  const float det = (abx * px + aby * py) + abz * pz;
-  const bool det_ok = fabsf(det) >= kDetEps;
-  const float inv_det = 1.0f / (det_ok ? det : 1.0f);
-  const float tvx = ox - vax, tvy = oy - vay, tvz = oz - vaz;
-  u = ((tvx * px + tvy * py) + tvz * pz) * inv_det;
-  const float qx = tvy * abz - tvz * aby;
-  const float qy = tvz * abx - tvx * abz;
-  const float qz = tvx * aby - tvy * abx;
-  v = ((dx * qx + dy * qy) + dz * qz) * inv_det;
-  t = ((acx * qx + acy * qy) + acz * qz) * inv_det;
-  return det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-         t >= lo && t <= hi;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -165,137 +169,416 @@ sphere_bvh_kernel(const float4* __restrict__ nodes,
   i_out[ray] = best_i;
 }
 
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+  int oct;  // direction octant: bit a set <=> d[a] < 0
+};
+
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
+                                        float dx, float dy, float dz) {
+  Ray r;
+  r.ox = ox;
+  r.oy = oy;
+  r.oz = oz;
+  r.dx = dx;
+  r.dy = dy;
+  r.dz = dz;
+  r.ix = 1.0f / dx;
+  r.iy = 1.0f / dy;
+  r.iz = 1.0f / dz;
+  r.oct = (dx < 0.0f ? 1 : 0) | (dy < 0.0f ? 2 : 0) | (dz < 0.0f ? 4 : 0);
+  return r;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
+                                        const float* __restrict__ d,
+                                        int ray) {
+  return make_ray(o[3 * ray], o[3 * ray + 1], o[3 * ray + 2], d[3 * ray],
+                  d[3 * ray + 1], d[3 * ray + 2]);
+}
+
+// The running winner: t, (u, v), (instance, triangle).
+struct Best {
+  float t, u, v;
+  int inst, tri;
+};
+
+// Table loads: through the read-only cache from global memory, plain
+// loads from shared memory (the compiler emits ld.shared for them).
+template <bool kShared>
+__device__ __forceinline__ float4 ld(const float4* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+template <bool kShared>
+__device__ __forceinline__ int2 ld(const int2* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+// The slab test of a packed node's two rows.
+__device__ __forceinline__ bool slab_rows(const float4 lo, const float4 hi,
+                                          const Ray& r, float t_min,
+                                          float t_max) {
+  const float t0x = (lo.x - r.ox) * r.ix, t1x = (hi.x - r.ox) * r.ix;
+  const float t0y = (lo.y - r.oy) * r.iy, t1y = (hi.y - r.oy) * r.iy;
+  const float t0z = (lo.z - r.oz) * r.iz, t1z = (hi.z - r.oz) * r.iz;
+  const float near = maxp(
+      maxp(maxp(minp(t0x, t1x), minp(t0y, t1y)), minp(t0z, t1z)), t_min);
+  const float far = minp(
+      minp(minp(maxp(t0x, t1x), maxp(t0y, t1y)), maxp(t0z, t1z)), t_max);
+  return near <= far;
+}
+
+// Möller–Trumbore against a packed triangle row (va, e_ab, e_ac): true
+// if the ray hits it at t in [lo, hi]; t, u, v out.
+template <bool kShared>
+__device__ __forceinline__ bool tri_test(const float4* tr, const Ray& r,
+                                         float lo, float hi, float& t,
+                                         float& u, float& v) {
+  const float4 va = ld<kShared>(tr), ab = ld<kShared>(tr + 1),
+               ac = ld<kShared>(tr + 2);
+  const float px = r.dy * ac.z - r.dz * ac.y;
+  const float py = r.dz * ac.x - r.dx * ac.z;
+  const float pz = r.dx * ac.y - r.dy * ac.x;
+  const float det = (ab.x * px + ab.y * py) + ab.z * pz;
+  const bool det_ok = fabsf(det) >= kDetEps;
+  const float inv_det = 1.0f / (det_ok ? det : 1.0f);
+  const float tvx = r.ox - va.x, tvy = r.oy - va.y, tvz = r.oz - va.z;
+  u = ((tvx * px + tvy * py) + tvz * pz) * inv_det;
+  const float qx = tvy * ab.z - tvz * ab.y;
+  const float qy = tvz * ab.x - tvx * ab.z;
+  const float qz = tvx * ab.y - tvy * ab.x;
+  v = ((r.dx * qx + r.dy * qy) + r.dz * qz) * inv_det;
+  t = ((ac.x * qx + ac.y * qy) + ac.z * qz) * inv_det;
+  return det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
+         t >= lo && t <= hi;
+}
+
+// One node visit of B6's walk, also of B7's inside an instance: the
+// slab test, a hit leaf's triangles, and the next node in the walk's
+// order (`ord`: the threading's rows of the walk's octant).  Winners
+// compare as (t, inst, triangle); B6 passes inst 0.
+template <bool kShared>
+__device__ __forceinline__ int visit(const float4* nodes, const int2* ord,
+                                     const float4* tris, int n_tris,
+                                     int node, const Ray& r, float lo,
+                                     float hi, int inst, Best& b) {
+  const float4 bl = ld<kShared>(nodes + 2 * node);
+  const float4 bh = ld<kShared>(nodes + 2 * node + 1);
+  const int2 next = ld<kShared>(ord + node);
+  const bool hit = slab_rows(bl, bh, r, lo, minp(b.t, hi));
+  const int count = __float_as_int(bh.w);
+  if (hit && count > 0) {
+    const int first = __float_as_int(bl.w);
+    for (int k = 0; k < count; ++k) {
+      const int ti = min(first + k, n_tris - 1);
+      float t, u, v;
+      if (tri_test<kShared>(tris + 3 * ti, r, lo, hi, t, u, v) &&
+          (t < b.t || (t == b.t && (inst < b.inst ||
+                                    (inst == b.inst && ti < b.tri))))) {
+        b.t = t;
+        b.u = u;
+        b.v = v;
+        b.inst = inst;
+        b.tri = ti;
+      }
+    }
+  }
+  return hit ? next.x : next.y;
+}
+
+// The octant of a warp's rays: on each axis the sign of the most of its
+// valid rays (a tie: positive).  All 32 lanes call it together.
+__device__ __forceinline__ int warp_octant(bool valid, float dx, float dy,
+                                           float dz) {
+  const int n = __popc(__ballot_sync(0xffffffffu, valid));
+  const auto most = [n](bool neg) {
+    return 2 * __popc(__ballot_sync(0xffffffffu, neg)) > n;
+  };
+  return (most(valid && dx < 0.0f) ? 1 : 0) |
+         (most(valid && dy < 0.0f) ? 2 : 0) |
+         (most(valid && dz < 0.0f) ? 4 : 0);
+}
+
+// Calls trace(ray, oct) for each ray, oct the octant whose threading the
+// walk follows: the ray's own, or with kWarpOctant its warp's.  Rays
+// group into warps as 32 consecutive indices in both schedules.
+// kPersistent: each warp takes the next 32 rays from `counter` (zeroed
+// before the launch) until none are left; else one thread a ray.
+template <bool kPersistent, bool kWarpOctant, typename F>
+__device__ __forceinline__ void for_each_ray(int n, int* counter,
+                                             const float* __restrict__ d,
+                                             F&& trace) {
+  const auto run = [&](int ray) {
+    const bool valid = ray < n;
+    float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+    if (valid) {
+      dx = d[3 * ray];
+      dy = d[3 * ray + 1];
+      dz = d[3 * ray + 2];
+    }
+    const int oct =
+        kWarpOctant ? warp_octant(valid, dx, dy, dz)
+                    : (dx < 0.0f ? 1 : 0) | (dy < 0.0f ? 2 : 0) |
+                          (dz < 0.0f ? 4 : 0);
+    if (valid) trace(ray, oct);
+  };
+  if constexpr (kPersistent) {
+    const int lane = threadIdx.x & 31;
+    for (;;) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(counter, 32);
+      base = __shfl_sync(0xffffffffu, base, 0);
+      if (base >= n) return;
+      run(base + lane);
+    }
+  } else {
+    run(blockIdx.x * blockDim.x + threadIdx.x);
+  }
+}
+
+// B6: persistent warps, each ray in its own octant's order.
 __global__ void __launch_bounds__(kThreads)
-tri_bvh_kernel(const float4* __restrict__ nodes, const int4* __restrict__ meta,
-               int m, const float* __restrict__ tris, int n_tris,
+tri_bvh_kernel(const float4* __restrict__ nodes,
+               const int2* __restrict__ order, int m,
+               const float4* __restrict__ tris, int n_tris,
                const float* __restrict__ o, const float* __restrict__ d,
                const float* __restrict__ t_min,
                const float* __restrict__ t_max, int n,
                float* __restrict__ t_out, int* __restrict__ i_out,
-               float* __restrict__ u_out, float* __restrict__ v_out) {
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= n) return;
-  const float ox = o[3 * ray], oy = o[3 * ray + 1], oz = o[3 * ray + 2];
-  const float dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
-  const float lo = t_min[ray], hi = t_max[ray];
-  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-
-  float best = CUDART_INF_F, bu = 0.f, bv = 0.f;
-  int best_i = 0;
-  int node = 0;
-  while (node < m) {
-    const int4 row = __ldg(meta + node);
-    const bool hit = slab(nodes, node, ox, oy, oz, ix, iy, iz, lo,
-                          minp(best, hi));
-    if (hit && row.y > 0) {
-      for (int k = 0; k < row.y; ++k) {
-        const int ti = min(row.x + k, n_tris - 1);
-        float t, u, v;
-        if (tri_test(tris + 9 * ti, ox, oy, oz, dx, dy, dz, lo, hi, t, u,
-                     v) &&
-            (t < best || (t == best && ti < best_i))) {
-          best = t;
-          best_i = ti;
-          bu = u;
-          bv = v;
-        }
-      }
-    }
-    node = (hit && row.y == 0) ? node + 1 : row.z;
-  }
-  t_out[ray] = best;
-  i_out[ray] = best_i;
-  u_out[ray] = bu;
-  v_out[ray] = bv;
+               float* __restrict__ u_out, float* __restrict__ v_out,
+               int* counter) {
+  for_each_ray<true, false>(n, counter, d, [&](int ray, int oct) {
+    const Ray r = load_ray(o, d, ray);
+    const float lo = t_min[ray], hi = t_max[ray];
+    const int2* ord = order + oct * m;
+    Best b{CUDART_INF_F, 0.0f, 0.0f, 0, 0};
+    int node = 0;
+    while (node < m)
+      node = visit<false>(nodes, ord, tris, n_tris, node, r, lo, hi, 0, b);
+    t_out[ray] = b.t;
+    i_out[ray] = b.tri;
+    u_out[ray] = b.u;
+    v_out[ray] = b.v;
+  });
 }
 
-__global__ void __launch_bounds__(kThreads)
-tlas_kernel(const float4* __restrict__ tnodes, const int4* __restrict__ tmeta,
-            int mt, const float* __restrict__ inst_rows,
-            const int2* __restrict__ imeta, const float4* __restrict__ bnodes,
-            const int4* __restrict__ bmeta, const float* __restrict__ tris,
-            int n_tris, const float* __restrict__ o,
+struct TlasTables {
+  const float4* tnodes;
+  const int2* torder;
+  const float4* inst;
+  const int2* imeta;
+  const float4* bnodes;
+  const int2* border;
+  const float4* tris;
+  int mt, ni, mb, n_tris;
+};
+
+__host__ __device__ __forceinline__ int align16(int bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// The tables' bytes, in TlasTables order.
+__host__ __device__ __forceinline__ void tlas_sizes(const TlasTables& tb,
+                                                    int bytes[7]) {
+  bytes[0] = tb.mt * 32;
+  bytes[1] = tb.mt * 64;
+  bytes[2] = tb.ni * 48;
+  bytes[3] = tb.ni * 8;
+  bytes[4] = tb.mb * 32;
+  bytes[5] = tb.mb * 64;
+  bytes[6] = tb.n_tris * 48;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// The block copies `bytes` (a multiple of 8) from global to shared memory
+// with cp.async; an 8-byte tail goes by a plain load and store.  Returns
+// the next table's place, 16-byte aligned.
+__device__ __forceinline__ unsigned char* stage(unsigned char* dst,
+                                                const void* src, int bytes) {
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  const int n16 = bytes / 16;
+  for (int i = threadIdx.x; i < n16; i += blockDim.x)
+    cp_async16(dst + 16 * i, s + 16 * i);
+  if (bytes % 16 != 0 && threadIdx.x == 0)
+    *reinterpret_cast<int2*>(dst + 16 * n16) =
+        *reinterpret_cast<const int2*>(s + 16 * n16);
+  return dst + align16(bytes);
+}
+
+// B7's walk of one ray: a state machine over (TLAS node, instance, BLAS
+// node), one node visit an iteration, so that the lanes of a warp in the
+// TLAS and in a BLAS step on together.  The TLAS in the octant `oct`'s
+// order, a BLAS in the octant of the ray in instance space; a TLAS
+// leaf's successor is where the walk resumes after the instance.
+template <bool kShared>
+__device__ __forceinline__ void trace_tlas(const TlasTables& tb,
+                                           const Ray& r, int oct, float lo,
+                                           float hi, Best& b) {
+  const int2* tord = tb.torder + oct * tb.mt;
+  const int2* bord = tb.border;
+  int tnode = 0, inst = -1, bnode = 0, bend = 0, resume = 0;
+  Ray lr = r;
+  while (inst >= 0 || tnode < tb.mt) {
+    if (inst >= 0) {
+      const int next = visit<kShared>(tb.bnodes, bord, tb.tris, tb.n_tris,
+                                      bnode, lr, lo, hi, inst, b);
+      if (next >= bend) {
+        inst = -1;
+        tnode = resume;
+      } else {
+        bnode = next;
+      }
+      continue;
+    }
+    const float4 bl = ld<kShared>(tb.tnodes + 2 * tnode);
+    const float4 bh = ld<kShared>(tb.tnodes + 2 * tnode + 1);
+    const int2 next = ld<kShared>(tord + tnode);
+    const bool hit = slab_rows(bl, bh, r, lo, minp(b.t, hi));
+    const int leaf = __float_as_int(bl.w);
+    if (hit && leaf >= 0) {
+      // Rows R00 R01 R02 R10 | R11 R12 R20 R21 | R22 t0 t1 t2.
+      const float4* row = tb.inst + 3 * leaf;
+      const float4 a = ld<kShared>(row), c = ld<kShared>(row + 1),
+                   e = ld<kShared>(row + 2);
+      lr = make_ray(((a.x * r.ox + a.y * r.oy) + a.z * r.oz) + e.y,
+                    ((a.w * r.ox + c.x * r.oy) + c.y * r.oz) + e.z,
+                    ((c.z * r.ox + c.w * r.oy) + e.x * r.oz) + e.w,
+                    (a.x * r.dx + a.y * r.dy) + a.z * r.dz,
+                    (a.w * r.dx + c.x * r.dy) + c.y * r.dz,
+                    (c.z * r.dx + c.w * r.dy) + e.x * r.dz);
+      const int2 im = ld<kShared>(tb.imeta + leaf);
+      inst = leaf;
+      bnode = im.x;
+      bend = im.y;
+      resume = next.y;
+      bord = tb.border + lr.oct * tb.mb;
+    } else {
+      tnode = hit ? next.x : next.y;
+    }
+  }
+}
+
+// B7: the TLAS in its warp's octant order.  In shared memory each block
+// first copies the tables, and its warps then fetch rays until none are
+// left (persistent), so that one copy serves many rays; from global
+// memory one thread a ray.
+template <bool kShared>
+__global__ void __launch_bounds__(kShared ? kSharedThreads : kThreads)
+tlas_kernel(const TlasTables g, const float* __restrict__ o,
             const float* __restrict__ d, const float* __restrict__ t_min,
             const float* __restrict__ t_max, int n,
             float* __restrict__ t_out, int* __restrict__ inst_out,
             int* __restrict__ tri_out, float* __restrict__ u_out,
-            float* __restrict__ v_out) {
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= n) return;
-  const float ox = o[3 * ray], oy = o[3 * ray + 1], oz = o[3 * ray + 2];
-  const float dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
-  const float lo = t_min[ray], hi = t_max[ray];
-  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-
-  // Walk state: TLAS node, current instance (-1 = in the TLAS), BLAS
-  // node, the TLAS node to resume at, and the ray in the instance.
-  int tnode = 0, inst = -1, bnode = 0, resume = 0, blas_end = 0;
-  float lox = 0.f, loy = 0.f, loz = 0.f, ldx = 0.f, ldy = 0.f, ldz = 0.f;
-  float lix = 0.f, liy = 0.f, liz = 0.f;
-
-  float bt = CUDART_INF_F, bu = 0.f, bv = 0.f;
-  int b_inst = -1, b_tri = 0;
-  while (inst >= 0 || tnode < mt) {
-    const float lim = minp(bt, hi);
-    if (inst < 0) {
-      const int4 row = __ldg(tmeta + tnode);
-      const bool hit = slab(tnodes, tnode, ox, oy, oz, ix, iy, iz, lo, lim);
-      if (hit && row.x >= 0) {
-        const float* r = inst_rows + 12 * row.x;
-        lox = ((__ldg(r + 0) * ox + __ldg(r + 1) * oy) + __ldg(r + 2) * oz)
-              + __ldg(r + 9);
-        loy = ((__ldg(r + 3) * ox + __ldg(r + 4) * oy) + __ldg(r + 5) * oz)
-              + __ldg(r + 10);
-        loz = ((__ldg(r + 6) * ox + __ldg(r + 7) * oy) + __ldg(r + 8) * oz)
-              + __ldg(r + 11);
-        ldx = (__ldg(r + 0) * dx + __ldg(r + 1) * dy) + __ldg(r + 2) * dz;
-        ldy = (__ldg(r + 3) * dx + __ldg(r + 4) * dy) + __ldg(r + 5) * dz;
-        ldz = (__ldg(r + 6) * dx + __ldg(r + 7) * dy) + __ldg(r + 8) * dz;
-        lix = 1.0f / ldx;
-        liy = 1.0f / ldy;
-        liz = 1.0f / ldz;
-        const int2 im = __ldg(imeta + row.x);
-        inst = row.x;
-        bnode = im.x;
-        blas_end = im.y;
-        resume = row.y;
-      } else {
-        tnode = hit ? tnode + 1 : row.y;
-      }
-      continue;
-    }
-    const int4 row = __ldg(bmeta + bnode);
-    const bool hit = slab(bnodes, bnode, lox, loy, loz, lix, liy, liz, lo,
-                          lim);
-    if (hit && row.y > 0) {
-      for (int k = 0; k < row.y; ++k) {
-        const int ti = min(row.x + k, n_tris - 1);
-        float t, u, v;
-        if (tri_test(tris + 9 * ti, lox, loy, loz, ldx, ldy, ldz, lo, hi, t,
-                     u, v) &&
-            (t < bt ||
-             (t == bt && (inst < b_inst || (inst == b_inst && ti < b_tri))))) {
-          bt = t;
-          b_inst = inst;
-          b_tri = ti;
-          bu = u;
-          bv = v;
-        }
-      }
-    }
-    const int next = (hit && row.y == 0) ? bnode + 1 : row.z;
-    if (next >= blas_end) {
-      inst = -1;
-      tnode = resume;
-    } else {
-      bnode = next;
-    }
+            float* __restrict__ v_out, int* counter) {
+  TlasTables tb = g;
+  if constexpr (kShared) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    int bytes[7];
+    tlas_sizes(g, bytes);
+    unsigned char* p = smem;
+    tb.tnodes = reinterpret_cast<const float4*>(p);
+    p = stage(p, g.tnodes, bytes[0]);
+    tb.torder = reinterpret_cast<const int2*>(p);
+    p = stage(p, g.torder, bytes[1]);
+    tb.inst = reinterpret_cast<const float4*>(p);
+    p = stage(p, g.inst, bytes[2]);
+    tb.imeta = reinterpret_cast<const int2*>(p);
+    p = stage(p, g.imeta, bytes[3]);
+    tb.bnodes = reinterpret_cast<const float4*>(p);
+    p = stage(p, g.bnodes, bytes[4]);
+    tb.border = reinterpret_cast<const int2*>(p);
+    p = stage(p, g.border, bytes[5]);
+    tb.tris = reinterpret_cast<const float4*>(p);
+    stage(p, g.tris, bytes[6]);
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+    __syncthreads();
   }
-  t_out[ray] = bt;
-  inst_out[ray] = b_inst;
-  tri_out[ray] = b_tri;
-  u_out[ray] = bu;
-  v_out[ray] = bv;
+  for_each_ray<kShared, true>(n, counter, d, [&](int ray, int oct) {
+    const Ray r = load_ray(o, d, ray);
+    Best b{CUDART_INF_F, 0.0f, 0.0f, -1, 0};
+    trace_tlas<kShared>(tb, r, oct, t_min[ray], t_max[ray], b);
+    t_out[ray] = b.t;
+    inst_out[ray] = b.inst;
+    tri_out[ray] = b.tri;
+    u_out[ray] = b.u;
+    v_out[ray] = b.v;
+  });
+}
+
+// Blocks that fill the card with `fn` at `threads` and `smem` bytes of
+// dynamic shared memory (a persistent grid), cached: the occupancy
+// query runs once a kernel, size and device, outside any graph capture.
+int resident_blocks(const void* fn, int threads, size_t smem) {
+  struct Entry {
+    const void* fn;
+    size_t smem;
+    int dev, blocks;
+  };
+  static Entry cache[32];
+  static int used = 0;
+  static std::mutex lock;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < used; ++i)
+    if (cache[i].fn == fn && cache[i].smem == smem && cache[i].dev == dev)
+      return cache[i].blocks;
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                    smem) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  const int blocks = per_sm * sms;
+  if (used < 32) cache[used++] = Entry{fn, smem, dev, blocks};
+  return blocks;
+}
+
+// Lets `fn` take `smem` bytes of dynamic shared memory (raised once a
+// kernel and size, before a capture replays it).
+cudaError_t allow_smem(const void* fn, size_t smem) {
+  struct Entry {
+    const void* fn;
+    int dev;
+    size_t smem;
+  };
+  static Entry cache[16];
+  static int used = 0;
+  static std::mutex lock;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < used; ++i)
+    if (cache[i].fn == fn && cache[i].dev == dev && cache[i].smem >= smem)
+      return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess && used < 16) cache[used++] = Entry{fn, dev, smem};
+  return err;
+}
+
+// Grid of a launch over n rays: one thread a ray, or a persistent grid
+// (no more blocks than the rays need).
+int grid(const void* fn, int threads, size_t smem, int n, bool persistent) {
+  const int blocks = (n + threads - 1) / threads;
+  if (!persistent) return blocks;
+  const int resident = resident_blocks(fn, threads, smem);
+  return resident < blocks ? resident : blocks;
 }
 
 }  // namespace
@@ -315,37 +598,59 @@ extern "C" int mrt_sphere_bvh(const float* nodes, const int* meta, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mrt_tri_bvh(const float* nodes, const int* meta, int m,
+extern "C" int mrt_tri_bvh(const float* knodes, const int* order, int m,
                            const float* tris, int n_tris, const float* o,
                            const float* d, const float* t_min,
                            const float* t_max, int n, float* t_out,
                            int* i_out, float* u_out, float* v_out,
-                           cudaStream_t stream) {
+                           int* counter, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  tri_bvh_kernel<<<blocks, kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(nodes),
-      reinterpret_cast<const int4*>(meta), m, tris, n_tris, o, d, t_min,
-      t_max, n, t_out, i_out, u_out, v_out);
+  const void* key = reinterpret_cast<const void*>(&tri_bvh_kernel);
+  const cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tri_bvh_kernel<<<grid(key, kThreads, 0, n, true), kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(knodes),
+      reinterpret_cast<const int2*>(order), m,
+      reinterpret_cast<const float4*>(tris), n_tris, o, d, t_min, t_max, n,
+      t_out, i_out, u_out, v_out, counter);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mrt_tlas(const float* tnodes, const int* tmeta, int mt,
+// Tables in TlasTables order; shared != 0 copies them into each block's
+// shared memory (the launch is refused past the card's limit).
+extern "C" int mrt_tlas(const float* tnodes, const int* torder,
                         const float* inst, const int* imeta,
-                        const float* bnodes, const int* bmeta,
-                        const float* tris, int n_tris, const float* o,
-                        const float* d, const float* t_min,
-                        const float* t_max, int n, float* t_out,
-                        int* inst_out, int* tri_out, float* u_out,
-                        float* v_out, cudaStream_t stream) {
+                        const float* bnodes, const int* border,
+                        const float* tris, int mt, int ni, int mb,
+                        int n_tris, const float* o, const float* d,
+                        const float* t_min, const float* t_max, int n,
+                        float* t_out, int* inst_out, int* tri_out,
+                        float* u_out, float* v_out, int* counter,
+                        int shared, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  tlas_kernel<<<blocks, kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(tnodes),
-      reinterpret_cast<const int4*>(tmeta), mt, inst,
-      reinterpret_cast<const int2*>(imeta),
-      reinterpret_cast<const float4*>(bnodes),
-      reinterpret_cast<const int4*>(bmeta), tris, n_tris, o, d, t_min, t_max,
-      n, t_out, inst_out, tri_out, u_out, v_out);
+  const TlasTables tb{reinterpret_cast<const float4*>(tnodes),
+                      reinterpret_cast<const int2*>(torder),
+                      reinterpret_cast<const float4*>(inst),
+                      reinterpret_cast<const int2*>(imeta),
+                      reinterpret_cast<const float4*>(bnodes),
+                      reinterpret_cast<const int2*>(border),
+                      reinterpret_cast<const float4*>(tris),
+                      mt, ni, mb, n_tris};
+  auto fn = shared ? &tlas_kernel<true> : &tlas_kernel<false>;
+  const int threads = shared ? kSharedThreads : kThreads;
+  size_t smem = 0;
+  if (shared) {
+    int bytes[7];
+    tlas_sizes(tb, bytes);
+    for (int b : bytes) smem += align16(b);
+  }
+  const void* key = reinterpret_cast<const void*>(fn);
+  cudaError_t err = allow_smem(key, smem);
+  if (err == cudaSuccess && shared)
+    err = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fn<<<grid(key, threads, smem, n, shared), threads, smem, stream>>>(
+      tb, o, d, t_min, t_max, n, t_out, inst_out, tri_out, u_out, v_out,
+      counter);
   return static_cast<int>(cudaGetLastError());
 }

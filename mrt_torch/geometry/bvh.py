@@ -11,6 +11,14 @@ reference's, array for array, for both splits.  (The reference switches
 to its C++ builder above 1,024 primitives; that builder reproduces this
 Python body bit for bit, and the port builds in Python at every size.)
 
+The card walks a tree in front-to-back order: ``thread_octants`` (the
+reference's) threads it once for each of the eight ray-direction
+octants, so a walk stays stackless but descends into the nearer child
+first.  A tree of fewer than OCTANT_MIN_NODES nodes keeps the escape
+order in every octant (``card_order``).  Each FlatBVH keeps that
+threading and its nodes in the kernels' packed layout beside the
+reference tables (``ops.bvh``).
+
 Traversal: sphere BVHs go through kernel B5 and triangle BVHs through
 kernel B6 (``ops.bvh``).
 """
@@ -31,19 +39,27 @@ from .hit import Hits
 
 
 class FlatBVH(nn.Module):
-    """A flattened BVH in the kernel's layout: ``nodes`` (M, 8) float32
-    rows (bmin xyz, 0, bmax xyz, 0) and ``meta`` (M, 4) int32 rows
-    (first, count, escape, 0); count 0 marks an inner node."""
+    """A flattened BVH: ``nodes`` (M, 8) float32 rows (bmin xyz, 0, bmax
+    xyz, 0) and ``meta`` (M, 4) int32 rows (first, count, escape, 0);
+    count 0 marks an inner node.  The kernels' tables beside them:
+    ``knodes`` (M, 8), the nodes with first and count in the pad slots
+    (``ops.bvh.card_nodes``), and ``order`` (8, M, 2) int32, the
+    octants' (hit, miss) threading (``card_order``)."""
 
     # The reference's arrays, in ``create``'s order.
     FIELDS = ("bmin", "bmax", "first", "count", "escape")
 
     def __init__(self, nodes, meta):
         super().__init__()
-        self.register_buffer("nodes", torch.as_tensor(nodes,
-                                                      dtype=torch.float32))
-        self.register_buffer("meta", torch.as_tensor(meta,
-                                                     dtype=torch.int32))
+        nodes = torch.as_tensor(nodes, dtype=torch.float32)
+        meta = torch.as_tensor(meta, dtype=torch.int32)
+        self.register_buffer("nodes", nodes)
+        self.register_buffer("meta", meta)
+        self.register_buffer("order", torch.from_numpy(card_order(
+            meta[:, 1].cpu().numpy(), meta[:, 2].cpu().numpy(),
+            nodes[:, 0:3].cpu().numpy(), nodes[:, 4:7].cpu().numpy())))
+        self.register_buffer("knodes", kernel.card_nodes(
+            nodes, meta[:, 0], meta[:, 1]))
 
     @classmethod
     def create(cls, bmin, bmax, first, count, escape):
@@ -63,6 +79,139 @@ class FlatBVH(nn.Module):
     first = property(lambda self: self.meta[:, 0])
     count = property(lambda self: self.meta[:, 1])
     escape = property(lambda self: self.meta[:, 2])
+
+
+def thread_octants(count, escape, bmin, bmax):
+    """(hitp, missp) (8, M) int32 traversal orders, one per direction
+    octant (bit a of o set <=> d[a] < 0); ``mrt.geometry.bvh``'s.
+
+    Children at inner node n are (n+1) and escape[n+1], ordered by
+    ascending centroid along the node's longest axis (the build's split
+    rule); the near child for an octant is the first one when the
+    direction is positive along that axis, else the second.  The DFS
+    sentinel after the root is M (matches the escape convention)."""
+    count = np.asarray(count)
+    escape = np.asarray(escape)
+    m = len(count)
+    ext = np.asarray(bmax, np.float64) - np.asarray(bmin, np.float64)
+    axis = np.argmax(ext, axis=1).astype(np.int32)
+    inner = count == 0
+    c1 = np.arange(m, dtype=np.int32) + 1
+    c2 = np.where(inner, escape[np.minimum(c1, m - 1)], 0).astype(
+        np.int32)
+
+    hitp = np.zeros((8, m), np.int32)
+    missp = np.zeros((8, m), np.int32)
+    for o in range(8):
+        neg = np.array([(o >> a) & 1 for a in range(3)], bool)
+        swap = neg[axis]                      # (M,)
+        first_c = np.where(swap, c2, c1)
+        second_c = np.where(swap, c1, c2)
+        # Iterative DFS threading: after(n) = next subtree in THIS
+        # octant's order.
+        stack = [(0, m)]
+        while stack:
+            n, after = stack.pop()
+            if inner[n]:
+                hitp[o, n] = first_c[n]
+                missp[o, n] = after
+                stack.append((int(first_c[n]), int(second_c[n])))
+                stack.append((int(second_c[n]), after))
+            else:
+                hitp[o, n] = after
+                missp[o, n] = after
+    return hitp, missp
+
+
+def escape_threads(count, escape):
+    """(hitp, missp) (8, M) int32 of the build's escape order, the same
+    in every octant: a hit inner node goes on at node + 1, anything else
+    at its escape."""
+    count, escape = np.asarray(count), np.asarray(escape)
+    m = len(count)
+    nxt = np.where(count == 0, np.arange(m) + 1, escape)
+    return (np.broadcast_to(nxt, (8, m)).astype(np.int32),
+            np.broadcast_to(escape, (8, m)).astype(np.int32))
+
+
+def order_table(hitp, missp):
+    """(8, M, 2) int32: each octant's (hit, miss) successor of a node,
+    side by side so that one 8-byte load fetches both."""
+    return np.ascontiguousarray(np.stack([hitp, missp], axis=-1),
+                                dtype=np.int32)
+
+
+# Trees below this many nodes keep the escape order on the card: the
+# octant order culls little in them (playground's 7-node BLAS tests as
+# many triangles either way), and lanes of a warp that walk different
+# orders reach their leaves apart, so the leaf loops serialise
+# (chip_smoke.py's phase 8 counts both orders' work a ray).
+OCTANT_MIN_NODES = 32
+
+
+def card_order(count, escape, bmin, bmax):
+    """The (8, M, 2) threading the kernels walk: ``thread_octants`` for
+    a tree of OCTANT_MIN_NODES nodes or more, else the escape order."""
+    if len(count) < OCTANT_MIN_NODES:
+        return order_table(*escape_threads(count, escape))
+    return order_table(*thread_octants(count, escape, bmin, bmax))
+
+
+def thread_segments(count, escape, bmin, bmax, roots, ends):
+    """``card_order`` of a table that holds several trees (the TLAS's
+    concatenated BLAS): each tree [root, end) threaded alone, its
+    indices global and its sentinel ``end``.  Nodes of no listed tree,
+    and trees below OCTANT_MIN_NODES, keep the escape order."""
+    count, escape = np.asarray(count), np.asarray(escape)
+    hitp, missp = escape_threads(count, escape)
+    for root, end in sorted(set(zip(np.asarray(roots).tolist(),
+                                    np.asarray(ends).tolist()))):
+        if end - root < OCTANT_MIN_NODES:
+            continue
+        h, s = thread_octants(count[root:end], escape[root:end] - root,
+                              bmin[root:end], bmax[root:end])
+        hitp[:, root:end] = h + root
+        missp[:, root:end] = s + root
+    return order_table(hitp, missp)
+
+
+def graft(trees, tri_offsets):
+    """One tree over several BVHs: a top tree over their root boxes
+    (``build``'s median split, one tree a leaf), each top leaf replaced
+    by that tree's nodes, their triangle indices shifted by the tree's
+    offset in ``tri_offsets``.  Depth-first like any build, so escapes
+    and ``thread_octants`` apply unchanged.  Returns the five arrays of
+    ``FlatBVH.create``."""
+    arrays = [[np.asarray(getattr(t, k).cpu()) for k in ("bmin", "bmax",
+                                                         "first", "count",
+                                                         "escape")]
+              for t in trees]
+    rmin = np.stack([a[0][0] for a in arrays])
+    rmax = np.stack([a[1][0] for a in arrays])
+    (tmin, tmax, tfirst, tcount, tescape), order = build(
+        (rmin.astype(np.float64) + rmax) / 2.0, rmin, rmax, leaf_size=1)
+    # New index of each top node, and where its subtree ends.
+    start, pos = [], 0
+    for i in range(len(tcount)):
+        start.append(pos)
+        pos += 1 if tcount[i] == 0 else len(arrays[order[tfirst[i]]][3])
+    start.append(pos)
+    out = [[] for _ in range(5)]
+    for i in range(len(tcount)):
+        if tcount[i] == 0:
+            row = (tmin[i:i + 1], tmax[i:i + 1], [0], [0],
+                   [start[tescape[i]]])
+        else:
+            k = order[tfirst[i]]
+            bmin, bmax, first, count, escape = arrays[k]
+            row = (bmin, bmax,
+                   np.where(count > 0, first + tri_offsets[k], 0), count,
+                   escape + start[i])
+        for dst, src in zip(out, row):
+            dst.append(np.asarray(src))
+    return (np.concatenate(out[0]).astype(np.float32),
+            np.concatenate(out[1]).astype(np.float32),
+            *(np.concatenate(x).astype(np.int32) for x in out[2:]))
 
 
 def node_rows(bmin, bmax):
@@ -241,7 +390,7 @@ def intersect_bvh_tris(tris, bvh: FlatBVH, o, d, t_min, t_max):
     tris: a TriangleTable in BVH order.  t_min, t_max: scalars or (N,).
     Returns (t (N,), +inf on a miss; index (N,) int32; u; v)."""
     return kernel.tri_bvh_hit(bvh.nodes, bvh.meta, tris.rows, o, d, t_min,
-                              t_max)
+                              t_max, card=(bvh.knodes, bvh.order, tris.krows))
 
 
 def intersect_bvh(tris, bvh: FlatBVH, o, d, t_min, t_max) -> Hits:

@@ -6,8 +6,13 @@ top-level BVH is built over the instances' world-space boxes with one
 instance per leaf.  A ray walks both levels in one stackless loop
 (kernel B7, ``ops.bvh.tlas_hit``): entering a TLAS leaf warps it by the
 instance's inverse transform and jumps to the mesh's BLAS root;
-finishing the BLAS resumes the TLAS at the leaf's escape index.  Hit t
-is affine-invariant, so the best t shrinks across instances.
+finishing the BLAS resumes the TLAS after the leaf.  Hit t is
+affine-invariant, so the best t shrinks across instances.  The card
+walks both levels front to back in the octant threading of
+``bvh.thread_octants`` (each BLAS threaded alone, with its ``blas_end``
+as sentinel; a tree under ``bvh.OCTANT_MIN_NODES`` nodes in the escape
+order, ``bvh.card_order``), from packed tables kept beside the
+reference's.
 
 Winners go back to world space as in the reference: the point along
 the world ray, the normal by the forward linear part and renormalised
@@ -22,7 +27,8 @@ exactly as there, so one environment routes both packages alike:
   - flat parts: a mid-size scene split into spatial instance clusters,
     each world-flattened under its own BVH (``flat_parts``, built only
     when the opt-in asks for it); per-ray winners fold across the parts
-    and expand through ``expand_winner``.
+    and expand through ``expand_winner``.  On the card one B6 launch
+    walks all parts as one forest (``FlatParts``).
 Both walk their BVHs with kernel B6.  The brute instanced scan
 (``MRT_TLAS_KERNEL=brute``, a TPU oracle for B7's function) is not
 ported: that value takes the two-level route here.
@@ -68,11 +74,41 @@ class FlatPart(nn.Module):
             packed, dtype=torch.int32).contiguous())
 
 
+class FlatParts(nn.Module):
+    """The flat parts of a TLAS (a sequence of FlatPart) and the forest
+    that kernel B6 walks over all of them in one launch: ``forest``, a
+    FlatBVH whose top nodes split the parts' root boxes and whose
+    subtrees are the parts' BVHs (``bvh.graft``), its leaves indexing
+    the parts' rows in part order, and ``krows``, those rows packed
+    (``ops.bvh.card_tris``)."""
+
+    def __init__(self, parts):
+        super().__init__()
+        self.parts = nn.ModuleList(parts)
+        offsets = np.cumsum([0] + [p.rows.shape[0] for p in parts])[:-1]
+        self.forest = bvh_mod.FlatBVH.create(*bvh_mod.graft(
+            [p.bvh for p in parts], offsets))
+        self.register_buffer("krows", kernel.card_tris(
+            torch.cat([p.rows for p in parts])))
+
+    def __iter__(self):
+        return iter(self.parts)
+
+    def __len__(self):
+        return len(self.parts)
+
+    def __getitem__(self, i):
+        return self.parts[i]
+
+
 class TLAS(nn.Module):
     """Two-level acceleration structure, as device tables.
 
     Kernel tables (layouts in ``ops.bvh``): tnodes, tmeta, inst (the
-    inverse transforms), imeta, bnodes, bmeta, tris.  Expansion tables:
+    inverse transforms), imeta, bnodes, bmeta, tris; B7's packed ones
+    beside them: k_tnodes (instance in the pad), t_order (the TLAS's
+    octant threading), k_bnodes (first, count in the pads), b_order
+    (each BLAS's threading), k_tris.  Expansion tables:
     transform (I, 4, 4) object to world, override (I,) material row or
     -1, shading (T, 29) the triangles' ``shading_table``.  Per instance:
     tri_first, tri_count (its mesh's range in ``tris``) and w_min, w_max
@@ -80,8 +116,8 @@ class TLAS(nn.Module):
 
     World-flattened routes, each None where not built: ``flat_tris`` (a
     TriangleTable, unit normals) under ``flat_bvh``; ``flat_parts`` (a
-    ModuleList of FlatPart) with ``flat_packed``, their packed ids
-    concatenated in part order."""
+    FlatParts) with ``flat_packed``, their packed ids concatenated in
+    part order."""
 
     def __init__(self, t_bmin, t_bmax, t_inst, t_escape, transform,
                  inv_transform, override, blas_root, blas_end, bmin, bmax,
@@ -93,16 +129,29 @@ class TLAS(nn.Module):
         tmeta = np.zeros((len(t_inst), 4), np.int32)
         tmeta[:, 0] = t_inst
         tmeta[:, 1] = t_escape
-        bottom = bvh_mod.FlatBVH.create(bmin, bmax, first, count, escape)
+        bmeta = np.zeros((len(first), 4), np.int32)
+        bmeta[:, 0] = first
+        bmeta[:, 1] = count
+        bmeta[:, 2] = escape
+        tnodes = bvh_mod.node_rows(t_bmin, t_bmax)
+        bnodes = bvh_mod.node_rows(bmin, bmax)
         inv = np.asarray(inv_transform, np.float32)
         tris = tris.to_torch()
+        rows = torch.cat([tris.va, tris.e_ab, tris.e_ac], dim=1)
         buffers = dict(
-            tnodes=bvh_mod.node_rows(t_bmin, t_bmax), tmeta=tmeta,
+            tnodes=tnodes, tmeta=tmeta,
             inst=np.concatenate([inv[:, :3, :3].reshape(-1, 9),
                                  inv[:, :3, 3]], axis=1),
             imeta=np.stack([blas_root, blas_end], axis=1).astype(np.int32),
-            bnodes=bottom.nodes, bmeta=bottom.meta,
-            tris=torch.cat([tris.va, tris.e_ab, tris.e_ac], dim=1),
+            bnodes=bnodes, bmeta=bmeta, tris=rows,
+            k_tnodes=kernel.card_nodes(tnodes, tmeta[:, 0], tmeta[:, 3]),
+            t_order=bvh_mod.card_order(
+                (tmeta[:, 0] >= 0).astype(np.int32), t_escape, t_bmin,
+                t_bmax),
+            k_bnodes=kernel.card_nodes(bnodes, first, count),
+            b_order=bvh_mod.thread_segments(count, escape, bmin, bmax,
+                                            blas_root, blas_end),
+            k_tris=kernel.card_tris(rows),
             transform=np.asarray(transform, np.float32),
             override=np.asarray(override, np.int32),
             shading=tri_mod.shading_table(tris),
@@ -118,7 +167,7 @@ class TLAS(nn.Module):
         self.flat_bvh = flat_bvh
         self.flat_parts = None
         if flat_parts is not None:
-            self.flat_parts = nn.ModuleList(flat_parts)
+            self.flat_parts = FlatParts(flat_parts)
             self.register_buffer("flat_packed", torch.cat(
                 [p.packed for p in flat_parts]))
 
@@ -425,30 +474,18 @@ def wants_flat_parts(tlas: TLAS, auto=True) -> bool:
 
 
 def intersect_tlas_flat_parts(tlas: TLAS, o, d, t_min, t_max) -> Hits:
-    """Closest hit over the flat parts (kernel B6 a part), as Hits.
+    """Closest hit over the flat parts (kernel B6, one launch for all
+    parts), as Hits.
 
     Winners fold across the parts: a strictly smaller t wins, so on
     equal t the earlier part keeps the hit (within a part the lower
     triangle).  The winner's packed id gives (instance, triangle), which
     ``expand_winner`` turns into the two-level route's Hits."""
-    n, dev = o.shape[0], o.device
-    best_t = torch.full((n,), INF, device=dev)
-    best_row = torch.zeros((n,), dtype=torch.int64, device=dev)
-    best_u = torch.zeros((n,), device=dev)
-    best_v = torch.zeros((n,), device=dev)
-    offset = 0
-    for part in tlas.flat_parts:
-        t, i, u, v = kernel.tri_bvh_hit(part.bvh.nodes, part.bvh.meta,
-                                        part.rows, o, d, t_min, t_max)
-        ok = t < best_t
-        best_row = torch.where(ok, i.to(torch.int64) + offset, best_row)
-        best_u = torch.where(ok, u, best_u)
-        best_v = torch.where(ok, v, best_v)
-        best_t = torch.where(ok, t, best_t)
-        offset += part.rows.shape[0]
-    packed = tlas.flat_packed[best_row]
-    return expand_winner(tlas, o, d, best_t, packed >> 20,
-                         packed & ((1 << 20) - 1), best_u, best_v)
+    t, row, u, v = kernel.tri_bvh_parts_hit(tlas.flat_parts, o, d, t_min,
+                                            t_max)
+    packed = tlas.flat_packed[row.to(torch.int64)]
+    return expand_winner(tlas, o, d, t, packed >> 20,
+                         packed & ((1 << 20) - 1), u, v)
 
 
 def intersect_tlas(tlas: TLAS, o, d, t_min, t_max) -> Hits:

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..math.vec import cross, dot, length, sqrt
+from ..ops.bvh import card_tris
 from .hit import INF, Hits, set_face_normal
 
 DET_EPS = 1e-6
@@ -134,7 +135,8 @@ def concatenate(tris_list):
 
 class TriangleTable(nn.Module):
     """A triangle set as device tables: ``rows`` (T, 9) float32 va,
-    e_ab, e_ac (the kernels' layout) and ``shading`` (T, 29) its
+    e_ab, e_ac, ``krows`` (T, 12) the same packed for kernel B6
+    (``ops.bvh.card_tris``) and ``shading`` (T, 29) its
     ``shading_table``; ``unit_normal`` as on Triangles."""
 
     def __init__(self, tris: Triangles):
@@ -142,6 +144,7 @@ class TriangleTable(nn.Module):
         t = tris.to_torch()
         self.register_buffer(
             "rows", torch.cat([t.va, t.e_ab, t.e_ac], dim=1).contiguous())
+        self.register_buffer("krows", card_tris(self.rows))
         self.register_buffer("shading", shading_table(t).contiguous())
         self.unit_normal = bool(tris.unit_normal)
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,9 +48,9 @@ SIGNATURES = {
     "mrt_gather": (_P, _I, _I, _P, _I, _P, _P),
     "mrt_sphere_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
     "mrt_tri_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                    _P),
-    "mrt_tlas": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-                 _P, _P, _P, _P, _P),
+                    _P, _P),
+    "mrt_tlas": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                 _I, _P, _P, _P, _P, _P, _P, _I, _P),
 }
 
 _lib = None
@@ -136,6 +137,55 @@ def library():
             lib.mrt_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def kernel_resources(report=None):
+    """Each kernel's resources from ptxas's report (default: this
+    process's build): a list of dicts with name (the kernel and its
+    template flags, e.g. ``tlas_kernel<1,0>``), registers, stack (bytes
+    of stack frame), spill_stores, spill_loads and smem (static shared
+    bytes)."""
+    out, cur = [], None
+    for line in (build_report if report is None else report).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = dict(name=_pretty(m.group(1)), registers=0, stack=0,
+                       spill_stores=0, spill_loads=0, smem=0)
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def _pretty(mangled):
+    """``tlas_kernel<1,0>`` for a mangled kernel name with bool template
+    arguments (its length-prefixed name parts read in order, the last
+    one kept); the mangled name where it does not parse."""
+    m = re.match(r"_ZN?", mangled)
+    pos, name = (m.end(), None) if m else (0, None)
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            break
+        size = int(m.group(0))
+        name = mangled[pos + m.end():pos + m.end() + size]
+        pos += m.end() + size
+    if not name:
+        return mangled
+    m = re.match(r"I((?:Lb[01]E)+)E", mangled[pos:])
+    flags = re.findall(r"Lb([01])E", m.group(1)) if m else []
+    return name + (f"<{','.join(flags)}>" if flags else "")
 
 
 def launch(name, device, *args):

@@ -1,36 +1,50 @@
 """Kernels B5 (sphere-BVH closest hit), B6 (triangle-BVH closest hit)
 and B7 (two-level TLAS closest hit), with their plain PyTorch versions.
 
-``sphere_bvh_hit``, ``tri_bvh_hit`` and ``tlas_hit`` are the wrappers:
-on CPU tensors they run the plain versions ``sphere_bvh_plain`` /
-``tri_bvh_plain`` / ``tlas_plain``; on CUDA tensors they launch
-``csrc/bvh.cu`` or raise.  Each keeps a ``launches`` count.
+``sphere_bvh_hit``, ``tri_bvh_hit``, ``tri_bvh_parts_hit`` and
+``tlas_hit`` are the wrappers: on CPU tensors they run the plain
+versions ``sphere_bvh_plain`` / ``tri_bvh_plain`` /
+``tri_bvh_parts_plain`` / ``tlas_plain``; on CUDA tensors they launch
+``csrc/bvh.cu`` or raise.  Each kernel keeps a ``launches`` count on its
+first wrapper: B6's, ``tri_bvh_hit.launches``, counts the launches of
+``tri_bvh_parts_hit`` too.
 
 B5 replaces ``mrt/ops/pallas_bvh.py::_kernel`` (wrapper
 ``intersect_bvh_spheres``).  B6 replaces ``pallas_bvh.py::_tri_kernel``
 (wrapper ``traverse_bvh_tris``), which carries the world-flattened TLAS
-routes and ``Scene.bvh``.  B7 replaces ``pallas_bvh.py::_tlas_kernel``
-and ``_tlas_kernel_ordered`` (wrapper ``intersect_tlas``) and also
+routes and ``Scene.bvh``; ``tri_bvh_parts_hit`` walks all flat parts of
+a TLAS in one launch, where the reference folds one traversal a part.
+B7 replaces ``pallas_bvh.py::_tlas_kernel`` and ``_tlas_kernel_ordered``
+(wrapper ``intersect_tlas``) and also
 ``mrt/ops/pallas_stream.py::_build_kernel``, which computes B7's
 function for tables past the TPU's 448 KB of SMEM by paging them from
-HBM: on the card the tables sit in global memory at any size, so one
-kernel covers both.  The front-to-back order of the ordered body is a
-packet schedule; under the tie rules below every visit order gives the
-same winner, so the port walks the escape-index order only.
+HBM: B7 copies its tables into shared memory where they fit the card's
+opt-in limit a block and reads them from global memory past it.
 
 Semantics, shared by kernel and plain version (those of the reference
 traversals ``mrt.geometry.bvh.intersect_bvh_spheres`` and
 ``mrt.geometry.instance.intersect_tlas``, run per ray):
-  - stackless depth-first walk: a hit inner node continues at node + 1,
-    anything else at its escape index; the walk ends past the last node;
+  - stackless walk.  B5, and the plain versions by default: a hit inner
+    node continues at node + 1, anything else at its escape index.  B6
+    and B7 (and the plain versions given ``order`` / ``ordered``): the
+    threading of one direction octant (bit a set <=> d[a] < 0), near
+    child first: a hit continues at ``order[oct, node, 0]``, anything
+    else at ``order[oct, node, 1]``.  B6 takes the ray's octant; B7 its
+    warp's in the TLAS (``warp_octant``) and the ray's in instance
+    space inside an instance.  The walk ends at the tree's sentinel;
   - the slab test propagates NaN (``torch.minimum``/``maximum``): a ray
     that starts on a slab plane with a zero direction component gets
-    0 * inf = NaN there and culls the box, as in the reference;
+    0 * inf = NaN there and culls the box, as in the reference; its far
+    limit is min(best, t_max) and a box passes on near <= far;
   - spheres: near root before far root in [t_min, min(best, t_max)];
     equal t -> the lower sphere index;
   - triangles: Möller–Trumbore with DET_EPS = 1e-6, t in [t_min,
-    t_max]; equal t -> the lower triangle index (B6), the
-    lexicographically lower (instance, triangle) (B7);
+    t_max]; equal t -> the lower triangle index (B6; over flat parts
+    the lower global row, which is the reference's fold: strictly
+    smaller t wins, equal t keeps the earlier part), the
+    lexicographically lower (instance, triangle) (B7).  So the visit
+    order does not change the winner, up to the slab test's rounding
+    (ROADMAP C15);
   - a zero-length direction is traversed as given, like the reference's
     XLA traversal (the Pallas wrappers substitute (1, 1, 1)).
 
@@ -43,6 +57,13 @@ Table layouts (rows, one per node / primitive; all contiguous):
   R00 R01 R02 R10 R11 R12 R20 R21 R22 t0 t1 t2; imeta (I, 2) i32:
   blas_root, blas_end; bnodes/bmeta as nodes/meta; tris (T, 9) f32:
   va, e_ab, e_ac.
+The kernels' packed tables (B6, B7; ``card_nodes``, ``card_tris``):
+  knodes (M, 8) f32: bmin xyz, a, bmax xyz, b, with the int32 a, b
+  bit-cast: (first, count) in a BVH, (instance or -1, 0) in a TLAS:
+  a visit is two independent 16-byte loads;
+  order (8, M, 2) i32: each octant's (hit, miss) successor, one 8-byte
+  load;
+  krows (T, 12) f32: va, 0, e_ab, 0, e_ac, 0: three 16-byte loads.
 """
 
 from __future__ import annotations
@@ -54,6 +75,55 @@ from . import _build
 
 INF = float("inf")
 LEAF_SIZE = 32  # primitives per BVH leaf (geometry.bvh.LEAF_SIZE)
+
+
+def card_nodes(nodes, a, b):
+    """(M, 8) float32 kernel node rows: the boxes of ``nodes`` with the
+    int32 columns a and b bit-cast into the pad slots 3 and 7."""
+    out = torch.as_tensor(nodes, dtype=torch.float32).clone()
+    for col, x in ((3, a), (7, b)):
+        out[:, col] = torch.as_tensor(x, dtype=torch.int32).contiguous().view(
+            torch.float32)
+    return out.contiguous()
+
+
+def card_tris(rows):
+    """(T, 12) float32 kernel triangle rows va, 0, e_ab, 0, e_ac, 0 of
+    (T, 9) rows va, e_ab, e_ac."""
+    rows = torch.as_tensor(rows, dtype=torch.float32)
+    out = rows.new_zeros((rows.shape[0], 3, 4))
+    out[:, :, :3] = rows.reshape(-1, 3, 3)
+    return out.reshape(-1, 12)
+
+
+def octant(d):
+    """(N,) int64 direction octants: bit a set where d[:, a] < 0."""
+    neg = (d < 0.0).to(torch.int64)
+    return neg[:, 0] | (neg[:, 1] << 1) | (neg[:, 2] << 2)
+
+
+def warp_octant(d):
+    """(N,) int64: the octant of each ray's warp, as kernel B7 walks its
+    TLAS: rays group into warps of 32 consecutive indices, and on each
+    axis the warp takes the sign of most of its rays (a tie: positive)."""
+    n = d.shape[0]
+    group = torch.arange(n, device=d.device) // 32
+    groups = (n + 31) // 32
+    neg = torch.zeros((groups, 3), dtype=torch.int64, device=d.device)
+    neg.index_add_(0, group, (d < 0.0).to(torch.int64))
+    size = torch.bincount(group, minlength=groups)
+    most = (2 * neg > size[:, None]).to(torch.int64)
+    return (most[:, 0] | (most[:, 1] << 1) | (most[:, 2] << 2))[group]
+
+
+def _successors(node, leaf, escape, order, oct_):
+    """(after a hit, after a miss) of each lane's node: the escape order
+    (``order`` None) or the octants' threading.  A leaf's two are
+    equal."""
+    if order is None:
+        return torch.where(leaf, escape, node + 1), escape
+    nxt = order[oct_, node].to(torch.int64)
+    return nxt[:, 0], nxt[:, 1]
 
 
 def slab_hit(bmin, bmax, o, inv_d, t_min, t_max):
@@ -173,7 +243,8 @@ def sphere_bvh_plain(nodes, meta, sph, o, d, t_min, t_max, counts=None):
     return out_t, out_i
 
 
-def tri_bvh_plain(nodes, meta, tris, o, d, t_min, t_max, counts=None):
+def tri_bvh_plain(nodes, meta, tris, o, d, t_min, t_max, counts=None,
+                  order=None):
     """Plain PyTorch version of B6: the reference's single-level
     wavefront traversal with finished rays dropped from the wavefront
     after each step.
@@ -181,7 +252,9 @@ def tri_bvh_plain(nodes, meta, tris, o, d, t_min, t_max, counts=None):
     nodes (M, 8), meta (M, 4), tris (T, 9); o, d (N, 3); t_min, t_max
     (N,).  Returns (t (N,) float32, +inf on a miss; triangle (N,) int32,
     0 on a miss; u, v (N,) float32).  ``counts``, if a dict, gains
-    "nodes" (node visits) and "prims" (leaf triangle tests)."""
+    "nodes" (node visits) and "prims" (leaf triangle tests).  ``order``
+    (8, M, 2): walk the octants' threading, as the kernel does, instead
+    of the escape order."""
     n, m = o.shape[0], nodes.shape[0]
     dev = o.device
     out_t = torch.full((n,), INF, device=dev)
@@ -189,6 +262,7 @@ def tri_bvh_plain(nodes, meta, tris, o, d, t_min, t_max, counts=None):
     out_u = torch.zeros((n,), device=dev)
     out_v = torch.zeros((n,), device=dev)
     inv_d = 1.0 / d
+    oct_ = octant(d)
     lane = torch.arange(n, device=dev)
     node = torch.zeros((n,), dtype=torch.int64, device=dev)
     bt, bi = out_t.clone(), torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -211,7 +285,9 @@ def tri_bvh_plain(nodes, meta, tris, o, d, t_min, t_max, counts=None):
             bi[test] = torch.where(better, ci, bi[test])
             bu[test] = torch.where(better, cu, bu[test])
             bv[test] = torch.where(better, cv, bv[test])
-        node = torch.where(hit & ~leaf, node + 1, row[:, 2])
+        on_hit, on_miss = _successors(node, leaf, row[:, 2], order,
+                                      oct_[lane])
+        node = torch.where(hit, on_hit, on_miss)
         done = node >= m
         if done.any():
             g = lane[done]
@@ -221,6 +297,33 @@ def tri_bvh_plain(nodes, meta, tris, o, d, t_min, t_max, counts=None):
             lane, node = lane[keep], node[keep]
             bt, bi, bu, bv = bt[keep], bi[keep], bu[keep], bv[keep]
     return out_t, out_i, out_u, out_v
+
+
+def tri_bvh_parts_plain(parts, o, d, t_min, t_max, counts=None):
+    """Plain PyTorch version of B6 over flat parts: the reference's
+    fold (``mrt.geometry.instance.intersect_tlas_flat_parts``), one
+    ``tri_bvh_plain`` a part.  A strictly smaller t wins, so on equal t
+    the earlier part keeps the hit.
+
+    parts: FlatParts (each with ``bvh`` and ``rows``).  Returns (t,
+    global row (N,) int32 into the parts' rows in part order, u, v).
+    ``counts`` as ``tri_bvh_plain``'s, summed over the parts."""
+    n, dev = o.shape[0], o.device
+    best_t = torch.full((n,), INF, device=dev)
+    best_row = torch.zeros((n,), dtype=torch.int64, device=dev)
+    best_u = torch.zeros((n,), device=dev)
+    best_v = torch.zeros((n,), device=dev)
+    offset = 0
+    for part in parts:
+        t, i, u, v = tri_bvh_plain(part.bvh.nodes, part.bvh.meta, part.rows,
+                                   o, d, t_min, t_max, counts=counts)
+        ok = t < best_t
+        best_row = torch.where(ok, i.to(torch.int64) + offset, best_row)
+        best_u = torch.where(ok, u, best_u)
+        best_v = torch.where(ok, v, best_v)
+        best_t = torch.where(ok, t, best_t)
+        offset += part.rows.shape[0]
+    return best_t, best_row.to(torch.int32), best_u, best_v
 
 
 def _warp(r, v, translate):
@@ -233,7 +336,7 @@ def _warp(r, v, translate):
     return torch.stack(out, dim=1)
 
 
-def tlas_plain(tl, o, d, t_min, t_max, counts=None):
+def tlas_plain(tl, o, d, t_min, t_max, counts=None, ordered=False):
     """Plain PyTorch version of B7: the reference's two-level wavefront
     traversal, each ray a state machine (TLAS node, instance, resume
     node, local ray), finished rays dropped after each step.
@@ -242,7 +345,11 @@ def tlas_plain(tl, o, d, t_min, t_max, counts=None):
     bmeta, tris (layouts in the module docstring).  o, d (N, 3); t_min,
     t_max (N,).  Returns (t (N,) f32, +inf on a miss; instance (N,) i32,
     -1 on a miss; triangle (N,) i32; u, v (N,) f32).  ``counts``, if a
-    dict, gains "tlas_nodes", "blas_nodes", "enters" and "prims"."""
+    dict, gains "tlas_nodes", "blas_nodes", "enters" and "prims".
+    ``ordered``: walk the octants' threading, as the kernel does,
+    instead of the escape order: ``tl.t_order`` in the ray's warp's
+    octant (``warp_octant``), ``tl.b_order`` in the octant of the ray in
+    instance space."""
     n, mt = o.shape[0], tl.tnodes.shape[0]
     dev = o.device
     i64 = dict(dtype=torch.int64, device=dev)
@@ -254,12 +361,16 @@ def tlas_plain(tl, o, d, t_min, t_max, counts=None):
     inv_d = 1.0 / d
     tmeta, imeta = tl.tmeta.to(torch.int64), tl.imeta.to(torch.int64)
     bmeta = tl.bmeta.to(torch.int64)
+    t_order = tl.t_order if ordered else None
+    b_order = tl.b_order if ordered else None
+    w_oct = warp_octant(d)                   # the TLAS walk's octant
 
     lane = torch.arange(n, device=dev)
     node = torch.zeros((n,), **i64)     # TLAS node, or BLAS node in one
     inst = torch.full((n,), -1, **i64)  # current instance, -1 = in TLAS
     resume = torch.zeros((n,), **i64)   # TLAS node after the BLAS
     ol, dl, il = o.clone(), d.clone(), inv_d.clone()  # local ray
+    l_oct = w_oct.clone()                    # the local ray's octant
     bt = out_t.clone()
     b_inst = torch.full((n,), -1, **i64)
     b_tri = torch.zeros((n,), **i64)
@@ -277,9 +388,13 @@ def tlas_plain(tl, o, d, t_min, t_max, counts=None):
             g = lane[tl_k]
             hit = slab_hit(box[:, 0:3], box[:, 4:7], o[g], inv_d[g],
                            lo[tl_k], lim[tl_k])
-            leaf_inst, escape = tmeta[tn, 0], tmeta[tn, 1]
+            leaf_inst = tmeta[tn, 0]
             enter = hit & (leaf_inst >= 0)
-            node[tl_k] = torch.where(hit, tn + 1, escape)
+            # A leaf's successor is the same on a hit or a miss: the
+            # walk resumes there after the instance.
+            on_hit, after = _successors(tn, leaf_inst >= 0, tmeta[tn, 1],
+                                        t_order, w_oct[g])
+            node[tl_k] = torch.where(hit, on_hit, after)
             _tally(counts, "tlas_nodes", tl_k.numel())
             e = tl_k[enter]
             if e.numel():
@@ -289,8 +404,9 @@ def tlas_plain(tl, o, d, t_min, t_max, counts=None):
                 ol[e] = _warp(r, o[lane[e]], translate=True)
                 dl[e] = _warp(r, d[lane[e]], translate=False)
                 il[e] = 1.0 / dl[e]
+                l_oct[e] = octant(dl[e])
                 inst[e] = i
-                resume[e] = escape[enter]
+                resume[e] = after[enter]
                 node[e] = imeta[i, 0]
 
         # BLAS lanes: slab test, leaf triangles, then next node or exit.
@@ -320,7 +436,9 @@ def tlas_plain(tl, o, d, t_min, t_max, counts=None):
                 b_tri[k] = torch.where(better, ctri, b_tri[k])
                 bu[k] = torch.where(better, cu, bu[k])
                 bv[k] = torch.where(better, cv, bv[k])
-            nxt = torch.where(hit & ~leaf, bn + 1, row[:, 2])
+            on_hit, on_miss = _successors(bn, leaf, row[:, 2], b_order,
+                                          l_oct[bl_k])
+            nxt = torch.where(hit, on_hit, on_miss)
             exiting = nxt >= imeta[inst[bl_k], 1]
             node[bl_k] = torch.where(exiting, resume[bl_k], nxt)
             inst[bl_k] = torch.where(exiting, -1, inst[bl_k])
@@ -336,7 +454,7 @@ def tlas_plain(tl, o, d, t_min, t_max, counts=None):
             keep = ~done
             lane, node, inst, resume = (lane[keep], node[keep], inst[keep],
                                         resume[keep])
-            ol, dl, il = ol[keep], dl[keep], il[keep]
+            ol, dl, il, l_oct = ol[keep], dl[keep], il[keep], l_oct[keep]
             bt, b_inst, b_tri = bt[keep], b_inst[keep], b_tri[keep]
             bu, bv = bu[keep], bv[keep]
     return out_t, out_inst, out_tri, out_u, out_v
@@ -406,30 +524,120 @@ def sphere_bvh_hit(nodes, meta, sph, o, d, t_min, t_max):
 sphere_bvh_hit.launches = 0
 
 
-def tri_bvh_hit(nodes, meta, tris, o, d, t_min, t_max):
+def _tri_card(fn, device, card, m):
+    """B6's packed tables (knodes, order, krows), checked."""
+    if card is None:
+        raise ValueError(f"{fn}: no kernel tables (knodes, order, krows): "
+                         "the card walks the octants' threading")
+    knodes, order, krows = card
+    _check(fn, device, knodes=(knodes, torch.float32, (m, 8)),
+           order=(order, torch.int32, (8, m, 2)),
+           krows=(krows, torch.float32, (-1, 12)))
+    _aligned(fn, knodes=(knodes, 16), order=(order, 8), krows=(krows, 16))
+    return knodes, order, krows
+
+
+def _tri_launch(knodes, order, krows, o, d, t_min, t_max):
+    n = o.shape[0]
+    f32, dev = torch.float32, o.device
+    t = torch.empty((n,), dtype=f32, device=dev)
+    tri = torch.empty((n,), dtype=torch.int32, device=dev)
+    u = torch.empty((n,), dtype=f32, device=dev)
+    v = torch.empty((n,), dtype=f32, device=dev)
+    counter = torch.empty((1,), dtype=torch.int32, device=dev)
+    _build.launch("mrt_tri_bvh", dev, knodes, order, knodes.shape[0], krows,
+                  krows.shape[0], o, d, t_min, t_max, n, t, tri, u, v,
+                  counter)
+    tri_bvh_hit.launches += 1
+    return t, tri, u, v
+
+
+def tri_bvh_hit(nodes, meta, tris, o, d, t_min, t_max, card=None):
     """Closest triangle hit through a single-level triangle BVH (B6).
 
     nodes (M, 8), meta (M, 4), tris (T, 9) rows va, e_ab, e_ac in BVH
-    order.  t_min, t_max: scalars or (N,) tensors.  Returns (t, triangle,
-    u, v) as ``tri_bvh_plain``."""
+    order.  t_min, t_max: scalars or (N,) tensors.  card: the kernel's
+    tables (knodes (M, 8), order (8, M, 2), krows (T, 12)), needed on
+    the card.  Returns (t, triangle, u, v) as ``tri_bvh_plain``."""
     n, t_min, t_max = _rays("tri_bvh_hit", o, d, t_min, t_max)
     f32, i32 = torch.float32, torch.int32
     _check("tri_bvh_hit", o.device, nodes=(nodes, f32, (-1, 8)),
            meta=(meta, i32, (nodes.shape[0], 4)), tris=(tris, f32, (-1, 9)))
     if o.device.type == "cpu":
         return tri_bvh_plain(nodes, meta, tris, o, d, t_min, t_max)
-    _aligned("tri_bvh_hit", nodes=(nodes, 16), meta=(meta, 16))
-    t = torch.empty((n,), dtype=f32, device=o.device)
-    tri = torch.empty((n,), dtype=i32, device=o.device)
-    u = torch.empty((n,), dtype=f32, device=o.device)
-    v = torch.empty((n,), dtype=f32, device=o.device)
-    _build.launch("mrt_tri_bvh", o.device, nodes, meta, nodes.shape[0], tris,
-                  tris.shape[0], o, d, t_min, t_max, n, t, tri, u, v)
-    tri_bvh_hit.launches += 1
-    return t, tri, u, v
+    knodes, order, krows = _tri_card("tri_bvh_hit", o.device, card,
+                                     nodes.shape[0])
+    if krows.shape[0] != tris.shape[0]:
+        raise ValueError(f"tri_bvh_hit: krows has {krows.shape[0]} rows, "
+                         f"tris {tris.shape[0]}")
+    return _tri_launch(knodes, order, krows, o, d, t_min, t_max)
 
 
 tri_bvh_hit.launches = 0
+
+
+def tri_bvh_parts_hit(parts, o, d, t_min, t_max):
+    """Closest hit over all flat parts of a TLAS in one B6 launch.
+
+    parts: FlatParts, the parts (each with ``bvh`` and ``rows``) and the
+    forest the kernel walks (``forest``, a FlatBVH whose leaves index
+    the parts' rows in part order; ``krows`` those rows packed).  The
+    kernel carries its best t from part to part, so a near hit culls the
+    far parts.  Returns (t, global row (N,) int32, u, v) as
+    ``tri_bvh_parts_plain``; counted in ``tri_bvh_hit.launches``."""
+    n, t_min, t_max = _rays("tri_bvh_parts_hit", o, d, t_min, t_max)
+    if o.device.type == "cpu":
+        return tri_bvh_parts_plain(parts, o, d, t_min, t_max)
+    forest = parts.forest
+    card = _tri_card("tri_bvh_parts_hit", o.device,
+                     (forest.knodes, forest.order, parts.krows),
+                     forest.n_nodes)
+    return _tri_launch(*card, o, d, t_min, t_max)
+
+
+# B7's tables, in the order the kernel copies them into shared memory:
+# (attribute, dtype, row shape).
+TLAS_CARD = (("k_tnodes", torch.float32, (8,)),
+             ("t_order", torch.int32, None),
+             ("inst", torch.float32, (12,)),
+             ("imeta", torch.int32, (2,)),
+             ("k_bnodes", torch.float32, (8,)),
+             ("b_order", torch.int32, None),
+             ("k_tris", torch.float32, (12,)))
+_SMEM_OPTIN = {}
+# Below this many bytes of tables B7 reads global memory: L1 holds them
+# anyway, and a block's copy and the persistent grid cost more than they
+# save (cornell's 2,320 B; chip_smoke.py's phase 8 times both regimes).
+SHARED_MIN_BYTES = 8192
+
+
+def tlas_table_bytes(tl):
+    """Bytes of B7's tables in shared memory, each table from a 16-byte
+    boundary (as the kernel lays them out)."""
+    return sum((getattr(tl, k).numel() * 4 + 15) // 16 * 16
+               for k, _, _ in TLAS_CARD)
+
+
+def smem_optin(device):
+    """The shared memory a block may opt in to on `device`, in bytes
+    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``)."""
+    key = torch.device(device).index or 0
+    if key not in _SMEM_OPTIN:
+        smem = torch.zeros((1,), dtype=torch.int32)
+        khz = torch.zeros((1,), dtype=torch.int32)
+        _build.launch("mrt_probe_attributes", torch.device("cuda", key),
+                      smem, khz)
+        _SMEM_OPTIN[key] = int(smem)
+    return _SMEM_OPTIN[key]
+
+
+def tlas_regime(tl):
+    """Where B7 reads ``tl``'s tables on the card: "shared" (copied into
+    each block's shared memory, persistent warps) from SHARED_MIN_BYTES
+    up to the opt-in limit, else "global" (one thread a ray)."""
+    size = tlas_table_bytes(tl)
+    fits = SHARED_MIN_BYTES <= size <= smem_optin(tl.k_tnodes.device)
+    return "shared" if fits else "global"
 
 
 def tlas_hit(tl, o, d, t_min, t_max):
@@ -437,7 +645,9 @@ def tlas_hit(tl, o, d, t_min, t_max):
     function at any table size).
 
     tl: an object with the tables tnodes, tmeta, inst, imeta, bnodes,
-    bmeta, tris.  t_min, t_max: scalars or (N,) tensors.  Returns (t,
+    bmeta, tris and the kernel's (``TLAS_CARD``: k_tnodes, t_order,
+    k_bnodes, b_order, k_tris).  t_min, t_max: scalars or (N,) tensors.
+    The tables' size picks the regime (``tlas_regime``).  Returns (t,
     instance, triangle, u, v) as ``tlas_plain``."""
     n, t_min, t_max = _rays("tlas_hit", o, d, t_min, t_max)
     f32, i32 = torch.float32, torch.int32
@@ -448,17 +658,29 @@ def tlas_hit(tl, o, d, t_min, t_max):
            bmeta=(tl.bmeta, i32, (mb, 4)), tris=(tl.tris, f32, (-1, 9)))
     if o.device.type == "cpu":
         return tlas_plain(tl, o, d, t_min, t_max)
-    _aligned("tlas_hit", tnodes=(tl.tnodes, 16), tmeta=(tl.tmeta, 16),
-             imeta=(tl.imeta, 8), bnodes=(tl.bnodes, 16),
-             bmeta=(tl.bmeta, 16))
+    rows = dict(k_tnodes=mt, t_order=mt, inst=ni, imeta=ni, k_bnodes=mb,
+                b_order=mb, k_tris=tl.tris.shape[0])
+    tables = {}
+    for name, dtype, row in TLAS_CARD:
+        x = getattr(tl, name, None)
+        if x is None:
+            raise ValueError(f"tlas_hit: no kernel table {name}: the card "
+                             "walks the octants' threading")
+        shape = (8, rows[name], 2) if row is None else (rows[name], *row)
+        _check("tlas_hit", o.device, **{name: (x, dtype, shape)})
+        tables[name] = x
+    # 16-byte loads, and 16-byte cp.async copies into shared memory.
+    _aligned("tlas_hit", **{k: (x, 16) for k, x in tables.items()})
+    shared = tlas_regime(tl) == "shared"
     t = torch.empty((n,), dtype=f32, device=o.device)
     inst = torch.empty((n,), dtype=i32, device=o.device)
     tri = torch.empty((n,), dtype=i32, device=o.device)
     u = torch.empty((n,), dtype=f32, device=o.device)
     v = torch.empty((n,), dtype=f32, device=o.device)
-    _build.launch("mrt_tlas", o.device, tl.tnodes, tl.tmeta, mt, tl.inst,
-                  tl.imeta, tl.bnodes, tl.bmeta, tl.tris, tl.tris.shape[0],
-                  o, d, t_min, t_max, n, t, inst, tri, u, v)
+    counter = torch.empty((1,), dtype=i32, device=o.device)
+    _build.launch("mrt_tlas", o.device, *tables.values(), mt, ni, mb,
+                  tl.tris.shape[0], o, d, t_min, t_max, n, t, inst, tri, u,
+                  v, counter, int(shared))
     tlas_hit.launches += 1
     return t, inst, tri, u, v
 

@@ -2,13 +2,16 @@
 ``mrt.runtime.film`` for the DEFAULT and DEPTH modes).
 
 The film is ``(sum, depth_sum, samples)``; merging is addition.  Saving
-those three and reloading resumes a progressive render exactly.
+those three and reloading resumes a progressive render exactly.  The
+AOV guides ``albedo`` and ``normal`` ride along, None until set; a
+checkpoint keeps them, as mrt's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,6 +29,8 @@ class Film:
     sum: torch.Tensor        # (H, W, 3) float32 accumulated radiance
     depth_sum: torch.Tensor  # (H, W) int32 accumulated bounce counts
     samples: int             # samples per pixel accumulated so far
+    albedo: Optional[torch.Tensor] = None  # (H, W, 3) AOV guide
+    normal: Optional[torch.Tensor] = None  # (H, W, 3) AOV guide
 
     @classmethod
     def create(cls, width, height, device=None):
@@ -71,20 +76,24 @@ class Film:
 
     def save_state(self, path, seed=0):
         """Checkpoint the accumulator so a render can resume.  The archive
-        has mrt's layout; its AOV guides (albedo, normal) are empty."""
+        has mrt's layout; a guide that is None is saved empty."""
+        guide = lambda x: np.zeros(0) if x is None else x.cpu().numpy()
         np.savez(path, sum=self.sum.cpu().numpy(),
                  depth_sum=self.depth_sum.cpu().numpy(),
                  samples=np.asarray(self.samples, np.int32),
                  seed=np.asarray(seed, np.uint32),
-                 albedo=np.zeros(0), normal=np.zeros(0))
+                 albedo=guide(self.albedo), normal=guide(self.normal))
 
     @classmethod
     def load_state(cls, path, device=None):
         """Returns (film, seed), the film on `device` (None: the CUDA
-        card)."""
+        card); an empty guide loads as None."""
         device = resolve(device)
         z = np.load(path)
+        guide = lambda x: (torch.as_tensor(x, device=device) if x.size
+                           else None)
         film = cls(sum=torch.as_tensor(z["sum"], device=device),
                    depth_sum=torch.as_tensor(z["depth_sum"], device=device),
-                   samples=int(z["samples"]))
+                   samples=int(z["samples"]), albedo=guide(z["albedo"]),
+                   normal=guide(z["normal"]))
         return film, int(z["seed"])

@@ -7,9 +7,15 @@ a GPU machine with
 This file imports no JAX, so it runs where only PyTorch is installed.
 The kernels are built with --fmad=false and round like their plain
 versions, so results must be bit-equal (B2: on dyadic values, whose
-sums are exact in any order).  B5, B6 and B7 include rays on a NaN slab
-plane and, for B7, a TLAS past 448 KB of tables; B6 runs on lucy's flat
-parts and on a SAH statue with per-lane t bounds and zero directions.
+sums are exact in any order); B6 and B7 against their plain versions
+walking the same octant order.  B5, B6 and B7 include rays on a NaN slab
+plane and, for B7, a TLAS past the card's shared memory (global
+regime), cornell's small tables (global) and lucy's tables (shared,
+and global as if they did not fit); each also holds the escape order's
+winners on 99.9% of rays.  B6 runs on lucy's flat parts
+(one launch for all 16) and on a SAH statue with per-lane t bounds and
+zero directions.  The B6 and B7 wrappers raise on a missing threading
+table and on misaligned tables.
 B3 copies rows, at the eve fleet's compaction shapes; ``compact_apply``
 through B2 and B3 equals its plain version on the CPU.  B4 adds the
 dying lanes' dyadic values like its plain version; the probes P1-P3 give
@@ -142,9 +148,12 @@ def _instances(n_inst, seed=0):
 
 @pytest.mark.parametrize("n_inst", [40, 8000])
 def test_b7_kernel_matches_plain(cuda, n_inst):
-    # 8000 instances: 1.15 MB of tables, past the 448 KB that the TPU
-    # kernel kept resident (B8's regime).
+    # 8000 instances: ~2 MB of kernel tables, past the card's shared
+    # memory a block and the 448 KB that the TPU kernel kept resident
+    # (B8's regime): B7 reads them from global memory.
     tl = _instances(n_inst).to(cuda)
+    assert bvh.tlas_regime(tl) == ("global" if n_inst == 8000 else "shared")
+    assert bvh.tlas_table_bytes(tl) >= bvh.SHARED_MIN_BYTES
     g = torch.Generator().manual_seed(4)
     n = 4000
     o = torch.rand((n, 3), generator=g) * 20 - 10
@@ -156,12 +165,55 @@ def test_b7_kernel_matches_plain(cuda, n_inst):
     t_max = torch.full((n,), float("inf"), device=cuda)
     before = bvh.tlas_hit.launches
     k = bvh.tlas_hit(tl, o, d, t_min, t_max)
-    p = bvh.tlas_plain(tl, o, d, t_min, t_max)
+    p = bvh.tlas_plain(tl, o, d, t_min, t_max, ordered=True)
     torch.cuda.synchronize()
     assert bvh.tlas_hit.launches == before + 1
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert torch.isfinite(k[0]).any() and (k[1][:64] == -1).all()
+    _agrees_with_escape_order(k[0], _pair(k), bvh.tlas_plain(
+        tl, o, d, t_min, t_max))
+
+
+@pytest.mark.parametrize("regime", ["shared", "global"])
+def test_b7_kernel_matches_plain_on_lucy(cuda, regime, monkeypatch):
+    from mrt_torch.scenes import get
+
+    scene, camera = get("lucy")().generate(device=cuda)
+    tl = scene.tlas
+    assert bvh.tlas_regime(tl) == "shared"  # 68,752 B of tables
+    if regime == "global":  # as if the card's shared memory were too small
+        monkeypatch.setattr(bvh, "smem_optin", lambda device: 0)
+    assert bvh.tlas_regime(tl) == regime
+    o, d = _camera_rays(camera, 4096, seed=9)
+    lo = torch.full((o.shape[0],), 1e-3, device=cuda)
+    hi = torch.full((o.shape[0],), float("inf"), device=cuda)
+    k = bvh.tlas_hit(tl, o, d, lo, hi)
+    p = bvh.tlas_plain(tl, o, d, lo, hi, ordered=True)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert (k[1] >= 0).float().mean() > 0.9
+    _agrees_with_escape_order(k[0], _pair(k), bvh.tlas_plain(tl, o, d, lo,
+                                                             hi))
+
+
+def test_b7_small_tables_read_global_memory(cuda):
+    from mrt_torch.scenes import get
+
+    scene, camera = get("cornell")().generate(device=cuda)
+    tl = scene.tlas
+    assert bvh.tlas_table_bytes(tl) < bvh.SHARED_MIN_BYTES
+    assert bvh.tlas_regime(tl) == "global"
+    o, d = _camera_rays(camera, 4096, seed=10)
+    lo = torch.full((o.shape[0],), 1e-3, device=cuda)
+    hi = torch.full((o.shape[0],), float("inf"), device=cuda)
+    k = bvh.tlas_hit(tl, o, d, lo, hi)
+    p = bvh.tlas_plain(tl, o, d, lo, hi, ordered=True)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert (k[1] >= 0).float().mean() > 0.5
 
 
 def test_bvh_wrappers_raise_instead_of_falling_back(cuda):
@@ -172,7 +224,8 @@ def test_bvh_wrappers_raise_instead_of_falling_back(cuda):
 
 
 def _statue_case(g, n):
-    """lucy's stand-in statue under a SAH BVH and rays around it."""
+    """lucy's stand-in statue under a SAH BVH (a FlatBVH), its triangles
+    (a TriangleTable) and rays around it."""
     from mrt_torch.geometry import bvh as geometry_bvh
     from mrt_torch.geometry import triangles
     from mrt_torch.scenes import lucy
@@ -184,26 +237,39 @@ def _statue_case(g, n):
     o[:64, 2] = tree.bmax[0, 2]  # NaN slab at the root
     d[:64, 2] = 0.0
     d[64:72] = 0.0  # zero directions
-    return tree, triangles.TriangleTable(tris).rows, o, d
+    return tree, triangles.TriangleTable(tris), o, d
+
+
+def _camera_rays(camera, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    dev = camera.origin.device
+    s, t = torch.rand((2, n), generator=g).to(dev)
+    z = torch.zeros(n, device=dev)
+    o, d = camera.rays(s, t, z, z)
+    return o.contiguous(), d.contiguous()
 
 
 def test_b6_kernel_matches_plain(cuda):
     g = torch.Generator().manual_seed(6)
-    tree, rows, o, d = _statue_case(g, 5000)
+    tree, table, o, d = _statue_case(g, 5000)
+    tree, table = tree.to(cuda), table.to(cuda)
     n = o.shape[0]
-    args = [x.to(cuda) for x in (tree.nodes, tree.meta, rows, o, d)]
+    args = (tree.nodes, tree.meta, table.rows, o.to(cuda), d.to(cuda))
+    card = (tree.knodes, tree.order, table.krows)
     lo = (torch.rand((n,), generator=g) * 0.3).to(cuda)
     for hi in (torch.full((n,), float("inf")),
                torch.rand((n,), generator=g) * 3 + 0.5):
         hi = hi.to(cuda)
         before = bvh.tri_bvh_hit.launches
-        k = bvh.tri_bvh_hit(*args, lo, hi)
-        p = bvh.tri_bvh_plain(*args, lo, hi)
+        k = bvh.tri_bvh_hit(*args, lo, hi, card=card)
+        p = bvh.tri_bvh_plain(*args, lo, hi, order=tree.order)
         torch.cuda.synchronize()
         assert bvh.tri_bvh_hit.launches == before + 1
         for a, b in zip(k, p):
             assert torch.equal(a, b)
         assert torch.isfinite(k[0]).any() and torch.isinf(k[0][:72]).all()
+        _agrees_with_escape_order(k[0], k[1], bvh.tri_bvh_plain(*args, lo,
+                                                                hi))
 
 
 def test_b6_kernel_matches_plain_on_lucy_parts(cuda, monkeypatch):
@@ -211,31 +277,96 @@ def test_b6_kernel_matches_plain_on_lucy_parts(cuda, monkeypatch):
 
     monkeypatch.setenv("MRT_TLAS_KERNEL", "flat")
     scene, camera = get("lucy")().generate(device=cuda)
-    g = torch.Generator().manual_seed(7)
-    n = 4096
-    s, t = torch.rand((2, n), generator=g).to(cuda)
-    z = torch.zeros(n, device=cuda)
-    o, d = camera.rays(s, t, z, z)
-    o, d = o.contiguous(), d.contiguous()
+    o, d = _camera_rays(camera, 4096, seed=7)
+    n = o.shape[0]
     lo = torch.full((n,), 1e-3, device=cuda)
     hi = torch.full((n,), float("inf"), device=cuda)
-    assert len(scene.tlas.flat_parts) == 16
-    for part in scene.tlas.flat_parts:
+    parts = scene.tlas.flat_parts
+    assert len(parts) == 16
+    for part in parts:
         args = (part.bvh.nodes, part.bvh.meta, part.rows, o, d, lo, hi)
-        for a, b in zip(bvh.tri_bvh_hit(*args), bvh.tri_bvh_plain(*args)):
+        card = (part.bvh.knodes, part.bvh.order, bvh.card_tris(part.rows))
+        got = bvh.tri_bvh_hit(*args, card=card)
+        for a, b in zip(got, bvh.tri_bvh_plain(*args, order=part.bvh.order)):
             assert torch.equal(a, b)
-    # The scene's dispatch takes the flat parts: one launch a part.
+    # All 16 parts in one launch: the forest's octant walk, and the
+    # reference's fold of one walk a part.
+    before = bvh.tri_bvh_hit.launches
+    k = bvh.tri_bvh_parts_hit(parts, o, d, lo, hi)
+    assert bvh.tri_bvh_hit.launches == before + 1
+    f = parts.forest
+    rows = torch.cat([part.rows for part in parts])
+    walk = bvh.tri_bvh_plain(f.nodes, f.meta, rows, o, d, lo, hi,
+                             order=f.order)
+    fold = bvh.tri_bvh_parts_plain(parts, o, d, lo, hi)
+    for a, b, c in zip(k, walk, fold):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    # The scene's dispatch takes the flat parts: one launch for all.
     before = bvh.tri_bvh_hit.launches
     hits = scene.intersect(o, d)
-    assert bvh.tri_bvh_hit.launches == before + 16
+    assert bvh.tri_bvh_hit.launches == before + 1
     assert hits.hit.float().mean() > 0.9
 
 
+def _pair(hits):
+    """One id a ray for B7's (instance, triangle)."""
+    return hits[1].to(torch.int64) * (1 << 31) + hits[2]
+
+
+def _agrees_with_escape_order(t_k, i_k, escape):
+    """The kernel's winners against the plain walk in the escape order
+    (the reference's): at least 99.9% equal (an order may cull a box
+    whose triangle lies just below its computed entry, ROADMAP C15), t
+    within rtol 1e-5 where they are."""
+    t_e, i_e = escape[0], (_pair(escape) if len(escape) == 5 else escape[1])
+    same = i_k == i_e
+    assert same.float().mean() >= 0.999
+    fin = same & torch.isfinite(t_e)
+    torch.testing.assert_close(t_k[fin], t_e[fin], rtol=1e-5, atol=0)
+
+
+def _misaligned(x):
+    """x's values in a buffer that starts 4 bytes past an aligned one."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def test_b6_wrapper_raises_instead_of_falling_back(cuda):
-    tree, rows, o, d = _statue_case(torch.Generator().manual_seed(8), 8)
+    tree, table, o, d = _statue_case(torch.Generator().manual_seed(8), 8)
     with pytest.raises(ValueError):
-        bvh.tri_bvh_hit(tree.nodes, tree.meta, rows, o.to(cuda), d.to(cuda),
-                        1e-3, 1.0)
+        bvh.tri_bvh_hit(tree.nodes, tree.meta, table.rows, o.to(cuda),
+                        d.to(cuda), 1e-3, 1.0)
+    tree, table = tree.to(cuda), table.to(cuda)
+    args = (tree.nodes, tree.meta, table.rows, o.to(cuda), d.to(cuda), 1e-3,
+            1.0)
+    with pytest.raises(ValueError, match="threading"):
+        bvh.tri_bvh_hit(*args)  # no kernel tables
+    with pytest.raises(ValueError, match="aligned"):
+        bvh.tri_bvh_hit(*args, card=(tree.knodes, tree.order,
+                                     _misaligned(table.krows)))
+    with pytest.raises(ValueError, match="order"):
+        bvh.tri_bvh_hit(*args, card=(tree.knodes, tree.order[:, :-1],
+                                     table.krows))
+
+
+def test_b7_wrapper_raises_instead_of_falling_back(cuda):
+    import types
+
+    tl = _instances(40).to(cuda)
+    o = torch.zeros((8, 3), device=cuda)
+    d = torch.ones((8, 3), device=cuda)
+    names = ("tnodes", "tmeta", "inst", "imeta", "bnodes", "bmeta", "tris",
+             "k_tnodes", "t_order", "k_bnodes", "b_order", "k_tris")
+    view = lambda **kw: types.SimpleNamespace(
+        **{**{k: getattr(tl, k) for k in names}, **kw})
+    with pytest.raises(ValueError, match="threading"):
+        bvh.tlas_hit(view(b_order=None), o, d, 1e-3, 1.0)
+    with pytest.raises(ValueError, match="aligned"):
+        bvh.tlas_hit(view(k_tris=_misaligned(tl.k_tris)), o, d, 1e-3, 1.0)
+    with pytest.raises(ValueError, match="t_order"):
+        bvh.tlas_hit(view(t_order=tl.t_order[:4]), o, d, 1e-3, 1.0)
 
 
 @pytest.mark.parametrize("cols", [3, 4])
