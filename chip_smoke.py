@@ -10,8 +10,11 @@ Each phase prints one line:
   2. build of the CUDA kernels from mrt_torch/csrc (one nvcc a source,
      all started together), with each kernel's registers, stack frame,
      spills and static shared memory from ptxas's report;
-  3. kernel B1 (sphere nearest hit) against its plain PyTorch version on
-     2^17 RTIOW camera and first-bounce rays x 484 spheres;
+  3. kernel B1 (sphere nearest hit, two levels: groups of 32 spheres
+     culled a warp at a time) against its plain PyTorch version, bit for
+     bit, x 484 spheres, on 2^17 RTIOW camera and first-bounce rays and on
+     the rays of steps 2 and 64 of phase 6's pass (run after it), with the
+     work a ray (pair and box tests) from its grouped walk's plain model;
   4. kernel B2 (film segment-add) against its plain version, 2^17 lanes
      into a 1920x1080x4 film, beside Tensor.index_add_;
   5. the rtiow_24 golden (tests/goldens) rendered through the port on
@@ -19,8 +22,12 @@ Each phase prints one line:
   6. the RTIOW main path: one render_pass_persistent of RTIOW at
      1920x1080, depth 50, spp 2, pool 2^17, with the kernels' launch
      counts;
-  7. kernel B5 (sphere-BVH closest hit) against its plain version on
-     2^17 sphere_grid camera and first-bounce rays x 10,000 spheres;
+  7. kernel B5 (sphere-BVH closest hit) against its plain version walking
+     the same octant order, bit for bit (the escape order's winners on
+     99.9% of rays), x 10,000 spheres, on 2^17 sphere_grid camera and
+     first-bounce rays and on the rays of steps 2 and 64 of phase 10's
+     pass (run after it), with the plain walk's work a ray and its warps'
+     counts (iterations, lanes at a leaf, the lane loop's leaf steps);
   8. kernel B7 (two-level TLAS closest hit) against its plain version on
      2^17 camera and first-bounce rays each of cornell, playground, eve
      and lucy (lucy's tables in shared memory; each set of tables that
@@ -87,10 +94,11 @@ exits non-zero; so does a machine without CUDA.  Imports no JAX.
 Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and its
 FP32 operations over 67 TFLOP/s, the H100 SXM's published peaks at
-700 W.  For B5, B6 and B7 the operations are counted from this run's data:
-node visits and leaf primitive tests per ray, counted by the plain
-traversal on the same rays in the kernel's own visit order (B6 and B7:
-the trees' threading tables, octant orders on trees of 32 nodes or more),
+700 W.  For B1, B5, B6 and B7 the operations are counted from this run's
+data: B1's pair and group-box tests a ray, counted by its grouped walk's
+plain model; node visits and leaf primitive tests per ray, counted by the
+plain traversal on the same rays in the kernel's own visit order (the
+trees' threading tables, octant orders on trees of 32 nodes or more),
 times the operations of one visit or test.
 """
 
@@ -115,6 +123,7 @@ FP32_OPS_PER_S = 67e12
 # FP32 operations of one step of the kernels' loops (their source,
 # mrt_torch/csrc/*.cu, counted by hand; a min/max or compare counts 1):
 OPS_SPHERE_PAIR = 20   # B1: one ray-sphere pair, expanded form
+OPS_GROUP_BOX = 40     # B1: one padded group-box test
 OPS_NODE = 26          # B5/B7: one slab test and advance
 OPS_SPHERE_TEST = 32   # B5: one leaf sphere
 OPS_TRI_TEST = 58      # B6/B7: one Möller–Trumbore test
@@ -126,6 +135,10 @@ B8_INSTANCES = 8000
 # B3 at the eve fleet's compaction: a round of 32,768 rows (compact.rows_for
 # of the 2^17-lane pool) expanded back to the lanes.
 B3_ROWS = 32768
+# The main path's steps whose sphere rays phases 3 and 7 also take: an
+# early step and one about mid-pass (RTIOW's pass takes ~136 steps,
+# sphere_grid's ~216).
+CAPTURE_STEPS = (2, 64)
 
 
 def check(ok, msg):
@@ -237,44 +250,104 @@ def path_rays(name, dev):
     return scene, o.contiguous(), d.contiguous()
 
 
-def phase_b1(dev):
-    from mrt_torch.ops import _build
+def ray_sets(o, d, captured):
+    """{name: (o, d, t_min, t_max)}: `RAYS` path rays (bounds 1e-3, inf,
+    as lanes) and each captured main-path step's rays as that step
+    passed them."""
+    n = o.shape[0]
+    out = {"path rays": (o, d, torch.full((n,), 1e-3, device=o.device),
+                         torch.full((n,), float("inf"), device=o.device))}
+    for step, rays in sorted(captured.items()):
+        out[f"main step {step}"] = rays
+    check(len(out) == 1 + len(CAPTURE_STEPS),
+          f"captured steps {sorted(captured)}, not {CAPTURE_STEPS}")
+    return out
+
+
+def as_lanes(x, n, dev):
+    """A scalar or (N,) t bound as (N,) lanes, for the plain versions."""
+    return torch.as_tensor(x, dtype=torch.float32, device=dev).expand(
+        n).contiguous()
+
+
+@contextlib.contextmanager
+def captured_rays(kernel, out):
+    """Inside the block, the rays (o, d, t_min, t_max) that the main
+    path's sphere intersections number CAPTURE_STEPS (from 0) pass to B1
+    (`kernel` "B1": ``geometry.spheres.nearest_t``) or B5 ("B5":
+    ``geometry.bvh.intersect_bvh_spheres``) are copied into out[step]."""
+    from mrt_torch.geometry import bvh, spheres
+
+    module, name = ((spheres, "nearest_t") if kernel == "B1"
+                    else (bvh, "intersect_bvh_spheres"))
+    fn = getattr(module, name)
+    calls = [0]
+
+    def spy(*args):
+        if calls[0] in CAPTURE_STEPS:
+            out[calls[0]] = tuple(x.clone() if torch.is_tensor(x) else x
+                                  for x in args[-4:])
+        calls[0] += 1
+        return fn(*args)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_b1(dev, captured):
     from mrt_torch.ops import spheres as B1
 
     scene, o, d = path_rays("rtiow", dev)
-    c, r = scene.spheres.center, scene.spheres.radius
+    sp = scene.spheres
+    c, r = sp.center, sp.radius
     check(c.shape == (484, 3), f"RTIOW has {c.shape[0]} spheres, not 484")
-    t_min = torch.full((RAYS,), 1e-3, device=dev)
-    t_max = torch.full((RAYS,), float("inf"), device=dev)
-    t_k, i_k = B1.nearest_t(c, r, o, d, t_min, t_max)
-    t_p, i_p = B1.nearest_t_plain(c, r, o, d, t_min, t_max)
-    torch.cuda.synchronize()
-    same = i_k == i_p
-    agree = same.float().mean().item()
-    check(agree >= 0.999, f"B1 index agreement {agree}")
-    fin = torch.isfinite(t_p) & same
-    check(torch.equal(torch.isfinite(t_k) & same, fin),
-          "B1 hit/miss differs on lanes with equal indices")
-    rel = ((t_k[fin] - t_p[fin]).abs() / t_p[fin].abs()).max().item()
-    check(rel <= 1e-5, f"B1 t rel err {rel}")
-    err = (t_k[fin] - t_p[fin]).abs().max().item()
-    hits = fin.float().mean().item()
-    wrapper = lambda: B1.nearest_t(c, r, o, d, t_min, t_max)
-    plain = lambda: B1.nearest_t_plain(c, r, o, d, t_min, t_max)
-    # The kernel alone: the wrapper also builds the sphere table.
-    table = B1.sphere_table(c, r)
-    t_out, i_out = torch.empty_like(t_k), torch.empty_like(i_k)
-    kernel = lambda: _build.launch("mrt_nearest_t", dev, o, d, t_min, t_max,
-                                   RAYS, table, table.shape[0], t_out, i_out)
-    ms, plain_ms = graph_ms(kernel, 50), graph_ms(plain, 5)
-    log(3, f"B1 {RAYS} rays x 484 spheres: index agreement {agree:.6f}, "
-           f"hit share {hits:.4f}, max |dt| {err:.3g} (rel {rel:.3g}); "
-           f"device time a call (CUDA graph): kernel {ms:.4f} ms, plain "
-           f"{plain_ms:.4f} ms; call time (CUDA events): wrapper "
-           f"{call_ms(wrapper, 50):.4f} ms, plain {call_ms(plain, 5):.4f} ms")
-    pairs = RAYS * c.shape[0]
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound(RAYS * 40 + c.shape[0] * 16, pairs * OPS_SPHERE_PAIR))
+    sets, table_bytes = {}, sum(x.numel() * 4 for x in sp.groups[:4])
+    for name, (so, sd, lo, hi) in ray_sets(o, d, captured).items():
+        n = so.shape[0]
+        t_k, i_k = B1.nearest_t(c, r, so, sd, lo, hi, groups=sp.groups)
+        lanes = (as_lanes(lo, n, dev), as_lanes(hi, n, dev))
+        plain = lambda: B1.nearest_t_plain(c, r, so, sd, *lanes)
+        t_p, i_p = plain()
+        work = {}
+        t_g, i_g = B1.nearest_t_grouped_plain(sp.groups, so, sd, *lanes,
+                                              counts=work)
+        torch.cuda.synchronize()
+        check(torch.equal(t_k, t_p) and torch.equal(i_k, i_p),
+              f"B1 on {name}: not bit-equal to its plain version "
+              f"({(i_k != i_p).sum().item()} indices differ)")
+        check(torch.equal(t_g, t_p) and torch.equal(i_g, i_p),
+              f"B1's grouped model on {name} differs from the brute force")
+        wrapper = lambda: B1.nearest_t(c, r, so, sd, lo, hi, groups=sp.groups)
+        ops = work["pairs"] * OPS_SPHERE_PAIR + work["boxes"] * OPS_GROUP_BOX
+        plain_ms = graph_ms(plain, 3)
+        sets[name] = dict(
+            ms=graph_ms(wrapper, 50), plain_ms=plain_ms,
+            call_ms=call_ms(wrapper, 50),
+            hit_share=torch.isfinite(t_p).float().mean().item(),
+            pairs_per_ray=work["pairs"] / n,
+            warp_pairs_per_ray=work["warp_pairs"] / n,
+            boxes_per_ray=work["boxes"] / n,
+            groups_entered_per_warp=work["entered"] / ((n + 31) // 32),
+            **bound(n * 40 + table_bytes, ops))
+        v = sets[name]
+        log(3, f"B1 {n} rays x 484 spheres, {name}: bit-equal (t, index), "
+               f"hit share {v['hit_share']:.4f}; per ray "
+               f"{v['pairs_per_ray']:.2f} pair tests needed, "
+               f"{v['warp_pairs_per_ray']:.2f} run by its warp, and "
+               f"{v['boxes_per_ray']:.0f} box tests (brute force: 484 "
+               f"pairs), {v['groups_entered_per_warp']:.2f} of "
+               f"{sp.g_boxes.shape[0]} groups entered a warp; device time a "
+               f"call (CUDA graph): kernel {v['ms']:.4f} ms, plain "
+               f"{plain_ms:.4f} ms; call time (CUDA "
+               f"events): wrapper {v['call_ms']:.4f} ms; bound "
+               f"{v['bound_ms']:.5f} ms ({v['bound_by']})")
+    main = sets["path rays"]
+    return dict(max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+                library_ms=None, bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], ray_sets=sets)
 
 
 def b2_lanes(dev):
@@ -434,14 +507,16 @@ def environ(**values):
 
 
 def phase_main(phase, name, dev, kernels, route=None, film_out=None,
-               nee=False, rr_depth=None, absent=()):
+               nee=False, rr_depth=None, absent=(),
+               during=contextlib.nullcontext()):
     """One render_pass_persistent of scene `name` at 1080p, depth 50,
     spp 2, pool 2^17, with MRT_TLAS_KERNEL=`route` (None: unset), the
     scene's light table if `nee`, Russian roulette from `rr_depth`, launch
     counts set to 0 just before; each kernel in `kernels`, and neither B3,
     B4, a BVH kernel nor one in `absent` outside it, must have launched.
-    Returns (launches, mean radiance); the film, the seconds, the steps
-    and the DDA steps go into film_out if given."""
+    The pass runs inside the context manager `during`.  Returns
+    (launches, mean radiance); the film, the seconds, the steps and the
+    DDA steps go into film_out if given."""
     from mrt_torch.geometry.scene import attach_lights
     from mrt_torch.runtime.film import Film
     from mrt_torch.runtime.render import render_pass_persistent
@@ -454,7 +529,7 @@ def phase_main(phase, name, dev, kernels, route=None, film_out=None,
         film = Film.create(WIDTH, HEIGHT, device=dev)
         torch.cuda.synchronize()
         reset_launches()
-        with counting_steps() as steps:
+        with counting_steps() as steps, during:
             t0 = time.perf_counter()
             film = render_pass_persistent(scene, camera, film, 1, 0,
                                           width=WIDTH, height=HEIGHT,
@@ -496,43 +571,70 @@ def phase_main(phase, name, dev, kernels, route=None, film_out=None,
     return launches, mean
 
 
-def phase_b5(dev):
-    from mrt_torch.geometry.bvh import kernel_spheres
-    from mrt_torch.ops import _build
+def phase_b5(dev, captured):
     from mrt_torch.ops import bvh as K
 
     scene, o, d = path_rays("sphere_grid", dev)
     tree = scene.sphere_bvh
-    sph = kernel_spheres(scene.spheres)
+    sph = scene.spheres.krows
     check(sph.shape == (10_000, 4) and tree.n_nodes == 1023,
           f"sphere_grid: {sph.shape[0]} spheres, {tree.n_nodes} nodes")
-    lo = torch.full((RAYS,), 1e-3, device=dev)
-    hi = torch.full((RAYS,), float("inf"), device=dev)
-    t_k, i_k = K.sphere_bvh_hit(tree.nodes, tree.meta, sph, o, d, lo, hi)
-    counts = {}
-    t_p, i_p = K.sphere_bvh_plain(tree.nodes, tree.meta, sph, o, d, lo, hi,
-                                  counts=counts)
-    torch.cuda.synchronize()
-    err, rel, agree = compare_hits("B5", t_k, i_k, t_p, i_p)
-    t_out, i_out = torch.empty_like(t_k), torch.empty_like(i_k)
-    kernel = lambda: _build.launch("mrt_sphere_bvh", dev, tree.nodes,
-                                   tree.meta, tree.n_nodes, sph, sph.shape[0],
-                                   o, d, lo, hi, RAYS, t_out, i_out)
-    plain = lambda: K.sphere_bvh_plain(tree.nodes, tree.meta, sph, o, d, lo,
-                                       hi)
-    ms, plain_ms = graph_ms(kernel, 20), call_ms(plain, 2)
-    visits, tests = counts["nodes"] / RAYS, counts["prims"] / RAYS
-    ops = counts["nodes"] * OPS_NODE + counts["prims"] * OPS_SPHERE_TEST
-    moved = RAYS * 40 + tree.n_nodes * 48 + sph.shape[0] * 16
-    log(7, f"B5 {RAYS} rays x 10000 spheres, 1023 nodes: index agreement "
-           f"{agree:.6f}, hit share {torch.isfinite(t_p).float().mean():.4f}, "
-           f"max |dt| {err:.3g} (rel {rel:.3g}); per ray {visits:.2f} node "
-           f"visits, {tests:.2f} sphere tests; device time a call: kernel "
-           f"{ms:.4f} ms (CUDA graph), plain {plain_ms:.2f} ms (CUDA events: "
-           f"it syncs on its loop)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                visits_per_ray=visits, tests_per_ray=tests,
-                **bound(moved, ops))
+    card = (tree.knodes, tree.order)
+    sets = {}
+    for name, (so, sd, lo, hi) in ray_sets(o, d, captured).items():
+        n = so.shape[0]
+        t_k, i_k = K.sphere_bvh_hit(tree.nodes, tree.meta, sph, so, sd, lo, hi,
+                                    card=card)
+        lanes = (as_lanes(lo, n, dev), as_lanes(hi, n, dev))
+        work, escape = {}, {}
+        (t_p, i_p), plain_ms = events_ms(lambda: K.sphere_bvh_plain(
+            tree.nodes, tree.meta, sph, so, sd, *lanes, order=tree.order))
+        K.sphere_bvh_plain(tree.nodes, tree.meta, sph, so, sd, *lanes,
+                           counts=work, order=tree.order)
+        t_e, i_e = K.sphere_bvh_plain(tree.nodes, tree.meta, sph, so, sd,
+                                      *lanes, counts=escape)
+        torch.cuda.synchronize()
+        check(torch.equal(t_k, t_p) and torch.equal(i_k, i_p),
+              f"B5 on {name}: not bit-equal to its plain version in octant "
+              f"order ({(i_k != i_p).sum().item()} indices differ)")
+        err, rel, agree = compare_hits(f"B5 on {name} (escape order)", t_k,
+                                       i_k, t_e, i_e)
+        kernel = lambda: K.sphere_bvh_hit(tree.nodes, tree.meta, sph, so, sd,
+                                          lo, hi, card=card)
+        ops = work["nodes"] * OPS_NODE + work["prims"] * OPS_SPHERE_TEST
+        moved = n * 40 + tree.n_nodes * (32 + 64) + sph.shape[0] * 16
+        warps = work["warps"]
+        sets[name] = dict(
+            ms=graph_ms(kernel, 20), plain_ms=plain_ms,
+            hit_share=torch.isfinite(t_p).float().mean().item(),
+            escape_agree=agree, escape_max_abs_err=err,
+            visits_per_ray=work["nodes"] / n, tests_per_ray=work["prims"] / n,
+            escape_visits_per_ray=escape["nodes"] / n,
+            escape_tests_per_ray=escape["prims"] / n,
+            warp_iters=work["warp_iters"] / warps,
+            warp_iters_p99=work["warp_iters_p99"],
+            leaf_steps_per_warp=work["leaf_steps"] / warps,
+            leaf_lanes_per_warp=work["leaf_lanes"] / warps,
+            **bound(moved, ops))
+        v = sets[name]
+        log(7, f"B5 {n} rays x 10000 spheres, 1023 nodes, {name}: bit-equal "
+               f"to the octant-order walk, escape-order agreement "
+               f"{agree:.6f}, hit share {v['hit_share']:.4f}; per ray "
+               f"{v['visits_per_ray']:.2f} node visits, "
+               f"{v['tests_per_ray']:.2f} sphere tests (escape order "
+               f"{v['escape_visits_per_ray']:.2f}, "
+               f"{v['escape_tests_per_ray']:.2f}); a warp "
+               f"{v['warp_iters']:.2f} iterations (p99 "
+               f"{v['warp_iters_p99']:.0f}), {v['leaf_steps_per_warp']:.2f} "
+               f"lane-loop leaf steps, {v['leaf_lanes_per_warp']:.2f} lanes "
+               f"at a leaf; device time "
+               f"a call: kernel {v['ms']:.4f} ms "
+               f"(CUDA graph), plain {plain_ms:.2f} ms (CUDA events: it syncs "
+               f"on its loop); bound {v['bound_ms']:.5f} ms ({v['bound_by']})")
+    main = sets["path rays"]
+    return dict(max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+                library_ms=None, bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], ray_sets=sets)
 
 
 def compare_hits(name, t_k, i_k, t_p, i_p, uv=()):
@@ -1082,14 +1184,17 @@ def main():
                f"{k['spill_loads']} B spill loads, {k['smem']} B static "
                "shared memory")
 
-    b1 = phase_b1(dev)
     b2 = phase_b2(dev)
     phase_golden(5, "rtiow", dev, grid=5)
-    rtiow, _ = phase_main(6, "rtiow", dev, ("B1", "B2"))
-    b5 = phase_b5(dev)
+    rtiow_rays, grid_rays = {}, {}
+    rtiow, _ = phase_main(6, "rtiow", dev, ("B1", "B2"),
+                          during=captured_rays("B1", rtiow_rays))
+    b1 = phase_b1(dev, rtiow_rays)
     b7 = phase_b7(dev)
     phase_golden(9, "cornell", dev)
-    grid, _ = phase_main(10, "sphere_grid", dev, ("B2", "B5", "B7"))
+    grid, _ = phase_main(10, "sphere_grid", dev, ("B2", "B5", "B7"),
+                         during=captured_rays("B5", grid_rays))
+    b5 = phase_b5(dev, grid_rays)
     b6 = phase_b6(dev)
     meshes = phase_meshes(dev)
     b3 = phase_b3(dev)

@@ -18,16 +18,15 @@
 // packet; here each thread walks its own ray, so no ray visits a node
 // that its own slab test culled.
 //
-// Walks.  B5 goes stacklessly in the build's escape order: a hit inner
-// node continues at node + 1, anything else at its escape index.  B6 and
-// B7 go stacklessly front to back: a walk follows the threading of one
+// Walks.  B5, B6 and B7 go stacklessly front to back: a walk follows the
+// threading of one
 // direction octant (bit a set <=> d[a] < 0) of the tree
 // (geometry/bvh.py::thread_octants, the reference's), which enters the
 // nearer child first, so the best t shrinks early and culls far
 // subtrees: a hit continues at order[oct][node].x, anything else at .y
 // (a leaf's two are equal), until the tree's sentinel.  A small tree's
-// table holds the escape order in every octant (card_order).  B6 takes each
-// ray's octant.  B7 walks its TLAS in the octant of the ray's warp (on
+// table holds the escape order in every octant (card_order).  B5 and B6
+// take each ray's octant.  B7 walks its TLAS in the octant of the ray's warp (on
 // each axis the sign of most of its 32 rays, so the warp's lanes meet
 // the same instances in the same order) and a BLAS in the octant of the
 // ray in instance space; one node visit (visit()) serves B6 and B7's
@@ -45,6 +44,9 @@
 //     (mrt/geometry/bvh.py:459-479): oc = o - c, half_b = oc.d,
 //     c = oc.oc - r^2, disc = half_b^2 - a c, roots (-half_b -+ sq) / a
 //     as a multiply by 1/a; near root first; equal t -> lower index;
+//     a leaf is tested whole at the limit min(best, t_max) of its entry
+//     (the plain version's sphere_leaf), which keeps the reference
+//     sequential leaf's winner;
 //   - B6 and B7 share the leaf test (tri_test): Möller–Trumbore with
 //     DET_EPS = 1e-6 and inv_det = 1 / (det_ok ? det : 1), t accepted in
 //     [t_min, t_max].  B6: equal t -> the lower triangle index (over a
@@ -56,10 +58,8 @@
 //     order, up to the slab test's rounding (ROADMAP C15).
 //
 // Tables (row-major, one row per node / primitive):
-//   B5: nodes  float4 x2 per node: (bmin xyz, 0), (bmax xyz, 0)
-//       meta   int4 per node: (first, count, escape, 0); count 0 = inner
-//       sph    float4 per sphere: (center xyz, radius)
-//   B6, B7 (ops/bvh.py card_nodes, card_tris):
+//   B5: sph    float4 per sphere: (center xyz, radius)
+//   B5, B6, B7 (ops/bvh.py card_nodes, card_tris):
 //       knodes float4 x2 per node: (bmin xyz, a), (bmax xyz, b), ints
 //              bit-cast: a BVH's (first, count), a TLAS's (instance or
 //              -1, 0): a visit issues two independent 16-byte loads and
@@ -73,11 +73,16 @@
 // and advance), a sphere test ~32, a triangle test ~58; rays and results
 // move ~40-52 bytes a ray.  B5's and B6's tables stay in L2 (sphere_grid
 // 209 KB, lucy's forest ~4.3 MB).  Threads of a warp diverge in their
-// walks, which keeps all three far from the bound: B6, and B7 in shared
-// memory, fetch their rays a warp at a time from a global counter in
-// persistent blocks, so a warp that finishes early takes new rays
+// walks, which keeps all three far from the bound: B5, B6, and B7 in
+// shared memory, fetch their rays a warp at a time from a global counter
+// in persistent blocks, so a warp that finishes early takes new rays
 // instead of idling while its block's slowest warp walks on, and B7's
-// table copy serves every ray its block takes.
+// table copy serves every ray its block takes.  B5's lanes at different
+// leaves would run their leaf loops one after another; where that costs
+// more than testing each lane's leaf with the whole warp (up to 32
+// spheres a leaf, one a lane), the warp does the latter, and a lane at a
+// hit leaf waits for others to reach theirs, so that one leaf step
+// serves about half the warp.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -96,77 +101,6 @@ __device__ __forceinline__ float minp(float a, float b) {
 }
 __device__ __forceinline__ float maxp(float a, float b) {
   return (a > b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ bool slab(const float4* __restrict__ nodes,
-                                     int node, float ox, float oy, float oz,
-                                     float ix, float iy, float iz,
-                                     float t_min, float t_max) {
-  const float4 lo = __ldg(nodes + 2 * node);
-  const float4 hi = __ldg(nodes + 2 * node + 1);
-  const float t0x = (lo.x - ox) * ix, t1x = (hi.x - ox) * ix;
-  const float t0y = (lo.y - oy) * iy, t1y = (hi.y - oy) * iy;
-  const float t0z = (lo.z - oz) * iz, t1z = (hi.z - oz) * iz;
-  const float near = maxp(
-      maxp(maxp(minp(t0x, t1x), minp(t0y, t1y)), minp(t0z, t1z)), t_min);
-  const float far = minp(
-      minp(minp(maxp(t0x, t1x), maxp(t0y, t1y)), maxp(t0z, t1z)), t_max);
-  return near <= far;
-}
-
-__global__ void __launch_bounds__(kThreads)
-sphere_bvh_kernel(const float4* __restrict__ nodes,
-                  const int4* __restrict__ meta, int m,
-                  const float4* __restrict__ sph, int s,
-                  const float* __restrict__ o, const float* __restrict__ d,
-                  const float* __restrict__ t_min,
-                  const float* __restrict__ t_max, int n,
-                  float* __restrict__ t_out, int* __restrict__ i_out) {
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= n) return;
-  const float ox = o[3 * ray], oy = o[3 * ray + 1], oz = o[3 * ray + 2];
-  const float dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
-  const float lo = t_min[ray], hi = t_max[ray];
-  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-  const float a = (dx * dx + dy * dy) + dz * dz;
-  const float inv_a = 1.0f / a;
-
-  float best = CUDART_INF_F;
-  int best_i = 0;
-  int node = 0;
-  while (node < m) {
-    const int4 row = __ldg(meta + node);
-    const bool hit = slab(nodes, node, ox, oy, oz, ix, iy, iz, lo,
-                          minp(best, hi));
-    if (hit && row.y > 0) {
-      for (int k = 0; k < row.y; ++k) {
-        const int si = min(row.x + k, s - 1);
-        const float4 c = __ldg(sph + si);
-        const float ocx = ox - c.x, ocy = oy - c.y, ocz = oz - c.z;
-        const float half_b = (ocx * dx + ocy * dy) + ocz * dz;
-        const float cterm = ((ocx * ocx + ocy * ocy) + ocz * ocz) - c.w * c.w;
-        const float disc = half_b * half_b - a * cterm;
-        const bool ok = disc >= 0.0f;
-        const float sq = sqrtf(ok ? fmaxf(disc, 0.0f) : 1.0f);
-        const float r0 = (-half_b - sq) * inv_a;
-        const float r1 = (-half_b + sq) * inv_a;
-        const float lim = minp(best, hi);
-        float root = CUDART_INF_F;
-        if (ok && r0 >= lo && r0 <= lim) {
-          root = r0;
-        } else if (ok && r1 >= lo && r1 <= lim) {
-          root = r1;
-        }
-        if (root < best || (root == best && si < best_i)) {
-          best = root;
-          best_i = si;
-        }
-      }
-    }
-    node = (hit && row.y == 0) ? node + 1 : row.z;
-  }
-  t_out[ray] = best;
-  i_out[ray] = best_i;
 }
 
 struct Ray {
@@ -341,6 +275,165 @@ __device__ __forceinline__ void for_each_ray(int n, int* counter,
     }
   } else {
     run(blockIdx.x * blockDim.x + threadIdx.x);
+  }
+}
+
+// A warp test of one lane's leaf costs about this many lane loops' steps
+// (the broadcast of the ray and the reduction beside the sphere test).
+constexpr int kWarpLeafCost = 2;
+
+// One sphere against a ray: the root in [lo, lim] (near root first), or
+// +inf.  The reference traversal's form (mrt/geometry/bvh.py:459-479).
+__device__ __forceinline__ float sphere_root(const float4 c, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float a,
+                                             float inv_a, float lo,
+                                             float lim) {
+  const float ocx = ox - c.x, ocy = oy - c.y, ocz = oz - c.z;
+  const float half_b = (ocx * dx + ocy * dy) + ocz * dz;
+  const float cterm = ((ocx * ocx + ocy * ocy) + ocz * ocz) - c.w * c.w;
+  const float disc = half_b * half_b - a * cterm;
+  const bool ok = disc >= 0.0f;
+  const float sq = sqrtf(ok ? fmaxf(disc, 0.0f) : 1.0f);
+  const float r0 = (-half_b - sq) * inv_a;
+  const float r1 = (-half_b + sq) * inv_a;
+  if (ok && r0 >= lo && r0 <= lim) return r0;
+  if (ok && r1 >= lo && r1 <= lim) return r1;
+  return CUDART_INF_F;
+}
+
+// B5: persistent warps, each ray in its own octant's order from the
+// packed nodes.  The warp steps on together: each iteration every lane
+// that is not waiting at a leaf does one node visit.  A lane at a hit
+// leaf waits, its walk paused, until the waiting lanes are at least half
+// of those still walking, so that one leaf step serves more lanes.  Then
+// the waiting lanes test their leaves, whichever way costs less for them
+// (kWarpLeafCost): each its own leaf in a loop, or the whole warp one
+// lane's leaf at a time: lane j
+// tests sphere first + j against the owner's ray and limit
+// min(best, t_max) at leaf entry, a shuffle reduction keeps the lowest
+// (root, index), and the owner merges it.  The reference's sequential
+// leaf shrinks its limit as it goes; a root that passes the entry limit
+// but not a shrunk one is larger than the best found meanwhile and
+// cannot win, so both give its winner.  A lane's own visits and tests
+// keep their order whatever the warp does, so the winner is the plain
+// walk's in the same octant order.
+__global__ void __launch_bounds__(kThreads)
+sphere_bvh_kernel(const float4* __restrict__ nodes,
+                  const int2* __restrict__ order, int m,
+                  const float4* __restrict__ sph, int s,
+                  const float* __restrict__ o, const float* __restrict__ d,
+                  const float* __restrict__ t_min, float t_min_s,
+                  const float* __restrict__ t_max, float t_max_s, int n,
+                  float* __restrict__ t_out, int* __restrict__ i_out,
+                  int* counter) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(counter, 32);
+    base = __shfl_sync(kAll, base, 0);
+    if (base >= n) return;
+    const int ray = base + lane;
+    const bool live = ray < n;
+    float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 1.0f, dy = 1.0f, dz = 1.0f;
+    float lo = 0.0f, hi = 0.0f;
+    if (live) {
+      ox = o[3 * ray];
+      oy = o[3 * ray + 1];
+      oz = o[3 * ray + 2];
+      dx = d[3 * ray];
+      dy = d[3 * ray + 1];
+      dz = d[3 * ray + 2];
+      lo = t_min ? t_min[ray] : t_min_s;
+      hi = t_max ? t_max[ray] : t_max_s;
+    }
+    const Ray r = make_ray(ox, oy, oz, dx, dy, dz);
+    const float a = (dx * dx + dy * dy) + dz * dz;
+    const float inv_a = 1.0f / a;
+    const int2* ord = order + r.oct * m;
+    float best = CUDART_INF_F;
+    int best_i = 0;
+    int node = live ? 0 : m;
+    bool at_leaf = false;  // at a hit leaf, not yet tested
+    int first = 0, count = 0;
+    while (__any_sync(kAll, node < m || at_leaf)) {
+      if (node < m && !at_leaf) {
+        const float4 bl = __ldg(nodes + 2 * node);
+        const float4 bh = __ldg(nodes + 2 * node + 1);
+        const int2 next = __ldg(ord + node);
+        const bool hit = slab_rows(bl, bh, r, lo, minp(best, hi));
+        count = __float_as_int(bh.w);
+        first = __float_as_int(bl.w);
+        at_leaf = hit && count > 0;
+        node = hit ? next.x : next.y;
+      }
+      unsigned todo = __ballot_sync(kAll, at_leaf);
+      if (todo == 0) continue;
+      const unsigned walking = __ballot_sync(kAll, node < m && !at_leaf);
+      if (walking != 0 && 2 * __popc(todo) < __popc(todo | walking))
+        continue;
+      // The leaf's limit: the slab test's, best has not moved since.
+      const float lim = minp(best, hi);
+      const int longest =
+          static_cast<int>(__reduce_max_sync(kAll, at_leaf ? count : 0));
+      if (kWarpLeafCost * __popc(todo) >= longest) {
+        if (at_leaf) {
+          for (int k = 0; k < count; ++k) {
+            const int si = min(first + k, s - 1);
+            const float root = sphere_root(__ldg(sph + si), ox, oy, oz, dx,
+                                           dy, dz, a, inv_a, lo,
+                                           minp(best, hi));
+            if (root < best || (root == best && si < best_i)) {
+              best = root;
+              best_i = si;
+            }
+          }
+        }
+        at_leaf = false;
+        continue;
+      }
+      at_leaf = false;
+      while (todo) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int sfirst = __shfl_sync(kAll, first, src);
+        const int scount = __shfl_sync(kAll, count, src);
+        const float sox = __shfl_sync(kAll, ox, src);
+        const float soy = __shfl_sync(kAll, oy, src);
+        const float soz = __shfl_sync(kAll, oz, src);
+        const float sdx = __shfl_sync(kAll, dx, src);
+        const float sdy = __shfl_sync(kAll, dy, src);
+        const float sdz = __shfl_sync(kAll, dz, src);
+        const float sa = __shfl_sync(kAll, a, src);
+        const float sinv = __shfl_sync(kAll, inv_a, src);
+        const float slo = __shfl_sync(kAll, lo, src);
+        const float slim = __shfl_sync(kAll, lim, src);
+        float root = CUDART_INF_F;
+        int si = 0x7fffffff;
+        if (lane < scount) {
+          si = min(sfirst + lane, s - 1);
+          root = sphere_root(__ldg(sph + si), sox, soy, soz, sdx, sdy, sdz,
+                             sa, sinv, slo, slim);
+        }
+        for (int off = 16; off > 0; off >>= 1) {
+          const float r2 = __shfl_xor_sync(kAll, root, off);
+          const int i2 = __shfl_xor_sync(kAll, si, off);
+          if (r2 < root || (r2 == root && i2 < si)) {
+            root = r2;
+            si = i2;
+          }
+        }
+        if (lane == src && (root < best || (root == best && si < best_i))) {
+          best = root;
+          best_i = si;
+        }
+      }
+    }
+    if (live) {
+      t_out[ray] = best;
+      i_out[ray] = best_i;
+    }
   }
 }
 
@@ -583,18 +676,26 @@ int grid(const void* fn, int threads, size_t smem, int n, bool persistent) {
 
 }  // namespace
 
-extern "C" int mrt_sphere_bvh(const float* nodes, const int* meta, int m,
+// knodes, order: the tree's packed nodes and octant threading (as B6's);
+// sph: the BVH-ordered rows.  A null t_min / t_max takes the scalar
+// t_min_s / t_max_s for every ray.
+extern "C" int mrt_sphere_bvh(const float* knodes, const int* order, int m,
                               const float* sph, int s, const float* o,
                               const float* d, const float* t_min,
-                              const float* t_max, int n, float* t_out,
-                              int* i_out, cudaStream_t stream) {
+                              float t_min_s, const float* t_max,
+                              float t_max_s, int n, float* t_out,
+                              int* i_out, int* counter,
+                              cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  sphere_bvh_kernel<<<blocks, kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(nodes),
-      reinterpret_cast<const int4*>(meta), m,
-      reinterpret_cast<const float4*>(sph), s, o, d, t_min, t_max, n, t_out,
-      i_out);
+  const void* key = reinterpret_cast<const void*>(&sphere_bvh_kernel);
+  const cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sphere_bvh_kernel<<<grid(key, kThreads, 0, n, true), kThreads, 0,
+                      stream>>>(
+      reinterpret_cast<const float4*>(knodes),
+      reinterpret_cast<const int2*>(order), m,
+      reinterpret_cast<const float4*>(sph), s, o, d, t_min, t_min_s, t_max,
+      t_max_s, n, t_out, i_out, counter);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -373,14 +373,9 @@ def intersect_bvh_spheres(spheres, bvh: FlatBVH, o, d, t_min, t_max):
     """Closest sphere hit through the sphere BVH (kernel B5); returns
     Hits."""
     t, index = kernel.sphere_bvh_hit(
-        bvh.nodes, bvh.meta, kernel_spheres(spheres), o, d, t_min, t_max)
+        bvh.nodes, bvh.meta, spheres.krows, o, d, t_min, t_max,
+        card=(bvh.knodes, bvh.order))
     return sphere_mod.make_hits(spheres, o, d, t, index)
-
-
-def kernel_spheres(spheres):
-    """(S, 4) float32 rows (center xyz, radius) for kernel B5."""
-    return torch.cat([spheres.center, spheres.radius[:, None]],
-                     dim=1).contiguous()
 
 
 def intersect_bvh_tris(tris, bvh: FlatBVH, o, d, t_min, t_max):

@@ -54,7 +54,8 @@ class Scene(nn.Module):
     tlas: TLAS or None; voxels: a sequence of VoxelGrid or None; volumes:
     VolumeSpheres or None; mesh_volumes: a sequence of MeshVolume or
     None; atlas: TextureAtlas or None; lights: a LightTable (next-event
-    estimation) or None.
+    estimation) or None.  The sphere set gets the table of the kernel
+    that walks it here (``Spheres.build_kernel_table``).
     ``has_mix`` is False when no material row is a MIX (shading then
     skips the row resolution); ``needs_alpha`` is True when a material
     row can fail the alpha test (the re-cast rounds run);
@@ -75,6 +76,8 @@ class Scene(nn.Module):
         self.background = background
         self.spheres = spheres
         self.sphere_bvh = sphere_bvh
+        if spheres is not None:
+            spheres.build_kernel_table(in_bvh=sphere_bvh is not None)
         self.triangles = triangles
         self.bvh = bvh
         self.tlas = tlas

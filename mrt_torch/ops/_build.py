@@ -35,10 +35,11 @@ BUILD_DIR = PACKAGE / "_build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types; each returns a cudaError_t as int.
 SIGNATURES = {
-    "mrt_nearest_t": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P),
+    "mrt_nearest_t": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _F, _P, _F,
+                      _I, _P, _P, _I, _P),
     "mrt_deposit": (_P, _I, _I, _P, _P, _I, _I, _P),
     "mrt_deposit_pending": (_P, _I, _P, _P, _P, _I, _P),
     "mrt_probe_a": (_P, _P, _P, _P, _P),
@@ -46,7 +47,8 @@ SIGNATURES = {
     "mrt_probe_c": (_P, _P, _I, _P, _P),
     "mrt_probe_attributes": (_P, _P, _P),
     "mrt_gather": (_P, _I, _I, _P, _I, _P, _P),
-    "mrt_sphere_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
+    "mrt_sphere_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _F, _P, _F, _I, _P,
+                       _P, _P, _P),
     "mrt_tri_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                     _P, _P),
     "mrt_tlas": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
@@ -190,7 +192,8 @@ def _pretty(mangled):
 
 def launch(name, device, *args):
     """Call C entry `name` on `device`'s current stream; raise on a
-    CUDA error.  Tensor arguments pass as their data pointers."""
+    CUDA error.  Tensor arguments pass as their data pointers, None as a
+    null pointer."""
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -24,20 +24,23 @@ opt-in limit a block and reads them from global memory past it.
 Semantics, shared by kernel and plain version (those of the reference
 traversals ``mrt.geometry.bvh.intersect_bvh_spheres`` and
 ``mrt.geometry.instance.intersect_tlas``, run per ray):
-  - stackless walk.  B5, and the plain versions by default: a hit inner
-    node continues at node + 1, anything else at its escape index.  B6
-    and B7 (and the plain versions given ``order`` / ``ordered``): the
+  - stackless walk.  The plain versions by default: a hit inner node
+    continues at node + 1, anything else at its escape index.  The
+    kernels (and the plain versions given ``order`` / ``ordered``): the
     threading of one direction octant (bit a set <=> d[a] < 0), near
     child first: a hit continues at ``order[oct, node, 0]``, anything
-    else at ``order[oct, node, 1]``.  B6 takes the ray's octant; B7 its
-    warp's in the TLAS (``warp_octant``) and the ray's in instance
-    space inside an instance.  The walk ends at the tree's sentinel;
+    else at ``order[oct, node, 1]``.  B5 and B6 take the ray's octant;
+    B7 its warp's in the TLAS (``warp_octant``) and the ray's in
+    instance space inside an instance.  The walk ends at the tree's
+    sentinel;
   - the slab test propagates NaN (``torch.minimum``/``maximum``): a ray
     that starts on a slab plane with a zero direction component gets
     0 * inf = NaN there and culls the box, as in the reference; its far
     limit is min(best, t_max) and a box passes on near <= far;
   - spheres: near root before far root in [t_min, min(best, t_max)];
-    equal t -> the lower sphere index;
+    equal t -> the lower sphere index; a leaf is tested whole at the
+    limit of its entry (``sphere_leaf``), which keeps the reference's
+    sequential leaf's winner;
   - triangles: Möller–Trumbore with DET_EPS = 1e-6, t in [t_min,
     t_max]; equal t -> the lower triangle index (B6; over flat parts
     the lower global row, which is the reference's fold: strictly
@@ -57,7 +60,7 @@ Table layouts (rows, one per node / primitive; all contiguous):
   R00 R01 R02 R10 R11 R12 R20 R21 R22 t0 t1 t2; imeta (I, 2) i32:
   blas_root, blas_end; bnodes/bmeta as nodes/meta; tris (T, 9) f32:
   va, e_ab, e_ac.
-The kernels' packed tables (B6, B7; ``card_nodes``, ``card_tris``):
+The kernels' packed tables (B5, B6, B7; ``card_nodes``, ``card_tris``):
   knodes (M, 8) f32: bmin xyz, a, bmax xyz, b, with the int32 a, b
   bit-cast: (first, count) in a BVH, (instance or -1, 0) in a TLAS:
   a visit is two independent 16-byte loads;
@@ -195,14 +198,38 @@ def tri_leaf(tris, first, count, o, d, t_min, t_max):
     return ct, pick(ti), pick(u), pick(v)
 
 
-def sphere_bvh_plain(nodes, meta, sph, o, d, t_min, t_max, counts=None):
+def _warp_tally(counts, lane, at_leaf, count, per_warp):
+    """One wavefront step's warp counts (warps of 32 consecutive rays):
+    "warp_iters" (warps with a live lane), "leaf_lanes" (lanes at a hit
+    leaf: the warp leaf step's passes), "leaf_steps" (each warp's longest
+    hit leaf: the lane loop's steps)."""
+    if counts is None:
+        return
+    w = lane // 32
+    live = torch.bincount(w, minlength=per_warp.shape[0]) > 0
+    per_warp += live
+    ww = w[at_leaf]
+    lanes = torch.bincount(ww, minlength=per_warp.shape[0])
+    longest = torch.zeros_like(lanes).scatter_reduce_(
+        0, ww, count[at_leaf].to(lanes.dtype), "amax")
+    _tally(counts, "warp_iters", live.sum())
+    _tally(counts, "leaf_lanes", lanes.sum())
+    _tally(counts, "leaf_steps", longest.sum())
+
+
+def sphere_bvh_plain(nodes, meta, sph, o, d, t_min, t_max, counts=None,
+                     order=None):
     """Plain PyTorch version of B5: the reference's wavefront traversal
     with finished rays dropped from the wavefront after each step.
 
     nodes (M, 8), meta (M, 4), sph (S, 4); o, d (N, 3); t_min, t_max
     (N,).  Returns (t (N,) float32, +inf on a miss; index (N,) int32).
-    ``counts``, if a dict, gains "nodes" (node visits) and "prims"
-    (leaf sphere tests)."""
+    ``order`` (8, M, 2): walk the octants' threading, as the kernel does,
+    instead of the escape order.  ``counts``, if a dict, gains "nodes"
+    (node visits), "prims" (leaf sphere tests), "warps" and, summed over
+    the warps of 32 consecutive rays, "warp_iters", "leaf_lanes" and
+    "leaf_steps" (``_warp_tally``), and "warp_iters_p99" (the 99th
+    percentile of a warp's iterations)."""
     n, m = o.shape[0], nodes.shape[0]
     dev = o.device
     out_t = torch.full((n,), INF, device=dev)
@@ -210,10 +237,12 @@ def sphere_bvh_plain(nodes, meta, sph, o, d, t_min, t_max, counts=None):
     inv_d = 1.0 / d
     a = dot(d, d)
     inv_a = 1.0 / a
+    oct_ = octant(d)
     lane = torch.arange(n, device=dev)
     node = torch.zeros((n,), dtype=torch.int64, device=dev)
     best_t, best_i = out_t.clone(), torch.zeros((n,), dtype=torch.int64,
                                                 device=dev)
+    per_warp = torch.zeros(((n + 31) // 32,), dtype=torch.int64, device=dev)
     while lane.numel():
         lim = torch.minimum(best_t, t_max[lane])
         box = nodes[node]
@@ -223,6 +252,7 @@ def sphere_bvh_plain(nodes, meta, sph, o, d, t_min, t_max, counts=None):
         leaf = row[:, 1] > 0
         test = (hit & leaf).nonzero()[:, 0]
         _tally(counts, "nodes", lane.numel())
+        _warp_tally(counts, lane, hit & leaf, row[:, 1], per_warp)
         if test.numel():
             k = lane[test]
             _tally(counts, "prims", row[test, 1].sum())
@@ -232,7 +262,9 @@ def sphere_bvh_plain(nodes, meta, sph, o, d, t_min, t_max, counts=None):
             better = (ct < bt) | ((ct == bt) & (ci < bi))
             best_t[test] = torch.where(better, ct, bt)
             best_i[test] = torch.where(better, ci, bi)
-        node = torch.where(hit & ~leaf, node + 1, row[:, 2])
+        on_hit, on_miss = _successors(node, leaf, row[:, 2], order,
+                                      oct_[lane])
+        node = torch.where(hit, on_hit, on_miss)
         done = node >= m
         if done.any():
             out_t[lane[done]] = best_t[done]
@@ -240,6 +272,11 @@ def sphere_bvh_plain(nodes, meta, sph, o, d, t_min, t_max, counts=None):
             keep = ~done
             lane, node = lane[keep], node[keep]
             best_t, best_i = best_t[keep], best_i[keep]
+    if counts is not None:
+        counts["warps"] = per_warp.numel()
+        counts["warp_iters_p99"] = (
+            float(torch.quantile(per_warp.double(), 0.99))
+            if per_warp.numel() else 0.0)
     return out_t, out_i
 
 
@@ -466,6 +503,14 @@ def _lanes(x, n, device):
     return x.expand(n).contiguous() if x.dim() == 0 else x
 
 
+def bound_arg(x):
+    """A t bound as B1's and B5's kernels take it, with no device copy:
+    (None, value) for a scalar, (x, 0.0) for an (N,) tensor."""
+    if torch.is_tensor(x) and x.dim() == 0:
+        x = float(x)
+    return (x, 0.0) if torch.is_tensor(x) else (None, float(x))
+
+
 def _check(fn, device, **tensors):
     """Each entry: name -> (tensor, dtype, shape with -1 for any)."""
     for name, (x, dtype, shape) in tensors.items():
@@ -500,23 +545,44 @@ def _rays(fn, o, d, t_min, t_max):
     return n, t_min, t_max
 
 
-def sphere_bvh_hit(nodes, meta, sph, o, d, t_min, t_max):
+def sphere_bvh_hit(nodes, meta, sph, o, d, t_min, t_max, card=None):
     """Closest sphere hit through a sphere BVH (B5).
 
-    t_min, t_max: scalars or (N,) tensors.  Returns (t (N,) float32,
-    +inf on a miss; index (N,) int32, into the BVH-ordered spheres)."""
-    n, t_min, t_max = _rays("sphere_bvh_hit", o, d, t_min, t_max)
+    nodes (M, 8), meta (M, 4), sph (S, 4) rows center xyz, radius in BVH
+    order.  t_min, t_max: scalars or (N,) tensors.  card: the kernel's
+    tables (knodes (M, 8), order (8, M, 2)), needed on the card.  Returns
+    (t (N,) float32, +inf on a miss; index (N,) int32, into the
+    BVH-ordered spheres).  The CPU walks the reference's escape order,
+    the card the octants' threading."""
+    n = o.shape[0]
     f32, i32 = torch.float32, torch.int32
-    _check("sphere_bvh_hit", o.device, nodes=(nodes, f32, (-1, 8)),
-           meta=(meta, i32, (nodes.shape[0], 4)), sph=(sph, f32, (-1, 4)))
+    _check("sphere_bvh_hit", o.device, o=(o, f32, (n, 3)),
+           d=(d, f32, (n, 3)), nodes=(nodes, f32, (-1, 8)),
+           meta=(meta, i32, (nodes.shape[0], 4)), sph=(sph, f32, (-1, 4)),
+           **{k: (x, f32, (n,)) for k, x in (("t_min", t_min),
+                                             ("t_max", t_max))
+              if torch.is_tensor(x) and x.dim() > 0})
     if o.device.type == "cpu":
-        return sphere_bvh_plain(nodes, meta, sph, o, d, t_min, t_max)
-    _aligned("sphere_bvh_hit", nodes=(nodes, 16), meta=(meta, 16),
+        return sphere_bvh_plain(nodes, meta, sph, o, d,
+                                _lanes(t_min, n, o.device),
+                                _lanes(t_max, n, o.device))
+    if o.device.type != "cuda":
+        raise ValueError(f"sphere_bvh_hit: no kernel for device {o.device}")
+    if card is None:
+        raise ValueError("sphere_bvh_hit: no kernel tables (knodes, order): "
+                         "the card walks the octants' threading")
+    m = nodes.shape[0]
+    knodes, order = card
+    _check("sphere_bvh_hit", o.device, knodes=(knodes, f32, (m, 8)),
+           order=(order, i32, (8, m, 2)))
+    _aligned("sphere_bvh_hit", knodes=(knodes, 16), order=(order, 8),
              sph=(sph, 16))
     t = torch.empty((n,), dtype=f32, device=o.device)
     index = torch.empty((n,), dtype=i32, device=o.device)
-    _build.launch("mrt_sphere_bvh", o.device, nodes, meta, nodes.shape[0],
-                  sph, sph.shape[0], o, d, t_min, t_max, n, t, index)
+    counter = torch.empty((1,), dtype=i32, device=o.device)
+    _build.launch("mrt_sphere_bvh", o.device, knodes, order, m, sph,
+                  sph.shape[0], o, d, *bound_arg(t_min), *bound_arg(t_max),
+                  n, t, index, counter)
     sphere_bvh_hit.launches += 1
     return t, index
 

@@ -6,7 +6,8 @@
     MRT_FILM_PEND=1 python -m mrt_torch.profile --scene cornell --nee
     python -m mrt_torch.profile --scene menger --steps 40
 
-Renders one unprofiled pass (its wall time), then one pass under
+Renders one unprofiled pass to warm up, ``--passes`` more (their wall
+times, the median the pass time), then one pass under
 ``torch.profiler`` with a ``record_function`` range around each layer of
 the step (camera rays, intersection with its voxel walk, shading,
 background, next-event estimation, film deposit), and prints the device time of each layer (the kernels
@@ -29,6 +30,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 
@@ -131,6 +133,9 @@ def main(argv=None):
                         help="Russian roulette from this bounce on")
     parser.add_argument("--steps", type=int, default=None,
                         help="measure only the first N steps of a pass")
+    parser.add_argument("--passes", type=int, default=1,
+                        help="unprofiled passes timed (their median is "
+                             "the pass time)")
     args = parser.parse_args(argv)
     # chip_smoke.py's main path.
     args.width, args.height, args.depth, args.spp, args.pool = (
@@ -151,10 +156,13 @@ def main(argv=None):
         scene = attach_lights(scene)
     one_pass(scene, camera, args)  # warm-up: kernel build, allocator
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one_pass(scene, camera, args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    walls = []
+    for _ in range(args.passes):
+        t0 = time.perf_counter()
+        one_pass(scene, camera, args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
 
     steps = [0]
     step = persistent.LanePool.step
@@ -202,7 +210,8 @@ def main(argv=None):
                width=args.width, height=args.height,
                depth=args.depth, spp=args.spp, pool=args.pool,
                device=torch.cuda.get_device_name(0),
-               pass_s=wall, profiled_pass_s=profiled_wall, steps=steps[0],
+               pass_s=wall, passes_s=walls, profiled_pass_s=profiled_wall,
+               steps=steps[0],
                device_kernel_ms=kernel_us / 1e3,
                device_kernels_per_step=launches / max(steps[0], 1),
                # Kernel durations are not inflated by the profiler, the
@@ -212,7 +221,8 @@ def main(argv=None):
                kernel_calls=calls,
                dda_steps_per_step=voxels.counts["steps"] / max(steps[0], 1))
     print(f"{args.scene} {args.width}x{args.height} depth {args.depth} spp "
-          f"{args.spp} pool {args.pool}: pass {wall:.3f} s unprofiled, "
+          f"{args.spp} pool {args.pool}: pass {wall:.3f} s unprofiled ("
+          + ", ".join(f"{w:.3f}" for w in walls) + "), "
           f"{profiled_wall:.3f} s profiled, {steps[0]} steps, "
           f"{launches} device kernels, {kernel_us / 1e3:.1f} ms device time, "
           f"idle {out['idle_share']:.3f}, "

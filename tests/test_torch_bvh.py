@@ -179,7 +179,8 @@ def _port_b5(jbvh, jsph, o, d, t_min, t_max):
                                for k in BVH_FIELDS))
     sph = TS.Spheres(*(np.asarray(getattr(jsph, k))
                        for k in ("center", "radius", "material")))
-    t, i = B5.sphere_bvh_hit(tbvh.nodes, tbvh.meta, TB.kernel_spheres(sph),
+    sph.build_kernel_table(in_bvh=True)
+    t, i = B5.sphere_bvh_hit(tbvh.nodes, tbvh.meta, sph.krows,
                              torch.from_numpy(o), torch.from_numpy(d),
                              torch.as_tensor(t_min), torch.as_tensor(t_max))
     return t.numpy(), i.numpy()
@@ -256,7 +257,7 @@ def test_plain_triangle_bvh_and_make_hits_match_xla():
 
 def test_b5_wrapper_checks_arguments():
     tbvh, tsph = TB.build_over_spheres(TS.Spheres(*_spheres(1, 70)))
-    sph = TB.kernel_spheres(tsph)
+    sph = tsph.build_kernel_table(in_bvh=True).krows
     o = torch.zeros((8, 3))
     with pytest.raises(TypeError):
         B5.sphere_bvh_hit(tbvh.nodes, tbvh.meta.long(), sph, o, o, 1e-3, 1.0)

@@ -8,7 +8,10 @@ This file imports no JAX, so it runs where only PyTorch is installed.
 The kernels are built with --fmad=false and round like their plain
 versions, so results must be bit-equal (B2: on dyadic values, whose
 sums are exact in any order); B6 and B7 against their plain versions
-walking the same octant order.  B5, B6 and B7 include rays on a NaN slab
+walking the same octant order (B1 also
+equal to its grouped walk's plain model, with its tables in shared and
+in global memory).  B1 and B5 replay in a CUDA graph.  B5, B6 and B7
+include rays on a NaN slab
 plane and, for B7, a TLAS past the card's shared memory (global
 regime), cornell's small tables (global) and lucy's tables (shared,
 and global as if they did not fit); each also holds the escape order's
@@ -41,29 +44,42 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def test_b1_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("s", [300, 4000])
+def test_b1_kernel_matches_plain(cuda, s):
+    # 4000 spheres: ~90 KB of group tables, past what a block copies into
+    # shared memory: read from global memory.
     g = torch.Generator().manual_seed(1)
-    s, n = 300, 5000  # n is not a multiple of the block size
+    n = 5000  # n is not a multiple of the block size
     center = torch.rand((s, 3), generator=g) * 10 - 5
-    radius = torch.rand((s,), generator=g) + 0.1
+    radius = torch.rand((s,), generator=g) * 30 / s ** (1 / 3) + 0.05
     center[7] = center[3]  # a tie: the lower index wins
     radius[7] = radius[3]
+    center[s - 5] = center[3]  # a tie split across groups
+    radius[s - 5] = radius[3]
     radius[11] = 0.0  # padding: never hit
+    center[20], radius[20] = torch.tensor([0.0, -1000.0, 0.0]), 1000.0
     o = torch.rand((n, 3), generator=g) * 16 - 8
     d = torch.randn((n, 3), generator=g)
     d[:4] = 0.0  # zero directions miss
     t_min = torch.rand((n,), generator=g)
     t_max = torch.rand((n,), generator=g) * 8 + 2
     args = [x.to(cuda) for x in (center, radius, o, d, t_min, t_max)]
-    before = B1.nearest_t.launches
-    t_k, i_k = B1.nearest_t(*args)
-    t_p, i_p = B1.nearest_t_plain(*args)
-    torch.cuda.synchronize()
-    assert B1.nearest_t.launches == before + 1
-    assert torch.equal(i_k, i_p)
-    assert torch.equal(t_k, t_p)
-    assert torch.isfinite(t_k).any() and torch.isinf(t_k[:4]).all()
-    assert not (i_k == 7).any() and not (i_k == 11).any()
+    groups = B1.group_table(args[0], args[1])
+    assert groups[4] == 1  # the radius-1000 sphere is not grouped
+    for bounds in (args[4:], (1e-3, float("inf"))):
+        before = B1.nearest_t.launches
+        t_k, i_k = B1.nearest_t(*args[:4], *bounds, groups=groups)
+        lanes = [torch.as_tensor(b, device=cuda).expand(n).contiguous()
+                 for b in bounds]
+        t_p, i_p = B1.nearest_t_plain(*args[:4], *lanes)
+        t_g, i_g = B1.nearest_t_grouped_plain(groups, *args[2:4], *lanes)
+        torch.cuda.synchronize()
+        assert B1.nearest_t.launches == before + 1
+        assert torch.equal(i_k, i_p) and torch.equal(i_g, i_p)
+        assert torch.equal(t_k, t_p) and torch.equal(t_g, t_p)
+        assert torch.isfinite(t_k).any() and torch.isinf(t_k[:4]).all()
+        assert not (i_k == 7).any() and not (i_k == 11).any()
+        assert not (i_k == s - 5).any()
 
 
 def test_b2_kernel_matches_plain(cuda):
@@ -84,10 +100,46 @@ def test_b2_kernel_matches_plain(cuda):
     assert torch.isfinite(k).all()  # drop_nonfinite=True
 
 
+def test_b1_kernel_matches_plain_along_a_box_face(cuda):
+    # Spheres far out (|c| ~ 1,000) in one group, rays passing just
+    # outside the group box's face: the expanded form takes roots on some
+    # of them, and the kernel's padded box test must keep their group.
+    g = torch.Generator().manual_seed(6)
+    k = torch.arange(20, dtype=torch.float32)
+    center = torch.stack([1000.0 + 4.0 * k, 0 * k, 0 * k], 1)
+    radius = torch.full((20,), 0.5)
+    n = 4096
+    target = torch.stack([center[torch.randint(0, 20, (n,), generator=g), 0],
+                          torch.zeros(n),
+                          0.5 + torch.rand((n,), generator=g) * 0.4], 1)
+    sign = torch.randint(0, 2, (n, 2), generator=g) * 2.0 - 1.0
+    tilt = (torch.rand((n, 2), generator=g) * 8e-4 + 2e-4) * sign
+    d = torch.stack([tilt[:, 0], torch.ones(n), tilt[:, 1]], 1)
+    o = target - 1000.0 * d
+    center, radius, o, d = (x.to(cuda) for x in (center, radius, o, d))
+    groups = B1.group_table(center, radius)
+    t_k, i_k = B1.nearest_t(center, radius, o, d, 1e-3, float("inf"),
+                            groups=groups)
+    lanes = [torch.full((n,), v, device=cuda) for v in (1e-3, float("inf"))]
+    t_p, i_p = B1.nearest_t_plain(center, radius, o, d, *lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p)
+    assert 0 < torch.isfinite(t_k).sum() < n // 2
+
+
 def test_b1_wrapper_raises_instead_of_falling_back(cuda):
     o = torch.zeros((8, 3), device=cuda)
     with pytest.raises(ValueError):
         B1.nearest_t(torch.zeros((2, 3)), torch.ones(2), o, o, 1e-3, 1.0)
+    center, radius = torch.zeros((2, 3), device=cuda), torch.ones(2,
+                                                                 device=cuda)
+    with pytest.raises(ValueError, match="no kernel tables"):
+        B1.nearest_t(center, radius, o, o, 1e-3, 1.0)
+    groups = B1.group_table(center, radius)
+    with pytest.raises(ValueError):  # tables of other spheres
+        B1.nearest_t(torch.zeros((40, 3), device=cuda),
+                     torch.ones(40, device=cuda), o, o, 1e-3, 1.0,
+                     groups=groups)
 
 
 def _sphere_case(g, s, n):
@@ -104,26 +156,65 @@ def _sphere_case(g, s, n):
     o[:64, 0] = tree.bmin[0, 0]
     d[:64, 0] = 0.0
     d[64:72] = 0.0  # zero directions
-    return tree, geometry_bvh.kernel_spheres(sph), o, d
+    return tree, sph.build_kernel_table(in_bvh=True).krows, o, d
 
 
 def test_b5_kernel_matches_plain(cuda):
     g = torch.Generator().manual_seed(3)
     tree, sph, o, d = _sphere_case(g, 3000, 5000)
+    assert tree.n_nodes >= 32  # threaded in octant order
+    tree = tree.to(cuda)
     n = o.shape[0]
     args = [x.to(cuda) for x in (tree.nodes, tree.meta, sph, o, d)]
+    card = (tree.knodes, tree.order)
     lo = torch.full((n,), 1e-3, device=cuda)
     for hi in (torch.full((n,), float("inf")),
-               torch.rand((n,), generator=g) * 30 + 1):
-        hi = hi.to(cuda)
+               torch.rand((n,), generator=g) * 30 + 1, float("inf")):
+        hi = hi.to(cuda) if torch.is_tensor(hi) else hi
+        lanes = torch.as_tensor(hi, device=cuda).expand(n).contiguous()
         before = bvh.sphere_bvh_hit.launches
-        t_k, i_k = bvh.sphere_bvh_hit(*args, lo, hi)
-        t_p, i_p = bvh.sphere_bvh_plain(*args, lo, hi)
+        t_k, i_k = bvh.sphere_bvh_hit(*args, 1e-3, hi, card=card)
+        t_p, i_p = bvh.sphere_bvh_plain(*args, lo, lanes, order=tree.order)
         torch.cuda.synchronize()
         assert bvh.sphere_bvh_hit.launches == before + 1
         assert torch.equal(i_k, i_p)
         assert torch.equal(t_k, t_p)
         assert torch.isfinite(t_k).any() and torch.isinf(t_k[:72]).all()
+        _agrees_with_escape_order(t_k, i_k, bvh.sphere_bvh_plain(
+            *args, lo, lanes))
+
+
+def test_b1_and_b5_in_a_cuda_graph(cuda):
+    from mrt_torch.scenes import get
+
+    scene, camera = get("sphere_grid")(dim=12).generate(device=cuda)
+    tree, sph = scene.sphere_bvh, scene.spheres
+    # The scene walks its spheres with B5; B1 gets its own table.
+    groups = B1.group_table(sph.center, sph.radius)
+    o, d = _camera_rays(camera, 4096, seed=12)
+    calls = {
+        "B1": lambda: B1.nearest_t(sph.center, sph.radius, o, d, 1e-3,
+                                   float("inf"), groups=groups),
+        "B5": lambda: bvh.sphere_bvh_hit(
+            tree.nodes, tree.meta, sph.krows, o, d, 1e-3, float("inf"),
+            card=(tree.knodes, tree.order)),
+    }
+    for name, fn in calls.items():
+        want = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fn()
+        for x in got:
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+        assert torch.isfinite(want[0]).float().mean() > 0.2, name
 
 
 def _instances(n_inst, seed=0):
@@ -221,6 +312,13 @@ def test_bvh_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         bvh.sphere_bvh_hit(tree.nodes, tree.meta, sph, o.to(cuda),
                           d.to(cuda), 1e-3, 1.0)
+    tree = tree.to(cuda)
+    args = (tree.nodes, tree.meta, sph.to(cuda), o.to(cuda), d.to(cuda))
+    with pytest.raises(ValueError, match="no kernel tables"):
+        bvh.sphere_bvh_hit(*args, 1e-3, 1.0)
+    with pytest.raises(ValueError, match="aligned"):
+        bvh.sphere_bvh_hit(*args, 1e-3, 1.0,
+                           card=(_misaligned(tree.knodes), tree.order))
 
 
 def _statue_case(g, n):
