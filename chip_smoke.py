@@ -15,8 +15,13 @@ Each phase prints one line:
      bit, x 484 spheres, on 2^17 RTIOW camera and first-bounce rays and on
      the rays of steps 2 and 64 of phase 6's pass (run after it), with the
      work a ray (pair and box tests) from its grouped walk's plain model;
-  4. kernel B2 (film segment-add) against its plain version, 2^17 lanes
-     into a 1920x1080x4 film, beside Tensor.index_add_;
+  4. the card's launch floor (a one-element add_ replayed in a CUDA graph,
+     as the kernels are timed); kernel B2 (film segment-add) against its
+     plain version, 2^17 lanes into a 1920x1080x4 film, beside
+     Tensor.index_add_, and as compaction's placer (2^17 lanes, ~70%
+     masked, the first 32,768 at their prefix positions, 3 columns, the
+     mask read by the kernel): bit-equal; the host time of one call of
+     the B2 and B3 wrappers and of a compaction round;
   5. the rtiow_24 golden (tests/goldens) rendered through the port on
      the card, by the wavefront and the persistent integrator;
   6. the RTIOW main path: one render_pass_persistent of RTIOW at
@@ -53,7 +58,8 @@ Each phase prints one line:
      scene.
  13. kernel B3 (row gather, the expand half of lane compaction) against
      its plain version at the eve fleet's compaction shapes (2^17 lanes,
-     32,768 rows, 3 and 4 columns, indices out of range on some lanes):
+     32,768 rows; 1, 2, 3, 4 and 10 columns with indices out of range on
+     some lanes, and 3 and 4 columns masked as expand_rows calls it):
      bit-equal, beside Tensor.index_select with the mask;
  14. the goldens of the texture slice through both integrators on the
      card: textured_24 (atlas, bilinear, alpha re-cast), eve_ball_24 (EVE
@@ -87,7 +93,8 @@ Each phase prints one line:
      to the card's opt-in shared memory a block and refused past it.
 
 Each main path runs with every launch count set to 0 just before it and
-read just after.  Then a JSON line with each kernel's numbers, and as
+read just after.  Then a JSON line with each kernel's numbers (B2, B3
+and B4 also with ``floor_ms``, phase 4's launch floor), and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; so does a machine without CUDA.  Imports no JAX.
 
@@ -364,9 +371,51 @@ def b2_lanes(dev):
     return idx.to(torch.int32).contiguous(), vals.contiguous()
 
 
-def phase_b2(dev):
-    from mrt_torch.ops import deposit as B2
+def host_us(fn, calls=1000):
+    """Mean host microseconds a call of fn over `calls` calls, on the host
+    clock without a device sync between them (what issuing the call
+    costs; the device keeps up with these small kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
 
+
+def floor_ms(dev):
+    """The card's launch floor: the device time a call of a one-element
+    add_, replayed in a CUDA graph as the kernels are timed."""
+    x = torch.zeros((1,), device=dev)
+    return graph_ms(lambda: x.add_(1.0), 50)
+
+
+def compaction_lanes(dev, cols, seed):
+    """One compaction round at the eve fleet's shapes: RAYS lanes, ~70%
+    masked (the first B3_ROWS of them in range of the round's rows), their
+    prefix positions, and rows of `cols` floats with exponents from -20
+    to 20, NaN and inf in unmasked rows (never read)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.rand((RAYS,), device=dev, generator=g) < 0.7
+    pos = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+    x = (torch.randn((RAYS, cols), device=dev, generator=g)
+         * 10.0 ** torch.randint(-20, 20, (RAYS, cols), device=dev,
+                                 generator=g))
+    x[~mask] = float("nan")
+    x[~mask & (torch.arange(RAYS, device=dev) % 2 == 0)] = float("inf")
+    return mask.contiguous(), pos.contiguous(), x.contiguous()
+
+
+def phase_b2(dev):
+    from mrt_torch.ops import compact
+    from mrt_torch.ops import deposit as B2
+    from mrt_torch.ops import gather as B3
+
+    floor = floor_ms(dev)
+    log(4, f"launch floor: a one-element add_ replayed in a CUDA graph, "
+           f"{floor:.5f} ms a call")
     idx, vals = b2_lanes(dev)
     shape = (WIDTH * HEIGHT, 4)
     film_k = B2.deposit(torch.zeros(shape, device=dev), idx, vals)
@@ -394,11 +443,52 @@ def phase_b2(dev):
     log(4, f"B2 {RAYS} lanes into {shape}: max abs err {err:.3g} "
            f"(max {scale:.3g}), depth column exact; device time a call "
            f"(CUDA graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-           f"index_add_ {library_ms:.4f} ms; call time (CUDA events): "
-           f"wrapper {call_ms(kernel, 50):.4f} ms, plain "
+           f"index_add_ {library_ms:.4f} ms, floor {floor:.5f} ms; call "
+           f"time (CUDA events): wrapper {call_ms(kernel, 50):.4f} ms, plain "
            f"{call_ms(plain, 20):.4f} ms; {touched} film rows touched")
+
+    # The placer: compact_rows' call at the eve fleet's compaction shapes.
+    mask, pos, x = compaction_lanes(dev, 3, 19)
+    xc = torch.zeros((B3_ROWS, 3), device=dev)
+    got = B2.deposit(xc.clone(), pos, x, mask=mask)
+    want = B2.deposit_plain(xc.clone(), pos, x, mask=mask)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "B2 as the placer: not bit-equal to its plain version")
+    placed = mask & (pos < B3_ROWS)
+    check(torch.equal(got, x[placed]), "B2 as the placer: rows misplaced")
+    p_rows = torch.where(placed, pos, 0).to(torch.int64)
+    p_vals = torch.where(placed[:, None], x, 0.0)
+    n_placed = int(placed.sum())
+    placer = dict(
+        max_abs_err=0.0, lanes=RAYS, rows=B3_ROWS, cols=3, placed=n_placed,
+        ms=graph_ms(lambda: B2.deposit(xc, pos, x, mask=mask), 50),
+        plain_ms=graph_ms(lambda: B2.deposit_plain(xc, pos, x, mask=mask), 20),
+        library_ms=graph_ms(lambda: xc.index_add_(0, p_rows, p_vals), 20),
+        # Index and mask byte a lane; the placed rows read, and their rows
+        # of the buffer read and written.
+        **bound(RAYS * 5 + n_placed * 12 * 3, n_placed * 3))
+    log(4, f"B2 as compaction's placer, {RAYS} lanes ({n_placed} placed) "
+           f"into ({B3_ROWS}, 3): bit-equal; device time a call (CUDA "
+           f"graph): kernel {placer['ms']:.4f} ms, plain "
+           f"{placer['plain_ms']:.4f} ms, index_add_ "
+           f"{placer['library_ms']:.4f} ms; bound {placer['bound_ms']:.5f} "
+           f"ms (bytes)")
+
+    # What a wrapper call costs the host: B2 on the film, B3 at the atlas's
+    # 4 columns, and one compaction round (4 rounds a call at 2^17 lanes).
+    table = torch.randn((B3_ROWS, 4), device=dev)
+    rounds = -(-RAYS // B3_ROWS)
+    host = dict(
+        deposit=host_us(kernel), gather=host_us(lambda: B3.gather(table, pos)),
+        compact_round=host_us(lambda: compact.compact_apply(
+            lambda r: r, mask, x, B3_ROWS), 250) / rounds)
+    log(4, "host time a wrapper call (host clock, mean of 1000 calls, no "
+           "sync): " + ", ".join(f"{k} {v:.2f} us" for k, v in host.items())
+        + f" (compact_round: a compact_apply round, {rounds} a call)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, **bound(moved, RAYS * 4))
+                library_ms=library_ms, floor_ms=floor, placer=placer,
+                wrapper_host_us=host, **bound(moved, RAYS * 4))
 
 
 def phase_golden(phase, name, dev, build=None, max_outside=None, **kw):
@@ -896,10 +986,12 @@ def phase_meshes(dev):
     return runs
 
 
-def phase_b3(dev):
+def phase_b3(dev, floor):
     """B3 against its plain version at the eve fleet's compaction shapes,
-    bit for bit, beside index_select with the mask (the library call)."""
-    from mrt_torch.ops import _build, compact
+    bit for bit, beside index_select with the mask (the library call):
+    unmasked at 1, 2, 3, 4 and 10 columns, and masked as expand_rows calls
+    it (prefix positions and the mask) at 3 and 4."""
+    from mrt_torch.ops import compact
     from mrt_torch.ops import gather as B3
 
     check(compact.rows_for(RAYS) == B3_ROWS,
@@ -908,45 +1000,57 @@ def phase_b3(dev):
     # The lanes of one compaction round: ~70% masked in lane order, the
     # first B3_ROWS of them at their prefix positions, the rest -1; a few
     # lanes past the table on both sides.
-    mask = torch.rand((RAYS,), device=dev, generator=g) < 0.7
-    pos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    mask, pos, _ = compaction_lanes(dev, 1, 13)
     idx = torch.where(mask & (pos < B3_ROWS), pos, -1)
     idx[::4099] = B3_ROWS + 3
     idx[1::4099] = -7
     idx = idx.contiguous()
     out = {}
-    for cols in (3, 4):
+    for cols, masked in ((1, False), (2, False), (3, False), (4, False),
+                         (10, False), (3, True), (4, True)):
         table = (torch.randn((B3_ROWS, cols), device=dev, generator=g)
                  * 10.0 ** torch.randint(-20, 20, (B3_ROWS, cols), device=dev,
                                          generator=g)).contiguous()
-        got = B3.gather(table, idx)
-        want = B3.gather_plain(table, idx)
+        lanes, m = (pos, mask) if masked else (idx, None)
+        got = B3.gather(table, lanes, mask=m)
+        want = B3.gather_plain(table, lanes, mask=m)
         torch.cuda.synchronize()
         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
-        check(same, f"B3 C={cols}: not bit-equal to its plain version")
+        what = f"C={cols}" + (" masked" if masked else "")
+        check(same, f"B3 {what}: not bit-equal to its plain version")
         err = (got - want).abs().max().item()
-        res = torch.empty_like(got)
-        kernel = lambda: _build.launch("mrt_gather", dev, table, B3_ROWS,
-                                       cols, idx, RAYS, res)
-        plain = lambda: B3.gather_plain(table, idx)
-        valid = (idx >= 0) & (idx < B3_ROWS)
-        rows = torch.clamp(idx, 0, B3_ROWS - 1)
+        kernel = lambda: B3.gather(table, lanes, mask=m)
+        plain = lambda: B3.gather_plain(table, lanes, mask=m)
+        valid = (lanes >= 0) & (lanes < B3_ROWS)
+        if masked:
+            valid = valid & mask
+        rows = torch.clamp(lanes, 0, B3_ROWS - 1)
         library = lambda: torch.where(valid[:, None],
                                       table.index_select(0, rows), 0.0)
         check(torch.equal(library(), want), "index_select differs")
         ms, plain_ms = graph_ms(kernel, 50), graph_ms(plain, 20)
         library_ms = graph_ms(library, 20)
-        moved = RAYS * 4 + RAYS * cols * 4 + B3_ROWS * cols * 4
-        out[cols] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, **bound(moved, 0))
-        log(13, f"B3 {RAYS} lanes from ({B3_ROWS}, {cols}): bit-equal, "
-                f"{int(valid.sum())} lanes in range; device time a call (CUDA "
+        n_valid = int(valid.sum())
+        # Index (and mask byte) a lane, each output row written, each valid
+        # lane's table row read.
+        moved = (RAYS * (5 if masked else 4) + RAYS * cols * 4
+                 + min(n_valid, B3_ROWS) * cols * 4)
+        out[what] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, floor_ms=floor,
+                         **bound(moved, 0))
+        log(13, f"B3 {RAYS} lanes from ({B3_ROWS}, {cols})"
+                f"{', masked as expand_rows calls it' if masked else ''}: "
+                f"bit-equal, {n_valid} lanes valid; device time a call (CUDA "
                 f"graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"index_select + mask {library_ms:.4f} ms; bound "
-                f"{out[cols]['bound_ms']:.5f} ms (bytes)")
+                f"{out[what]['bound_ms']:.5f} ms (bytes), floor "
+                f"{floor:.5f} ms")
     # The entry: C = 4 (the atlas's RGBA, three of a step's four calls);
-    # C = 3 (the background) beside it.
-    return dict(out[4], background_c3=out[3])
+    # C = 3 (the background) and the masked forms beside it.
+    main = out.pop("C=4")
+    return dict(main, background_c3=out.pop("C=3"), masked_c3=out["C=3 masked"],
+                masked_c4=out["C=4 masked"],
+                other_cols={k: out[k]["ms"] for k in ("C=1", "C=2", "C=10")})
 
 
 def films_agree(what, a, b):
@@ -1000,7 +1104,7 @@ def phase_texture_goldens(dev):
                  max_outside=40)
 
 
-def phase_b4(dev):
+def phase_b4(dev, floor):
     """B4 against its plain version at the main path's shapes, beside
     index_add_ of the masked values (the same library call as B2's)."""
     from mrt_torch.ops import deposit as B4
@@ -1039,10 +1143,12 @@ def phase_b4(dev):
             f"{depositing} depositing onto {touched} rows: max abs err "
             f"{err:.3g} (max {scale:.3g}), depth column exact; device time a "
             f"call (CUDA graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"index_add_ of the masked values {library_ms:.4f} ms; call time "
-            f"(CUDA events): wrapper {call_ms(kernel, 50):.4f} ms")
+            f"index_add_ of the masked values {library_ms:.4f} ms, floor "
+            f"{floor:.5f} ms; call time (CUDA events): wrapper "
+            f"{call_ms(kernel, 50):.4f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, **bound(moved, depositing * 4))
+                library_ms=library_ms, floor_ms=floor,
+                **bound(moved, depositing * 4))
 
 
 def phase_light_goldens(dev):
@@ -1197,10 +1303,10 @@ def main():
     b5 = phase_b5(dev, grid_rays)
     b6 = phase_b6(dev)
     meshes = phase_meshes(dev)
-    b3 = phase_b3(dev)
+    b3 = phase_b3(dev, b2["floor_ms"])
     phase_texture_goldens(dev)
     eve = phase_eve(dev)
-    b4 = phase_b4(dev)
+    b4 = phase_b4(dev, b2["floor_ms"])
     phase_light_goldens(dev)
     nee = phase_nee(dev)
     menger = phase_menger(dev)
@@ -1214,11 +1320,14 @@ def main():
         dict(name="B2 film segment-add", route="cuda",
              source="mrt_torch/csrc/deposit.cu",
              replaces="mrt/ops/pallas_onehot.py:51",
-             launches=grid["B2"], launches_rtiow=rtiow["B2"], **b2),
+             launches=grid["B2"], launches_rtiow=rtiow["B2"],
+             launches_eve_compact=eve["compact"]["launches"]["B2"], **b2),
         dict(name="B3 row gather (compaction expand)", route="cuda",
              source="mrt_torch/csrc/gather.cu",
              replaces="mrt/ops/pallas_onehot.py:218",
-             launches=eve["compact"]["launches"]["B3"], **b3),
+             launches=eve["compact"]["launches"]["B3"],
+             wrapper_host_us=dict(gather=b2["wrapper_host_us"]["gather"]),
+             **b3),
         dict(name="B4 pending film deposit", route="cuda",
              source="mrt_torch/csrc/deposit.cu",
              replaces="mrt/ops/pallas_deposit.py:38",

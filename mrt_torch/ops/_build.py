@@ -12,8 +12,11 @@ interface:
 ``--fmad=false`` keeps nvcc from contracting a*b+c into one rounding,
 so a kernel's arithmetic rounds exactly like its plain PyTorch version.
 The library lands in ``mrt_torch/_build/`` under a name that carries a
-hash of the sources and flags, so an edited source rebuilds.  There is
-no fallback: a missing nvcc or a failed build raises.
+hash of the sources, their headers and the flags, so an edited source
+rebuilds.  There is no fallback: a missing nvcc or a failed build
+raises.  The module also holds what the wrappers of the row kernels B2
+and B3 share: their column range and the checks of a mask and of row
+alignment.
 """
 
 from __future__ import annotations
@@ -40,13 +43,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mrt_nearest_t": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _F, _P, _F,
                       _I, _P, _P, _I, _P),
-    "mrt_deposit": (_P, _I, _I, _P, _P, _I, _I, _P),
+    "mrt_deposit": (_P, _I, _I, _P, _P, _P, _I, _I, _P),
     "mrt_deposit_pending": (_P, _I, _P, _P, _P, _I, _P),
     "mrt_probe_a": (_P, _P, _P, _P, _P),
     "mrt_probe_b": (_P, _I, _I, _P, _P, _P),
     "mrt_probe_c": (_P, _P, _I, _P, _P),
     "mrt_probe_attributes": (_P, _P, _P),
-    "mrt_gather": (_P, _I, _I, _P, _I, _P, _P),
+    "mrt_gather": (_P, _I, _I, _P, _P, _I, _P, _P),
     "mrt_sphere_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _F, _P, _F, _I, _P,
                        _P, _P, _P),
     "mrt_tri_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
@@ -81,7 +84,7 @@ def _sources():
 
 def library_path():
     digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libmrt_kernels-{digest.hexdigest()[:16]}.so"
@@ -171,9 +174,10 @@ def kernel_resources(report=None):
 
 
 def _pretty(mangled):
-    """``tlas_kernel<1,0>`` for a mangled kernel name with bool template
-    arguments (its length-prefixed name parts read in order, the last
-    one kept); the mangled name where it does not parse."""
+    """``tlas_kernel<1,0>`` or ``deposit_kernel<4,0>`` for a mangled
+    kernel name with int or bool template arguments (its length-prefixed
+    name parts read in order, the last one kept); the mangled name where
+    it does not parse."""
     m = re.match(r"_ZN?", mangled)
     pos, name = (m.end(), None) if m else (0, None)
     while True:
@@ -185,20 +189,75 @@ def _pretty(mangled):
         pos += m.end() + size
     if not name:
         return mangled
-    m = re.match(r"I((?:Lb[01]E)+)E", mangled[pos:])
-    flags = re.findall(r"Lb([01])E", m.group(1)) if m else []
+    m = re.match(r"I((?:L[bi]\d+E)+)E", mangled[pos:])
+    flags = re.findall(r"L[bi](\d+)E", m.group(1)) if m else []
     return name + (f"<{','.join(flags)}>" if flags else "")
+
+
+# The row kernels B2 and B3 (csrc/rows.cuh): the column counts they are
+# compiled for (the TPU gather's limit, mrt/ops/pallas_onehot.py::
+# gather_usable), and the alignment of their vector accesses by column
+# count: a row of 4 floats moves as a float4, of 2 as a float2.
+MAX_COLS = 10
+ROW_ALIGN = {4: 16, 2: 8}
+
+
+def check_mask(fn, mask, lanes, device):
+    """Raise unless mask is None or a contiguous bool tensor of shape
+    `lanes` on `device` (one byte a lane, as the row kernels read it)."""
+    if mask is None:
+        return
+    if mask.dtype != torch.bool:
+        raise TypeError(f"{fn}: mask is {mask.dtype}, not bool")
+    if mask.shape != lanes or mask.device != device:
+        raise ValueError(f"{fn}: mask {tuple(mask.shape)} on {mask.device}, "
+                         f"expected {tuple(lanes)} on {device}")
+    if not mask.is_contiguous():
+        raise ValueError(f"{fn}: mask is not contiguous")
+
+
+def check_aligned(fn, cols, **tensors):
+    """Raise ValueError unless each tensor's data is aligned for rows of
+    `cols` floats read or written as one vector (16 bytes at 4 columns,
+    8 at 2; any float pointer otherwise)."""
+    align = ROW_ALIGN.get(cols)
+    if align is None:
+        return
+    for name, x in tensors.items():
+        if x.data_ptr() % align:
+            raise ValueError(f"{fn}: {name} is not {align}-byte aligned (rows "
+                             f"of {cols} floats move as one vector)")
+
+
+_entries = {}
+_raw_stream = None
+
+
+def _entry(name):
+    """The C entry `name`, with the stream getter, looked up once."""
+    global _raw_stream
+    if _raw_stream is None:
+        # The current stream's handle as an int, without building a
+        # torch.cuda.Stream (torch's private getter where it has one).
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+            or (lambda index: torch.cuda.current_stream(index).cuda_stream)
+    fn = _entries[name] = getattr(library(), name)
+    return fn
 
 
 def launch(name, device, *args):
     """Call C entry `name` on `device`'s current stream; raise on a
     CUDA error.  Tensor arguments pass as their data pointers, None as a
     null pointer."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        cargs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
-        err = getattr(lib, name)(*cargs, stream)
+    fn = _entries.get(name) or _entry(name)
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+             for a in args]
+    index = torch.cuda.current_device()
+    if device.index is None or device.index == index:
+        err = fn(*cargs, _raw_stream(index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*cargs, _raw_stream(device.index))
     if err != 0:
-        msg = lib.mrt_error_string(err).decode()
+        msg = library().mrt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -5,7 +5,9 @@ masked rows only: each round packs at most K masked rows of x, in lane
 order, to the front of a (K, C) buffer (``compact_rows``: each row
 placed at its prefix position by kernel B2, one value a row, so the sum
 is exact), applies fn there, and scatters the results back to their
-lanes (``expand_rows``: kernel B3).  Values are copied, never combined,
+lanes (``expand_rows``: kernel B3).  Both kernels take the prefix
+positions and the mask as they are and read no unmasked row, so a
+non-finite value there cannot leak.  Values are copied, never combined,
 so the result equals ``where(mask, fn(x), 0)`` row for row, except that
 a non-finite fn output is dropped to 0, as in the reference.
 
@@ -40,11 +42,10 @@ def compact_rows(mask, x, k, pad_row=None):
     dropped.  Returns (xc (k, C), pos (P,) int32 prefix positions, count
     () int32 masked rows)."""
     c = x.shape[1]
-    pos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    pos = torch.cumsum(mask, 0, dtype=torch.int32) - 1
     count = pos[-1] + 1
     xc = torch.zeros((k, c), dtype=torch.float32, device=x.device)
-    deposit(xc, torch.where(mask, pos, -1),
-            torch.where(mask[:, None], x, 0.0))
+    deposit(xc, pos, x.contiguous(), mask=mask)
     covered = torch.arange(k, dtype=torch.int32, device=x.device) < count
     pad = 0.0 if pad_row is None else torch.as_tensor(
         pad_row, dtype=torch.float32, device=x.device)
@@ -54,8 +55,8 @@ def compact_rows(mask, x, k, pad_row=None):
 
 def expand_rows(y, pos, mask):
     """The inverse of compact_rows for per-row results y (k, C):
-    out[p] = y[pos[p]] where mask[p], else 0."""
-    return gather(y.contiguous(), torch.where(mask, pos, -1))
+    out[p] = y[pos[p]] where mask[p] and pos[p] < k, else 0."""
+    return gather(y.contiguous(), pos, mask=mask)
 
 
 def compact_apply(fn, mask, x, k, pad_row=None):
@@ -67,16 +68,18 @@ def compact_apply(fn, mask, x, k, pad_row=None):
     if pad_row is not None:  # one copy to the device for all rounds
         pad_row = torch.as_tensor(pad_row, dtype=torch.float32,
                                   device=x.device)
+    rounds = -(-p // k)
     out = None
-    m = mask
-    for _ in range(-(-p // k)):
-        first = m & (torch.cumsum(m.to(torch.int32), 0) <= k)
-        xc, pos, _ = compact_rows(first, x, k, pad_row=pad_row)
+    m = mask.contiguous()
+    for r in range(rounds):
+        # The first k lanes left in m take positions 0..k-1; the kernels
+        # drop the rest (pos >= k), which the next round takes.
+        xc, pos, _ = compact_rows(m, x, k, pad_row=pad_row)
         y = fn(xc)
         y = torch.where(torch.isfinite(y), y, 0.0)
-        if out is None:
-            out = torch.zeros((p,) + y.shape[1:], dtype=y.dtype,
-                              device=x.device)
-        out = out + expand_rows(y, pos, first)
-        m = m & ~first
+        g = expand_rows(y, pos, m)
+        # 0.0 + g as the reference's zeros + g: -0.0 becomes +0.0.
+        out = g + 0.0 if out is None else out + g
+        if r + 1 < rounds:
+            m = m & (pos >= k)
     return out

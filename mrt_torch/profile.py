@@ -197,10 +197,15 @@ def main(argv=None):
     for e in prof.events():
         if e.name in names and not on_device(e):
             layers[e.name] += _device_us(e) / 1e3
-    kernels = {k: _device_us(e, self_only=True) / 1e3 for e in device
-               for k, v in KERNELS.items() if v in e.key}
-    calls = {k: e.count for e in device for k, v in KERNELS.items()
-             if v in e.key}
+    # Summed over each kernel's template instances (B2's and B3's column
+    # counts, B7's regimes).
+    kernels, calls = {}, {}
+    for e in device:
+        for k, v in KERNELS.items():
+            if v in e.key:
+                kernels[k] = (kernels.get(k, 0.0)
+                              + _device_us(e, self_only=True) / 1e3)
+                calls[k] = calls.get(k, 0) + e.count
     out = dict(scene=args.scene, nee=args.nee, rr_depth=args.rr_depth,
                steps_limit=args.steps,
                film_pend=os.environ.get("MRT_FILM_PEND", ""),

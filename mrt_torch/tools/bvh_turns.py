@@ -1,33 +1,43 @@
-"""Kernels B1, B5, B6 and B7 of this checkout, or of another one, in
-turns on the card at the main path's shapes.
+"""Kernels B1, B2, B3, B5, B6 and B7 of this checkout, or of another
+one, in turns on the card at the main path's shapes.
 
-    python -m mrt_torch.tools.bvh_turns [--escape] [--out FILE] [--turns N]
-    python mrt_torch/tools/bvh_turns.py --root DIR [--out FILE] [--turns N]
+    python -m mrt_torch.tools.bvh_turns [--escape] [--kernels K]
+        [--out FILE] [--turns N]
+    python mrt_torch/tools/bvh_turns.py --root DIR [--kernels K]
+        [--out FILE] [--turns N]
 
 The rays are 2^17 of each scene's main path at 1920x1080, spp 2
 (``chip_smoke.path_rays``: camera rays spread over the frame and first
 bounces) and, for B1 and B5, also the rays that steps 2 and 64 of one
 1080p pass (``chip_smoke.CAPTURE_STEPS``) give the kernel, in the lane
-order of the pool (``chip_smoke.captured_rays``).  Each entry is timed
-as the device time of one call, by CUDA-graph replay of ``REPS`` calls
-(``chip_smoke.graph_ms``; an entry named ", as called": between CUDA
-events, ``chip_smoke.call_ms``, host launches in), and the entries take
-turns: each once, then each again, ``--turns`` times.  One line an entry
-(the time of each turn) and one JSON line at the end; ``--out`` also
-writes the JSON.
+order of the pool (``chip_smoke.captured_rays``).  B2 and B3 take
+chip_smoke's lanes: 2^17 film lanes (``b2_lanes``) and one compaction
+round of the eve fleet (``compaction_lanes``: ~70% masked, 32,768 rows).
+Each entry is timed as the device time of one call, by CUDA-graph replay
+of ``REPS`` calls (``SMALL_REPS`` for B2, B3 and the floor, as
+chip_smoke times them; ``chip_smoke.graph_ms``; an entry named ", as
+called": between CUDA events, ``chip_smoke.call_ms``, host launches in;
+", host": host microseconds a call, the mean of ``HOST_CALLS`` calls
+without a sync, ``chip_smoke.host_us``), and the entries take turns: each
+once, then each again, ``--turns`` times.  One line an entry (the time of
+each turn) and one JSON line at the end; ``--out`` also writes the JSON.
 
-Entries: B1 on RTIOW's and B5 on sphere_grid's ray sets
-(``sphere_entries``: the kernel, and the wrapper as the scene's
+Entries (``--kernels bvh``): B1 on RTIOW's and B5 on sphere_grid's ray
+sets (``sphere_entries``: the kernel, and the wrapper as the scene's
 intersection calls it; B1 also with its tables in global memory);
 B6 over lucy's 16 flat parts (one launch over their forest; with an
 earlier checkout, one launch a part), B6 over playground's flat set, B7
 on lucy, eve, cornell and playground (in the regime the wrapper picks).
+``--kernels compaction``: B2 and B3, each after the op that precedes it
+on the path, the launch floor, the whole ``compact_rows`` and
+``compact_apply``, and the wrappers' host time (``compaction_entries``).
 ``--root DIR`` times the wrappers of the checkout at DIR (an earlier
 commit; each kernel's entries follow the arguments its wrapper takes:
 the reference layout and one B6 launch a part before the packed tables,
 B1 and B5 without their kernel tables before the grouped and
-octant-ordered kernels), to be run in the same call as this checkout,
-in turns.
+octant-ordered kernels, B2 and B3 with indices and rows masked first
+before they took the mask), to be run in the same call as this checkout,
+in turns (DIR, this checkout, this checkout, DIR).
 ``--escape`` adds this checkout's kernels walking the escape order in
 every tree (a threading table of node + 1 / escape in every octant),
 against which the octant order of the trees of ``OCTANT_MIN_NODES``
@@ -49,6 +59,8 @@ import torch
 TREE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 REPS = 20
+SMALL_REPS = 50  # as chip_smoke.py times B2, B3 and the floor
+HOST_CALLS = 1000
 
 
 def _smoke():
@@ -227,6 +239,86 @@ def entries(smoke, dev, escape):
     return out
 
 
+def compaction_entries(smoke, dev):
+    """{name: fn} of B2 and B3 at their main-path shapes, each alone
+    (" alone") and after the op that precedes it on the path: the launch
+    floor (a one-element add_); B2 on the film (after the lanes' slots),
+    as compaction's placer (after the cumsum of prefix positions and the
+    buffer's zeros) and the whole ``compact_rows``; B3 at 3 and 4 columns
+    (after compact_apply's isfinite/where of the table), unmasked and
+    masked as ``expand_rows`` calls it; ``compact_apply`` (4 rounds); and
+    on the host clock (", host"), one call of each wrapper and of
+    ``compact_apply``, beside the add_ whose host time divides out the
+    host's speed.  An earlier checkout's wrappers without ``mask=`` get
+    their indices and rows masked first, as its ``compact`` does (outside
+    the timed call for the kernels alone)."""
+    from mrt_torch.ops import compact
+    from mrt_torch.ops import deposit as B2
+    from mrt_torch.ops import gather as B3
+
+    k, masked = smoke.B3_ROWS, takes(B2.deposit, "mask")
+    one = torch.zeros((1,), device=dev)
+    idx, vals = smoke.b2_lanes(dev)
+    active, q = idx >= 0, idx.to(torch.int64)
+    film = torch.zeros((smoke.WIDTH * smoke.HEIGHT, 4), device=dev)
+    mask, pos, x = smoke.compaction_lanes(dev, 3, 19)
+    lanes = torch.where(mask & (pos < k), pos, -1).contiguous()
+
+    def placer():
+        p = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+        xc = torch.zeros((k, 3), device=dev)
+        if masked:
+            return B2.deposit(xc, p, x, mask=mask)
+        return B2.deposit(xc, torch.where(mask, p, -1),
+                          torch.where(mask[:, None], x, 0.0))
+
+    finite = lambda y: torch.where(torch.isfinite(y), y, 0.0)
+    xc = torch.zeros((k, 3), device=dev)
+    if masked:
+        place = lambda: B2.deposit(xc, pos, x, mask=mask)
+        expand = lambda y: B3.gather(y, pos, mask=mask)
+    else:
+        placed = torch.where(mask[:, None], x, 0.0)
+        place = lambda: B2.deposit(xc, lanes, placed)
+        expand = lambda y: B3.gather(y, lanes)
+    out = {
+        "floor: add_ of one element": lambda: one.add_(1.0),
+        "B2 film": lambda: B2.deposit(
+            film, torch.where(active, q, -1).to(torch.int32), vals),
+        "B2 film alone": lambda: B2.deposit(film, idx, vals),
+        "B2 placer": placer,
+        "B2 placer alone": place,
+        "compact_rows": lambda: compact.compact_rows(mask, x, k),
+    }
+    tables = {c: torch.randn((k, c), device=dev) for c in (3, 4)}
+    for c, y in tables.items():
+        out[f"B3 C={c}"] = lambda y=y: B3.gather(finite(y), lanes)
+        out[f"B3 C={c} alone"] = lambda y=y: B3.gather(y, lanes)
+        out[f"B3 C={c} masked"] = (
+            lambda y=y: compact.expand_rows(finite(y), pos, mask))
+        out[f"B3 C={c} masked alone"] = lambda y=y: expand(y)
+    out["compact_apply (4 rounds)"] = lambda: compact.compact_apply(
+        finite, mask, x, k)
+    out["host: add_ of one element, host"] = lambda: one.add_(1.0)
+    out["host: deposit (film), host"] = lambda: B2.deposit(film, idx, vals)
+    out["host: gather (C=4), host"] = lambda: B3.gather(tables[4], lanes)
+    out["host: compact_apply (4 rounds), host"] = (
+        lambda: compact.compact_apply(lambda r: r, mask, x, k))
+    return out
+
+
+def timer(smoke, name):
+    """How entry `name` is timed: host microseconds a call (", host"),
+    CUDA events (", as called"), else CUDA-graph replay (REPS calls;
+    SMALL_REPS for the launch-bound compaction kernels)."""
+    if name.endswith(", host"):
+        return lambda fn: smoke.host_us(fn, HOST_CALLS)
+    if name.endswith(", as called"):
+        return lambda fn: smoke.call_ms(fn, REPS)
+    small = name.startswith(("floor", "B2", "B3", "compact"))
+    return lambda fn: smoke.graph_ms(fn, SMALL_REPS if small else REPS)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", help="time this checkout's wrappers instead")
@@ -234,6 +326,9 @@ def main():
                     help="add the kernels walking the escape order")
     ap.add_argument("--out", help="write the JSON here too")
     ap.add_argument("--turns", type=int, default=3)
+    ap.add_argument("--kernels", choices=("all", "bvh", "compaction"),
+                    default="all", help="the BVH and sphere kernels (B1, "
+                    "B5-B7), the compaction kernels (B2, B3), or both")
     args = ap.parse_args()
     if args.root and args.escape:
         ap.error("--escape times this checkout's kernels, not --root's")
@@ -249,20 +344,25 @@ def main():
             mrt_torch.__file__))) != root:
         raise RuntimeError(f"bvh_turns: mrt_torch is not {root}'s")
     dev = torch.device("cuda", 0)
-    runs = entries(smoke, dev, args.escape)
+    runs = {}
+    if args.kernels != "compaction":
+        runs.update(entries(smoke, dev, args.escape))
+    if args.kernels != "bvh":
+        runs.update(compaction_entries(smoke, dev))
+    timers = {name: timer(smoke, name) for name in runs}
     times = {}
     for _ in range(args.turns):
         for name, fn in runs.items():
-            timer = (smoke.call_ms if name.endswith(", as called")
-                     else smoke.graph_ms)
-            times.setdefault(name, []).append(timer(fn, REPS))
+            times.setdefault(name, []).append(timers[name](fn))
     card = smoke.card_line()
     print(f"card: {card}", flush=True)
-    for key, ms in times.items():
-        print(f"{key}: " + ", ".join(f"{t:.4f}" for t in ms)
-              + f" ms (min {min(ms):.4f})", flush=True)
+    for key, ts in times.items():
+        unit = "us" if key.endswith(", host") else "ms"
+        print(f"{key}: " + ", ".join(f"{t:.5f}" for t in ts)
+              + f" {unit} (min {min(ts):.5f})", flush=True)
     line = json.dumps(dict(tree=root, device=card, rays=smoke.RAYS,
-                           reps=REPS, ms=times))
+                           reps=REPS, small_reps=SMALL_REPS,
+                           host_calls=HOST_CALLS, ms=times))
     print(line, flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

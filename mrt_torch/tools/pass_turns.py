@@ -2,7 +2,7 @@
 process, with the host time of each layer of the step.
 
     python mrt_torch/tools/pass_turns.py --root DIR [--scene sphere_grid]
-        [--rounds 3] [--passes 2] [--out FILE]
+        [--rounds 3] [--passes 2] [--unchanged LAYER ...] [--out FILE]
     python mrt_torch/tools/pass_turns.py --read FILE [FILE ...]
 
 Loads the package of the checkout at DIR beside this checkout's (as
@@ -15,15 +15,16 @@ passes run the main path (1920x1080, depth 50, spp 2, pool 2^17); each
 records its wall time and, on the host clock and without a device sync,
 the time spent inside each layer of the step (``mrt_torch.profile``'s
 layers, each inclusive: the voxel walk is inside intersect), inside the
-whole step and inside the B1 and B5 wrappers.  A pass is host-bound, so
-a layer's host time is what issuing its work costs, plus whatever wait
-for the device falls inside it.  Prints one line a turn, then for each
-scene the median of each checkout, the pass in units of the host time of
-the layers both checkouts share (``UNCHANGED``: the host's speed divided
-out) and, a round at a time, this checkout's mean minus DIR's, and one
-JSON line at the end (``--out`` also writes it; ``--read`` prints the
-summary of such files again, without a card).  Needs a CUDA device;
-imports no JAX.
+whole step, inside the B1 and B5 wrappers, and inside compaction
+(``compact_apply``, and the B2 and B3 calls it makes).  A pass is
+host-bound, so a layer's host time is what issuing its work costs, plus
+whatever wait for the device falls inside it.  Prints one line a turn,
+then for each scene the median of each checkout, the pass in units of
+the host time of the layers both checkouts share (``UNCHANGED``, or the
+layers ``--unchanged`` names: the host's speed divided out) and, a round
+at a time, this checkout's mean minus DIR's, and one JSON line at the
+end (``--out`` also writes it; ``--read`` prints the summary of such
+files again, without a card).  Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -46,6 +47,9 @@ WRAPPERS = (
     ("step", "mrt_torch.integrator.persistent", "LanePool.step"),
     ("B1 wrapper", "mrt_torch.ops.spheres", "nearest_t"),
     ("B5 wrapper", "mrt_torch.ops.bvh", "sphere_bvh_hit"),
+    ("compaction", "mrt_torch.ops.compact", "compact_apply"),
+    ("B2 placer wrapper", "mrt_torch.ops.compact", "deposit"),
+    ("B3 wrapper", "mrt_torch.ops.compact", "gather"),
 )
 
 
@@ -139,11 +143,13 @@ class Tree:
 
 
 # Layers whose code two checkouts share: their host time measures the
-# host's speed, which varies between processes and within one.
+# host's speed, which varies between processes and within one.  (With
+# compaction on, shade_hit and the background run compact_apply: then
+# name only make_rays with --unchanged.)
 UNCHANGED = ("L1 make_rays", "L3 shade_hit")
 
 
-def summary(records):
+def summary(records, unchanged=UNCHANGED):
     """Per checkout (the first record's is DIR's): the median pass and
     host times, and the pass in units of the unchanged layers' host time
     (ms a ms; its median, min and max over the passes): the pass with
@@ -152,7 +158,7 @@ def summary(records):
     base = records[0]["tree"]
     tree = next(r["tree"] for r in records if r["tree"] != base)
     out = dict(root=base, tree=tree, median={}, per_unchanged={},
-               tree_minus_root=[])
+               unchanged=list(unchanged), tree_minus_root=[])
     for root in (base, tree):
         mine = [r for r in records if r["tree"] == root]
         out["median"][root] = dict(
@@ -160,7 +166,7 @@ def summary(records):
             host_ms={k: statistics.median(x for r in mine
                                           for x in r["host_ms"][k])
                      for k in mine[0]["host_ms"]})
-        ratio = [wall * 1e3 / sum(r["host_ms"][k][i] for k in UNCHANGED)
+        ratio = [wall * 1e3 / sum(r["host_ms"][k][i] for k in unchanged)
                  for r in mine for i, wall in enumerate(r["pass_s"])]
         out["per_unchanged"][root] = (statistics.median(ratio), min(ratio),
                                       max(ratio))
@@ -176,9 +182,9 @@ def summary(records):
     return out
 
 
-def report(scene, records):
+def report(scene, records, unchanged=UNCHANGED):
     """Print the summary of one scene's turns; return it."""
-    s = summary(records)
+    s = summary(records, unchanged)
     for root, m in s["median"].items():
         which = "root" if root == s["root"] else "tree"
         mid, lo, hi = s["per_unchanged"][root]
@@ -201,6 +207,9 @@ def main():
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--passes", type=int, default=2)
     ap.add_argument("--out", help="write the JSON here too")
+    ap.add_argument("--unchanged", nargs="+", default=list(UNCHANGED),
+                    help="the layers whose host time divides out the "
+                    f"host's speed (default: {', '.join(UNCHANGED)})")
     ap.add_argument("--read", nargs="+", metavar="JSON",
                     help="summarise earlier runs' JSON instead (no card)")
     args = ap.parse_args()
@@ -210,7 +219,8 @@ def main():
                 result = json.loads(f.read().strip().splitlines()[-1])
             print(f"{path}: {result['device']}")
             for scene, v in result["scenes"].items():
-                report(scene, v["records"])
+                report(scene, v["records"],
+                       v.get("unchanged", args.unchanged))
         return 0
     if not args.root:
         ap.error("--root or --read is needed")
@@ -240,8 +250,8 @@ def main():
                                   for k, v in r["host_ms"].items())
                       + " host ms (median)", flush=True)
         del trees
-        result["scenes"][scene] = dict(records=records,
-                                       **report(scene, records))
+        result["scenes"][scene] = dict(
+            records=records, **report(scene, records, args.unchanged))
     line = json.dumps(result)
     print(line, flush=True)
     if args.out:

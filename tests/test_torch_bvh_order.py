@@ -422,13 +422,17 @@ ptxas info    : Compiling entry function '_ZN{len(ns)}{ns}14tri_bvh_kernelEPK6fl
 ptxas info    : Function properties for _ZN{len(ns)}{ns}14tri_bvh_kernelEPK6float4
     16 bytes stack frame, 24 bytes spill stores, 20 bytes spill loads
 ptxas info    : Used 55 registers, 1024 bytes smem, 448 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN{len(ns)}{ns}14deposit_kernelILi4ELb0EEEvPfiPKiPKhPKfi' for 'sm_90a'
+ptxas info    : Used 14 registers, used 0 barriers
 """
     got = _build.kernel_resources(report)
     assert got == [
         dict(name="tlas_kernel<1>", registers=70, stack=0, spill_stores=0,
              spill_loads=0, smem=0),
         dict(name="tri_bvh_kernel", registers=55, stack=16, spill_stores=24,
-             spill_loads=20, smem=1024)]
+             spill_loads=20, smem=1024),
+        dict(name="deposit_kernel<4,0>", registers=14, stack=0,
+             spill_stores=0, spill_loads=0, smem=0)]
 
 
 def test_checkpoint_keeps_the_aov_guides(tmp_path):

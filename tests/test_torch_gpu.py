@@ -19,8 +19,13 @@ winners on 99.9% of rays.  B6 runs on lucy's flat parts
 (one launch for all 16) and on a SAH statue with per-lane t bounds and
 zero directions.  The B6 and B7 wrappers raise on a missing threading
 table and on misaligned tables.
-B3 copies rows, at the eve fleet's compaction shapes; ``compact_apply``
-through B2 and B3 equals its plain version on the CPU.  B4 adds the
+B3 copies rows at the eve fleet's compaction shapes, at every column
+count it is compiled for (1 to 10), with and without the compaction
+mask; B2 adds masked rows at 1 to 5 columns, bit-equal on unique rows
+(compaction's placer) and on dyadic values, within f32 reassociation with
+all 2^17 lanes on one row (its count column exact); both wrappers refuse
+misaligned vector rows, and both kernels replay in a CUDA graph;
+``compact_apply`` through B2 and B3 equals its plain version on the CPU.  B4 adds the
 dying lanes' dyadic values like its plain version; the probes P1-P3 give
 their plain versions' values (P3 up to the card's opt-in limit and a
 refusal past it).
@@ -467,32 +472,149 @@ def test_b7_wrapper_raises_instead_of_falling_back(cuda):
         bvh.tlas_hit(view(t_order=tl.t_order[:4]), o, d, 1e-3, 1.0)
 
 
-@pytest.mark.parametrize("cols", [3, 4])
+@pytest.mark.parametrize("cols", range(1, 11))
 def test_b3_kernel_matches_plain(cuda, cols):
-    # The eve fleet at 1080p: 2^17 lanes, K = 32,768 compacted rows.
+    # The eve fleet at 1080p: 2^17 lanes, K = 32,768 compacted rows; one
+    # lane past the last full warp.
     g = torch.Generator().manual_seed(3)
-    p, k = 1 << 17, 32768
+    p, k = (1 << 17) + 1, 32768
     table = (torch.randn((k, cols), generator=g)
              * 10.0 ** torch.randint(-20, 20, (k, cols), generator=g))
+    table[5] = -0.0
     idx = torch.randint(-5, k + 5, (p,), generator=g, dtype=torch.int32)
-    idx[:7] = torch.tensor([-1, k, k + 1, 0, k - 1, -(2 ** 31), 2 ** 31 - 1],
+    idx[:9] = torch.tensor([-1, k, k + 1, 0, k - 1, -(2 ** 31),
+                            -(2 ** 31) + 1, 2 ** 31 - 1, 5],
                            dtype=torch.int32)
-    before = B3.gather.launches
-    got = B3.gather(table.to(cuda), idx.to(cuda))
-    want = B3.gather_plain(table.to(cuda), idx.to(cuda))
-    torch.cuda.synchronize()
-    assert B3.gather.launches == before + 1
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert torch.equal(got.cpu(), B3.gather_plain(table, idx))
-    assert (got[:3] == 0).all() and (got[5:7] == 0).all()
+    mask = torch.rand((p,), generator=g) < 0.7
+    table, idx, mask = table.to(cuda), idx.to(cuda), mask.to(cuda)
+    for m in (None, mask):
+        before = B3.gather.launches
+        got = B3.gather(table, idx, mask=m)
+        want = B3.gather_plain(table, idx, mask=m)
+        torch.cuda.synchronize()
+        assert B3.gather.launches == before + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert (got[:3] == 0).all() and (got[5:8] == 0).all()
+    assert torch.equal(got.cpu(), B3.gather_plain(table.cpu(), idx.cpu(),
+                                                  mask=mask.cpu()))
 
 
 def test_b3_wrapper_raises_instead_of_falling_back(cuda):
     table = torch.zeros((8, 3), device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
-        B3.gather(table, torch.zeros(4, dtype=torch.int64, device=cuda))
+        B3.gather(table, idx.long())
     with pytest.raises(ValueError, match="contiguous"):
-        B3.gather(table.t(), torch.zeros(4, dtype=torch.int32, device=cuda))
+        B3.gather(table.t(), idx)
+    with pytest.raises(ValueError, match="columns"):
+        B3.gather(torch.zeros((8, 11), device=cuda), idx)
+    with pytest.raises(TypeError, match="mask"):
+        B3.gather(table, idx, mask=torch.ones(4, dtype=torch.uint8,
+                                              device=cuda))
+    with pytest.raises(ValueError, match="mask"):
+        B3.gather(table, idx, mask=torch.ones(4, dtype=torch.bool))
+    for cols in (2, 4):
+        with pytest.raises(ValueError, match="aligned"):
+            B3.gather(_misaligned(torch.zeros((8, cols), device=cuda)), idx)
+
+
+def _b2_case(cuda, cols, unique, seed):
+    """2^17 lanes of dyadic values (exact sums in any order), ~70%
+    masked; unique rows (compaction: the first 32,768 masked lanes at
+    their prefix positions) or random rows with repeats."""
+    g = torch.Generator().manual_seed(seed)
+    p = 1 << 17
+    mask = torch.rand((p,), generator=g) < 0.7
+    if unique:
+        rows = 32768
+        idx = (torch.cumsum(mask.to(torch.int32), 0) - 1).to(torch.int32)
+    else:
+        rows = 5000
+        idx = torch.randint(-10, rows + 10, (p,), generator=g,
+                            dtype=torch.int32)
+    vals = torch.randint(-64, 64, (p, cols), generator=g).float() / 8
+    vals[~mask] = float("nan")  # never read
+    return rows, idx.to(cuda), vals.to(cuda), mask.to(cuda)
+
+
+@pytest.mark.parametrize("cols", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("unique", [True, False])
+def test_b2_kernel_with_mask_matches_plain(cuda, cols, unique):
+    rows, idx, vals, mask = _b2_case(cuda, cols, unique, 20 + cols)
+    for drop in (False, True):
+        before = B2.deposit.launches
+        k = B2.deposit(torch.zeros((rows, cols), device=cuda), idx, vals,
+                       drop, mask=mask)
+        q = B2.deposit_plain(torch.zeros((rows, cols), device=cuda), idx,
+                             vals, drop, mask=mask)
+        torch.cuda.synchronize()
+        assert B2.deposit.launches == before + 1
+        assert torch.equal(k.view(torch.int32), q.view(torch.int32))
+        assert torch.isfinite(k).all() and k.abs().sum() > 0
+
+
+@pytest.mark.parametrize("cols", [1, 2, 3, 4, 5])
+def test_b2_kernel_all_lanes_onto_one_row(cuda, cols):
+    # Every lane adds into row 3: the worst contention.  Sums of 2^17
+    # values in [0, 1) within f32 reassociation (rtol 1e-4); the last
+    # column counts bounces (integers < 2^24): exact.
+    g = torch.Generator().manual_seed(30 + cols)
+    p = 1 << 17
+    idx = torch.full((p,), 3, dtype=torch.int32, device=cuda)
+    vals = torch.rand((p, cols), generator=g).to(cuda)
+    vals[:, -1] = (vals[:, -1] < 0.6).float()
+    vals[7, 0] = float("nan")  # dropped with drop_nonfinite
+    film = torch.full((8, cols), -0.0, device=cuda)
+    k = B2.deposit(film.clone(), idx, vals, drop_nonfinite=True)
+    q = B2.deposit_plain(film.clone(), idx, vals, drop_nonfinite=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k[:, -1], q[:, -1])
+    assert torch.allclose(k, q, rtol=1e-4, atol=0)
+    # Rows no lane touched keep their -0.0.
+    assert torch.equal(k[4:].view(torch.int32), film[4:].view(torch.int32))
+    assert torch.equal(k[4:].view(torch.int32), q[4:].view(torch.int32))
+
+
+def test_b2_wrapper_raises_instead_of_falling_back(cuda):
+    idx = torch.zeros(16, dtype=torch.int32, device=cuda)
+    for cols in (2, 4):
+        film = torch.zeros((8, cols), device=cuda)
+        vals = torch.zeros((16, cols), device=cuda)
+        with pytest.raises(ValueError, match="film is not"):
+            B2.deposit(_misaligned(film), idx, vals)
+        with pytest.raises(ValueError, match="vals is not"):
+            B2.deposit(film, idx, _misaligned(vals))
+    with pytest.raises(ValueError, match="columns"):
+        B2.deposit(torch.zeros((8, 11), device=cuda), idx,
+                   torch.zeros((16, 11), device=cuda))
+    with pytest.raises(TypeError, match="mask"):
+        B2.deposit(film, idx, vals, mask=idx)
+
+
+def test_b2_and_b3_in_a_cuda_graph(cuda):
+    # As compaction calls them: B2 places the masked rows, B3 expands.
+    rows, idx, vals, mask = _b2_case(cuda, 3, True, 40)
+    vals = torch.nan_to_num(vals)
+    film = torch.zeros((rows, 3), device=cuda)
+    calls = {
+        "B2": lambda: (B2.deposit(film.zero_(), idx, vals, mask=mask),),
+        "B3": lambda: (B3.gather(vals[:rows].contiguous(), idx, mask=mask),),
+    }
+    for name, fn in calls.items():
+        want = [x.clone() for x in fn()]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fn()
+        for x in got:
+            x.fill_(7.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
 
 
 def test_compact_apply_through_kernels(cuda):
