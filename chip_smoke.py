@@ -90,7 +90,24 @@ Each phase prints one line:
  19. the probes P1-P3 (``python -m mrt_torch.tools.probe_stream``): P1
      against its closed form, P2 visiting all 1,024 chain entries through
      a paged shared-memory cache, L2 and shared memory, P3 succeeding up
-     to the card's opt-in shared memory a block and refused past it.
+     to the card's opt-in shared memory a block and refused past it;
+ 20. the gradient path (``mrt_torch.inverse``): tests/test_grad.py's
+     albedo recovery (12x12, 60 Adam steps; the loss below 0.6 of the
+     first, the albedo within 0.08); one forward and backward pass of the
+     L2 loss of RTIOW at 1920x1080, spp 1, depth 6, with its albedo rows
+     and 484 sphere centres as parameters, against a target with the
+     albedos perturbed: forward and backward ms (CUDA events, wall
+     clock), peak device bytes, B1's launches in the forward and in the
+     checkpoint's recompute (once a bounce each, no other kernel), all
+     gradients finite, the recomputed roots bit-equal to B1's t; a second
+     1080p pass records the inputs of its 12 searches, and
+     nearest_t_plain on the same inputs on the card must give B1's t and
+     index bit for bit, the recomputed roots B1's t on every hit lane;
+     the gather's backward at that shape, index_select (the path's)
+     beside indexing; kernels a recovery step (torch.profiler); then the
+     same camera at 256x144 with B1's winners and with nearest_t_plain's
+     on the card: winners bit-equal, gradients within 1e-5 of the
+     largest.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after.  Then a JSON line with each kernel's numbers (B2, B3
@@ -142,6 +159,11 @@ B8_INSTANCES = 8000
 # B3 at the eve fleet's compaction: a round of 32,768 rows (compact.rows_for
 # of the 2^17-lane pool) expanded back to the lanes.
 B3_ROWS = 32768
+# Phase 20: the gradient path's full size, the crop where B1's winners
+# are held against the plain version's, and the albedo recovery's size.
+GRAD_W, GRAD_H = WIDTH, HEIGHT
+CROP_W, CROP_H = 256, 144
+GRAD_RECOVER = 12
 # The main path's steps whose sphere rays phases 3 and 7 also take: an
 # early step and one about mid-pass (RTIOW's pass takes ~136 steps,
 # sphere_grid's ~216).
@@ -1271,6 +1293,322 @@ def phase_probes(dev):
     return rows
 
 
+def events_wall_ms(fn):
+    """(fn's result, its milliseconds between CUDA events, its wall-clock
+    milliseconds), timed from a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, ms = events_ms(fn)
+    return out, ms, (time.perf_counter() - t0) * 1e3
+
+
+def recover_albedo(dev, steps=60):
+    """tests/test_grad.py's albedo recovery on the card: 60 Adam steps at
+    12x12, spp 4, depth 4 from (0.3, 0.5, 0.5) towards (0.7, 0.2, 0.4).
+    Returns (final albedo, losses)."""
+    from mrt_torch import inverse
+    from mrt_torch.core.camera import Camera
+    from mrt_torch.geometry.scene import Scene
+    from mrt_torch.geometry.spheres import Spheres
+    from mrt_torch.materials.background import SkyBackground
+    from mrt_torch.materials.table import MaterialBuilder
+
+    b = MaterialBuilder()
+    ground, free = b.lambertian((0.5, 0.5, 0.5)), b.lambertian((1, 1, 1))
+    table = b.build().to(dev)
+    spheres = Spheres(torch.tensor([[0.0, -100.5, -2.0], [0.0, 0.0, -2.0]]),
+                      torch.tensor([100.0, 0.5]),
+                      torch.tensor([ground, free], dtype=torch.int32)).to(dev)
+    sky = SkyBackground.create().to(dev)
+
+    def apply(albedo):
+        rows = table.albedo.clone()
+        rows[free, :3] = albedo
+        return Scene(materials=table.replace(albedo=rows), background=sky,
+                     spheres=spheres)
+
+    camera = Camera.create(60.0, (0, 0, 0), (0, 0, -1), (0, 1, 0),
+                           aspect_ratio=1.0).to(dev)
+    with torch.no_grad():
+        target = inverse.render_image(
+            apply(torch.tensor([0.7, 0.2, 0.4], device=dev)), camera,
+            GRAD_RECOVER, GRAD_RECOVER, spp=8, seed=11, max_depth=4)
+    return inverse.optimize(apply, torch.tensor([0.3, 0.5, 0.5], device=dev),
+                            camera, GRAD_RECOVER, GRAD_RECOVER, target,
+                            steps=steps, learning_rate=0.05, spp=4,
+                            max_depth=4,
+                            seed=100)
+
+
+def rtiow_grad(dev):
+    """RTIOW as the main path renders it (484 spheres through B1) with its
+    material table's albedo rows and its sphere centres as parameters:
+    (apply(params) -> Scene, the starting params, the camera, the target
+    params: the albedo rows perturbed by up to +-20%)."""
+    from mrt_torch.scenes import get
+
+    scene, camera = get("rtiow")().generate(device=dev)
+    albedo, center = scene.materials.albedo, scene.spheres.center
+    check(center.shape == (484, 3), f"RTIOW has {center.shape[0]} spheres")
+
+    def apply(params):
+        a, c = params
+        return scene.replace(materials=scene.materials.replace(albedo=a),
+                             spheres=scene.spheres.replace(center=c))
+
+    rs = np.random.default_rng(20)
+    scale = torch.from_numpy(rs.uniform(0.8, 1.2, tuple(albedo.shape))
+                             .astype(np.float32)).to(dev)
+    target = (torch.clamp(albedo * scale, 0.0, 1.0), center)
+    return apply, (albedo, center), camera, target
+
+
+def grad_pass(apply, params, camera, width, height, target_img):
+    """One forward and backward pass of the L2 loss of a spp-1, depth-6
+    render_image against `target_img`, the launch counts set to 0 before
+    the forward and again before the backward.  Returns a dict: loss,
+    grads, both passes' event and wall ms, their launches, the peak
+    device bytes (reset before the forward)."""
+    from mrt_torch import inverse
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss, fwd_ms, fwd_wall = events_wall_ms(lambda: inverse.l2_loss(
+        inverse.render_image(apply(leaves), camera, width, height, spp=1,
+                             seed=0, max_depth=6), target_img))
+    fwd = read_launches()
+    reset_launches()
+    _, bwd_ms, bwd_wall = events_wall_ms(loss.backward)
+    bwd = read_launches()
+    return dict(loss=loss.item(), grads=[x.grad for x in leaves],
+                fwd_ms=fwd_ms, fwd_wall_ms=fwd_wall, bwd_ms=bwd_ms,
+                bwd_wall_ms=bwd_wall, fwd_launches=fwd, bwd_launches=bwd,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+@contextlib.contextmanager
+def b1_winners(out, plain=False):
+    """Inside the block, every winner search of the sphere route appends
+    to `out` a dict of its inputs (center, radius, o, d, t_min, t_max)
+    and its winners (t, index); with `plain`, the search is
+    nearest_t_plain on the same (CUDA) tensors instead of B1."""
+    from mrt_torch.ops import spheres as B1
+
+    fn = B1.nearest_t
+    keep = lambda x: x.detach().clone() if torch.is_tensor(x) else x
+
+    def spy(center, radius, o, d, t_min, t_max, groups=None):
+        if plain:
+            n = o.shape[0]
+            check(o.is_cuda, "the plain winners must run on the card")
+            with torch.no_grad():
+                t, i = B1.nearest_t_plain(center, radius, o, d,
+                                          as_lanes(t_min, n, o.device),
+                                          as_lanes(t_max, n, o.device))
+        else:
+            t, i = fn(center, radius, o, d, t_min, t_max, groups=groups)
+        out.append(dict(center=keep(center), radius=keep(radius), o=keep(o),
+                        d=keep(d), t_min=keep(t_min), t_max=keep(t_max),
+                        t=t.clone(), index=i.clone()))
+        return t, i
+
+    B1.nearest_t = spy
+    try:
+        yield
+    finally:
+        B1.nearest_t = fn
+
+
+def phase_grad(dev):
+    """Phase 20: the gradient path (``mrt_torch.inverse``)."""
+    from mrt_torch import inverse
+    from mrt_torch.geometry import spheres as S
+    from mrt_torch.ops import spheres as B1
+
+    # test_grad's albedo recovery, on the card.
+    reset_launches()
+    (albedo, losses), rec_ms, rec_wall = events_wall_ms(
+        lambda: recover_albedo(dev))
+    rec_launches = read_launches()
+    err = (albedo - torch.tensor([0.7, 0.2, 0.4], device=dev)).abs().max()
+    check(losses[-1] < 0.6 * losses[0] and err.item() < 0.08,
+          f"albedo recovery: losses {losses[0]:.6f} -> {losses[-1]:.6f}, "
+          f"albedo {albedo.tolist()}")
+    check(rec_launches["B1"] > 0, f"recovery launched {rec_launches}")
+    # Kernels a recovery step: three steps less one (the target's render
+    # drops out), halved, under torch.profiler.
+    from torch.profiler import ProfilerActivity, profile
+
+    counted = []
+    for steps in (1, 3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            recover_albedo(dev, steps=steps)
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        counted.append((sum(e.count for e in ka
+                            if e.device_type.name == "CUDA"),
+                        sum(e.self_device_time_total for e in ka) / 1e3))
+    step_kernels = (counted[1][0] - counted[0][0]) / 2
+    step_device_ms = (counted[1][1] - counted[0][1]) / 2
+    log(20, f"albedo recovery {GRAD_RECOVER}x{GRAD_RECOVER}, 60 Adam steps: "
+            f"loss {losses[0]:.6f} -> {losses[-1]:.6f}, albedo "
+            f"{[round(v, 4) for v in albedo.tolist()]} (truth 0.7, 0.2, "
+            f"0.4), {rec_wall:.0f} ms ({rec_wall / 60:.1f} ms a step), B1 "
+            f"{rec_launches['B1']} launches; a step: {step_kernels:.0f} "
+            f"device kernels, {step_device_ms:.1f} device ms (torch.profiler)")
+
+    # RTIOW at full size: one forward and backward pass.
+    apply, params, camera, target = rtiow_grad(dev)
+    with torch.no_grad():
+        target_img = inverse.render_image(apply(target), camera, GRAD_W,
+                                          GRAD_H, spp=1, seed=0, max_depth=6)
+    apply_ms = []
+    for _ in range(3):
+        _, _, wall = events_wall_ms(lambda: apply(
+            [x.detach().clone().requires_grad_(True) for x in params]))
+        apply_ms.append(wall)
+    run = grad_pass(apply, params, camera, GRAD_W, GRAD_H, target_img)
+    fwd, bwd = run["fwd_launches"], run["bwd_launches"]
+    check(fwd["B1"] == 6 and bwd["B1"] == 6
+          and all(v == 0 for run_ in (fwd, bwd) for k, v in run_.items()
+                  if k != "B1"),
+          f"gradient pass: B1 should launch once a bounce in the forward "
+          f"and once in the recompute: {fwd}, {bwd}")
+    for name, g in zip(("albedo", "centre"), run["grads"]):
+        check(g is not None and torch.isfinite(g).all().item()
+              and (g != 0).any().item(),
+              f"{name} gradient: {(~torch.isfinite(g)).sum().item()} "
+              f"entries not finite, {(g != 0).sum().item()} non-zero")
+    check(np.isfinite(run["loss"]) and run["loss"] > 0,
+          f"loss {run['loss']}")
+    # The recomputed root against B1's t on the camera rays.
+    sc = apply(params)
+    o, d = camera.rays(*torch.rand((4, RAYS), device=dev,
+                                   generator=torch.Generator(dev)
+                                   .manual_seed(20)))
+    t, i = B1.nearest_t(sc.spheres.center, sc.spheres.radius, o, d, 1e-3,
+                        float("inf"), groups=sc.spheres.groups)
+    hit = torch.isfinite(t)
+    k = i.to(torch.int64)
+    root = S.winner_root(sc.spheres.center[k], sc.spheres.radius[k], o, d,
+                         hit, 1e-3)
+    check(torch.equal(root[hit], t[hit]),
+          f"recomputed roots differ from B1's t on "
+          f"{(root[hit] != t[hit]).sum().item()} of {hit.sum().item()} lanes")
+    log(20, f"RTIOW {GRAD_W}x{GRAD_H} spp 1 depth 6, albedo rows "
+            f"{tuple(params[0].shape)} and 484 centres: loss "
+            f"{run['loss']:.6f}; forward {run['fwd_ms']:.1f} ms (events), "
+            f"{run['fwd_wall_ms']:.1f} ms (wall); backward "
+            f"{run['bwd_ms']:.1f} ms (events), {run['bwd_wall_ms']:.1f} ms "
+            f"(wall); peak {run['peak_bytes'] / 2**30:.3f} GiB; B1 launches "
+            f"{fwd['B1']} forward, {bwd['B1']} in the recompute; apply "
+            f"(scene rebuild, B1's groups on the host) "
+            f"{[round(v, 2) for v in apply_ms]} ms; gradients finite; "
+            f"recomputed roots equal B1's t on {hit.sum().item()} hit lanes")
+
+    # B1 at this path's own shape: a second 1080p pass records each
+    # search's inputs and winners (forward and recompute), and
+    # nearest_t_plain on the same inputs on the card must give the same
+    # t and index bit for bit.
+    searches = []
+    with b1_winners(searches):
+        grad_pass(apply, params, camera, GRAD_W, GRAD_H, target_img)
+    lanes = GRAD_W * GRAD_H
+    check(len(searches) == 12
+          and all(x["o"].shape[0] == lanes for x in searches),
+          f"the 1080p pass made {len(searches)} searches of "
+          f"{[x['o'].shape[0] for x in searches]} lanes")
+    full_hits = []
+    for k, x in enumerate(searches):
+        with torch.no_grad():
+            pt, pi = B1.nearest_t_plain(
+                x["center"], x["radius"], x["o"], x["d"],
+                as_lanes(x["t_min"], lanes, dev),
+                as_lanes(x["t_max"], lanes, dev))
+        check(torch.equal(pt, x["t"]) and torch.equal(pi, x["index"]),
+              f"1080p search {k}: B1 differs from nearest_t_plain on "
+              f"{(pt != x['t']).sum().item()} t and "
+              f"{(pi != x['index']).sum().item()} index lanes")
+        hit = torch.isfinite(pt)
+        w = pi.to(torch.int64)
+        root = S.winner_root(x["center"][w], x["radius"][w], x["o"],
+                             x["d"], hit, x["t_min"])
+        check(torch.equal(root[hit], pt[hit]),
+              f"1080p search {k}: recomputed roots differ from B1's t on "
+              f"{(root[hit] != pt[hit]).sum().item()} lanes")
+        full_hits.append(hit.sum().item())
+    log(20, f"{GRAD_W}x{GRAD_H}: B1's winners bit-equal to nearest_t_plain's "
+            f"on the card in all {len(searches)} searches ({lanes} lanes "
+            f"each, forward and recompute; hit lanes {full_hits}), and the "
+            "recomputed roots equal to B1's t on every hit lane")
+
+    # The table-row gather's backward at this path's shape: the sphere
+    # centres gathered by the camera rays' winners, as the path gathers
+    # them (index_select, whose backward is index_add_), beside indexing
+    # (whose backward sorts the indices).
+    center = params[1].detach().clone().requires_grad_(True)
+    idx = searches[0]["index"].to(torch.int64)
+    del searches
+    gy = torch.rand((lanes, 3), device=dev,
+                    generator=torch.Generator(dev).manual_seed(21))
+    gather_ms = {}
+    for name, f in (("index_select", lambda x: torch.index_select(x, 0, idx)),
+                    ("indexing", lambda x: x[idx])):
+        f(center).backward(gy)  # warm-up
+        y = f(center)
+        gather_ms[name] = events_ms(lambda: y.backward(gy))[1]
+    top_row = torch.bincount(idx).max().item() / lanes
+    log(20, f"gather backward, (484, 3) centres by {lanes} winners "
+            f"({top_row:.3f} of them on one row): index_select "
+            f"{gather_ms['index_select']:.3f} ms, indexing "
+            f"{gather_ms['indexing']:.3f} ms (CUDA events)")
+
+    # B1's winners against nearest_t_plain's, on the card, at the crop.
+    with torch.no_grad():
+        crop_target = inverse.render_image(apply(target), camera, CROP_W,
+                                           CROP_H, spp=1, seed=0, max_depth=6)
+    got, want = [], []
+    with b1_winners(got):
+        k_run = grad_pass(apply, params, camera, CROP_W, CROP_H, crop_target)
+    with b1_winners(want, plain=True):
+        p_run = grad_pass(apply, params, camera, CROP_W, CROP_H, crop_target)
+    check(len(got) == len(want) == 12
+          and all(torch.equal(a["t"], b["t"])
+                  and torch.equal(a["index"], b["index"])
+                  for a, b in zip(got, want)),
+          f"B1's winners differ from nearest_t_plain's ({len(got)}, "
+          f"{len(want)} searches)")
+    rel = []
+    for gk, gp in zip(k_run["grads"], p_run["grads"]):
+        scale = gp.abs().max().item()
+        rel.append((gk - gp).abs().max().item() / max(scale, 1e-30))
+        check(torch.allclose(gk, gp, rtol=1e-5, atol=1e-5 * scale),
+              f"gradients with B1's winners differ from the plain "
+              f"winners': {rel[-1]:.3e} of the largest")
+    log(20, f"{CROP_W}x{CROP_H}: B1's winners bit-equal to nearest_t_plain's "
+            f"on the card in all {len(got)} searches (forward and "
+            f"recompute); loss {k_run['loss']:.6f} and {p_run['loss']:.6f}; "
+            f"gradients within {max(rel):.2e} of the largest (albedo "
+            f"{rel[0]:.2e}, centres {rel[1]:.2e}); backward "
+            f"{k_run['bwd_ms']:.1f} ms with B1, {p_run['bwd_ms']:.1f} ms "
+            "plain")
+    return dict(recover=dict(losses=[losses[0], losses[-1]],
+                             albedo=albedo.tolist(), wall_ms=rec_wall,
+                             launches=rec_launches["B1"],
+                             step_kernels=step_kernels,
+                             step_device_ms=step_device_ms),
+                loss=run["loss"], fwd_ms=run["fwd_ms"],
+                fwd_wall_ms=run["fwd_wall_ms"], bwd_ms=run["bwd_ms"],
+                bwd_wall_ms=run["bwd_wall_ms"], peak_bytes=run["peak_bytes"],
+                launches_forward=fwd["B1"], launches_recompute=bwd["B1"],
+                apply_ms=apply_ms, crop_rel=rel,
+                gather_backward_ms=gather_ms)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1311,12 +1649,15 @@ def main():
     nee = phase_nee(dev)
     menger = phase_menger(dev)
     probes = phase_probes(dev)
+    grad = phase_grad(dev)
 
     kernels = [
         dict(name="B1 sphere nearest hit", route="cuda",
              source="mrt_torch/csrc/spheres.cu",
              replaces="mrt/ops/pallas_spheres.py:43",
-             launches=rtiow["B1"], **b1),
+             launches=rtiow["B1"],
+             launches_grad_forward=grad["launches_forward"],
+             launches_grad_recompute=grad["launches_recompute"], **b1),
         dict(name="B2 film segment-add", route="cuda",
              source="mrt_torch/csrc/deposit.cu",
              replaces="mrt/ops/pallas_onehot.py:51",
@@ -1358,6 +1699,8 @@ def main():
              source="mrt_torch/csrc/probe_stream.cu",
              replaces="tools/probe_stream.py:147", **probes["P3"]),
     ]
+    grad.pop("recover")
+    log(20, f"gradient path: {json.dumps(grad)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ reference it is tested against.  Nothing here imports JAX or ``mrt``.
 
 Layout:
     mrt_torch.math        counter-based RNG, vector math, sampling, m4
-    mrt_torch.core        camera, the entry points' default device
+    mrt_torch.core        camera, the entry points' default device,
+                          replace() and the gradient path's checks
     mrt_torch.geometry    hit records, spheres, triangles, BVHs,
                           instances (TLAS and its world-flattened
                           tables), voxel grids, volumes, the scene and
@@ -16,6 +17,7 @@ Layout:
     mrt_torch.scenes      scene registry (rtiow, cornell, sphere_grid,
                           lucy, playground, eve, menger)
     mrt_torch.integrator  wavefront and persistent integrators
+    mrt_torch.inverse     differentiable renders, losses, optimize
     mrt_torch.runtime     film, render driver, asset lookup, input
                           record/replay, character physics
     mrt_torch.ops         kernel wrappers and their plain versions

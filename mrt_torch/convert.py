@@ -8,8 +8,10 @@ render from the same parameters.  Nothing here imports JAX.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.camera import Camera
+from .core.device import resolve
 from .geometry.bvh import FlatBVH
 from .geometry.instance import TLAS
 from .geometry.scene import Scene
@@ -102,6 +104,30 @@ def scene_from_numpy(spheres, materials, *, has_mix, background=None,
                  voxels=grids,
                  lights=None if lights is None else LightTable(**{
                      k: np.asarray(lights[k]) for k in LightTable.FIELDS}))
+
+
+def params_from_numpy(tree, device=None):
+    """A JAX parameter pytree with numpy leaves (``np.asarray`` of each)
+    as leaf tensors that require grad, in the same structure (dicts,
+    lists, tuples): both packages start an inverse render from the same
+    parameters.  Floating leaves become float32; device None is the
+    CUDA card (``core.device.resolve``)."""
+    device = resolve(device)
+
+    def leaf(x):
+        t = torch.as_tensor(np.asarray(x), device=device)
+        if t.is_floating_point():
+            t = t.to(torch.float32)
+        return t.detach().clone().requires_grad_(t.is_floating_point())
+
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        return leaf(x)
+
+    return walk(tree)
 
 
 def camera_from_numpy(origin, lower_left, horizontal, vertical, u, v,

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.autodiff import refuse_grad
 from ..ops import bvh as kernel
 from ..ops.bvh import LEAF_SIZE
 from . import spheres as sphere_mod
@@ -371,11 +372,12 @@ def build_over_spheres(spheres, leaf_size=LEAF_SIZE):
 
 def intersect_bvh_spheres(spheres, bvh: FlatBVH, o, d, t_min, t_max):
     """Closest sphere hit through the sphere BVH (kernel B5); returns
-    Hits."""
+    Hits.  Raises ValueError where o, d or the spheres require grad."""
+    refuse_grad("sphere BVH (B5)", o, d, spheres, bvh)
     t, index = kernel.sphere_bvh_hit(
         bvh.nodes, bvh.meta, spheres.krows, o, d, t_min, t_max,
         card=(bvh.knodes, bvh.order))
-    return sphere_mod.make_hits(spheres, o, d, t, index)
+    return sphere_mod.make_hits(spheres, o, d, t, index, t_min)
 
 
 def intersect_bvh_tris(tris, bvh: FlatBVH, o, d, t_min, t_max):
@@ -390,6 +392,7 @@ def intersect_bvh_tris(tris, bvh: FlatBVH, o, d, t_min, t_max):
 
 def intersect_bvh(tris, bvh: FlatBVH, o, d, t_min, t_max) -> Hits:
     """Closest triangle hit through a single-level BVH (kernel B6), as
-    Hits."""
+    Hits.  Raises ValueError where o, d or the triangles require grad."""
+    refuse_grad("triangle BVH (B6)", o, d, tris, bvh)
     t, i, u, v = intersect_bvh_tris(tris, bvh, o, d, t_min, t_max)
     return tri_mod.make_hits(tris, o, d, t, i, u, v)

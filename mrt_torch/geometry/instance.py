@@ -42,8 +42,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.autodiff import refuse_grad
 from ..math import m4
-from ..math.vec import cross, dot, length, sqrt
+from ..math.vec import clamp, cross, dot, length, sqrt
 from ..ops import budget
 from ..ops import bvh as kernel
 from . import bvh as bvh_mod
@@ -480,7 +481,9 @@ def intersect_tlas_flat_parts(tlas: TLAS, o, d, t_min, t_max) -> Hits:
     Winners fold across the parts: a strictly smaller t wins, so on
     equal t the earlier part keeps the hit (within a part the lower
     triangle).  The winner's packed id gives (instance, triangle), which
-    ``expand_winner`` turns into the two-level route's Hits."""
+    ``expand_winner`` turns into the two-level route's Hits.  Raises
+    ValueError where o, d or the TLAS require grad."""
+    refuse_grad("TLAS flat parts (B6)", o, d, tlas)
     t, row, u, v = kernel.tri_bvh_parts_hit(tlas.flat_parts, o, d, t_min,
                                             t_max)
     packed = tlas.flat_packed[row.to(torch.int64)]
@@ -489,7 +492,9 @@ def intersect_tlas_flat_parts(tlas: TLAS, o, d, t_min, t_max) -> Hits:
 
 
 def intersect_tlas(tlas: TLAS, o, d, t_min, t_max) -> Hits:
-    """Closest hit over all instances (kernel B7), as Hits."""
+    """Closest hit over all instances (kernel B7), as Hits.  Raises
+    ValueError where o, d or the TLAS require grad."""
+    refuse_grad("TLAS (B7)", o, d, tlas)
     t, inst, tri, u, v = kernel.tlas_hit(tlas, o, d, t_min, t_max)
     return expand_winner(tlas, o, d, t, inst, tri, u, v)
 
@@ -511,7 +516,7 @@ def expand_winner(tlas: TLAS, o, d, best_t, best_inst, best_tri, best_u,
     lin = tlas.transform[inst, :3, :3]
     normal_w = dot(lin, normal_l[:, None, :])
     norm = sqrt(dot(normal_w, normal_w))[:, None]
-    normal_w = normal_w / torch.clamp(norm, min=1e-20)
+    normal_w = normal_w / clamp(norm, 1e-20)
 
     t_safe = torch.where(hit, best_t, 0.0)
     point = o + d * t_safe[:, None]  # t is affine-invariant

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.autodiff import Replace
 from ..core.device import resolve
 from ..materials import shade
 from ..materials.background import CubeMap, SkySphere
@@ -46,7 +47,7 @@ from .hit import Hits
 T_MIN = 1e-3  # intersect(ray, 0.001, inf), as in the reference
 
 
-class Scene(nn.Module):
+class Scene(Replace, nn.Module):
     """materials: MaterialTable; background: a background module;
     spheres: Spheres or None; sphere_bvh: FlatBVH over the spheres (in
     BVH order) or None; triangles: a TriangleTable or None; bvh: FlatBVH
@@ -60,7 +61,10 @@ class Scene(nn.Module):
     skips the row resolution); ``needs_alpha`` is True when a material
     row can fail the alpha test (the re-cast rounds run);
     ``mat_tex_raw`` is True when every texture a material row refers to
-    is a RAW atlas row (one texel lookup a sample)."""
+    is a RAW atlas row (one texel lookup a sample).
+    ``replace(materials=..., spheres=...)`` is the counterpart of the
+    reference's ``.replace``; a sphere set given without its kernel
+    table gets one, as here."""
 
     # Re-cast rounds for alpha-tested winners: each sees through one more
     # cutout per ray; stacked cutouts beyond it render opaque.
@@ -90,6 +94,14 @@ class Scene(nn.Module):
         self.has_mix = bool(has_mix)
         self.needs_alpha = bool(needs_alpha)
         self.mat_tex_raw = bool(mat_tex_raw)
+
+    def replace(self, **fields):
+        new = super().replace(**fields)
+        sph = new.spheres
+        if "spheres" in fields and sph is not None and (
+                sph.krows is None and sph.g_rows is None):
+            sph.build_kernel_table(in_bvh=new.sphere_bvh is not None)
+        return new
 
     def world_bounds(self):
         """(bmin, bmax) of all geometry: the root boxes of the BVHs, the

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..math.vec import cross, dot, length, sqrt
+from ..math.vec import clamp, cross, dot, length, sqrt
 from ..ops.bvh import card_tris
 from .hit import INF, Hits, set_face_normal
 
@@ -63,8 +63,10 @@ class Triangles:
             self, **{k: fn(getattr(self, k)) for k in FIELDS})
 
     def to_torch(self, device=None):
-        return self.map(lambda x: torch.as_tensor(np.asarray(x),
-                                                  device=device))
+        """Tensors of every field; a field that is a tensor already is
+        kept as it is (with its autograd graph)."""
+        return self.map(lambda x: x if torch.is_tensor(x) else
+                        torch.as_tensor(np.asarray(x), device=device))
 
     @classmethod
     def build(cls, vertices, faces, normals=None, uvs=None, material=0):
@@ -136,15 +138,17 @@ def concatenate(tris_list):
 class TriangleTable(nn.Module):
     """A triangle set as device tables: ``rows`` (T, 9) float32 va,
     e_ab, e_ac, ``krows`` (T, 12) the same packed for kernel B6
-    (``ops.bvh.card_tris``) and ``shading`` (T, 29) its
-    ``shading_table``; ``unit_normal`` as on Triangles."""
+    (``ops.bvh.card_tris``, detached) and ``shading`` (T, 29) its
+    ``shading_table``; ``unit_normal`` as on Triangles.  Built from a
+    Triangles of tensors that require grad, ``rows`` and ``shading``
+    carry their graph, so the brute-force scan is differentiable."""
 
     def __init__(self, tris: Triangles):
         super().__init__()
         t = tris.to_torch()
         self.register_buffer(
             "rows", torch.cat([t.va, t.e_ab, t.e_ac], dim=1).contiguous())
-        self.register_buffer("krows", card_tris(self.rows))
+        self.register_buffer("krows", card_tris(self.rows.detach()))
         self.register_buffer("shading", shading_table(t).contiguous())
         self.unit_normal = bool(tris.unit_normal)
 
@@ -243,7 +247,8 @@ def make_hits(tris: TriangleTable, o, d, t, index, u, v) -> Hits:
     point = o + d * t_safe[:, None]
     w = (1.0 - u - v)[:, None]
     uu, vv = u[:, None], v[:, None]
-    s = unpack_shading(tris.shading[index.to(torch.int64)])
+    # index_select: its backward adds with index_add_ (indexing's sorts).
+    s = unpack_shading(tris.shading.index_select(0, index.to(torch.int64)))
     normal = s["na"] * w + s["nb"] * uu + s["nc"] * vv
     uv = s["uva"] * w + s["uvb"] * uu + s["uvc"] * vv
     uv = torch.where(s["has_uv"][:, None], uv, 0.0)
@@ -252,7 +257,7 @@ def make_hits(tris: TriangleTable, o, d, t, index, u, v) -> Hits:
         # the linear part is baked into the vertex normals, so
         # normalise(interpolated) here equals normalise(lin @ interpolated).
         norm = sqrt(dot(normal, normal))[:, None]
-        normal = normal / torch.clamp(norm, min=1e-20)
+        normal = normal / clamp(norm, 1e-20)
     normal, front_face = set_face_normal(d, normal)
     area = 0.5 * length(cross(s["e_ab"], s["e_ac"]))
     return Hits(t=torch.where(hit, t, INF), point=point, normal=normal,

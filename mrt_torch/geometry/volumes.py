@@ -23,7 +23,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..math.vec import dot, sqrt
+from ..core.autodiff import refuse_grad
+from ..math.vec import clamp, dot, sqrt
 from ..ops import bvh as kernel
 from .hit import INF, Hits
 
@@ -65,13 +66,11 @@ def _event_hits(o, d, t, material):
 def _maximum(x, lo):
     """max(x, lo) for a float or tensor bound (a float makes no host to
     device copy)."""
-    return torch.maximum(x, lo) if torch.is_tensor(lo) else torch.clamp(
-        x, min=lo)
+    return torch.maximum(x, lo) if torch.is_tensor(lo) else clamp(x, lo)
 
 
 def _minimum(x, hi):
-    return torch.minimum(x, hi) if torch.is_tensor(hi) else torch.clamp(
-        x, max=hi)
+    return torch.minimum(x, hi) if torch.is_tensor(hi) else clamp(x, hi=hi)
 
 
 def intersect(vols: VolumeSpheres, o, d, t_min, t_max, u) -> Hits:
@@ -82,7 +81,7 @@ def intersect(vols: VolumeSpheres, o, d, t_min, t_max, u) -> Hits:
     half_b = dot(oc, d[None, :, :])                         # (V, N)
     cterm = dot(oc, oc) - (vols.radius * vols.radius)[:, None]
     disc = half_b * half_b - a * cterm
-    sq = sqrt(torch.clamp(disc, min=0.0))
+    sq = sqrt(clamp(disc, 0.0))
     t0 = (-half_b - sq) / a                                 # entry
     t1 = (-half_b + sq) / a
     has_exit = (disc >= 0.0) & (t1 >= t0 + 1e-4)
@@ -90,7 +89,7 @@ def intersect(vols: VolumeSpheres, o, d, t_min, t_max, u) -> Hits:
     enter = _maximum(t0, t_min)
     exit_ = _minimum(t1, t_max)
     ok = has_exit & (enter < exit_)
-    enter = torch.clamp(enter, min=0.0)
+    enter = clamp(enter, 0.0)
 
     ray_len = sqrt(a)
     dist_inside = (exit_ - enter) * ray_len
@@ -115,7 +114,9 @@ class MeshVolume(nn.Module):
 
 
 def intersect_mesh(vol: MeshVolume, o, d, t_min, t_max, u) -> Hits:
-    """The scatter event in a mesh-bounded volume; u (N,) uniforms."""
+    """The scatter event in a mesh-bounded volume; u (N,) uniforms.
+    Raises ValueError where o, d or the volume require grad."""
+    refuse_grad("mesh volume (B7)", o, d, vol)
     t0 = kernel.tlas_hit(vol.tlas, o, d, -INF, INF)[0]       # +inf: miss
     entered = torch.isfinite(t0)
     t1 = kernel.tlas_hit(vol.tlas, o, d,
@@ -125,11 +126,11 @@ def intersect_mesh(vol: MeshVolume, o, d, t_min, t_max, u) -> Hits:
     enter = _maximum(torch.where(entered, t0, 0.0), t_min)
     exit_ = _minimum(torch.where(has_exit, t1, 0.0), t_max)
     ok = has_exit & (enter < exit_)
-    enter = torch.clamp(enter, min=0.0)
+    enter = clamp(enter, 0.0)
 
     ray_len = sqrt(dot(d, d))
     dist_inside = (exit_ - enter) * ray_len
-    hit_dist = torch.log(torch.clamp(u, min=1e-38)) * vol.neg_inv_density
+    hit_dist = torch.log(clamp(u, 1e-38)) * vol.neg_inv_density
     ok = ok & (hit_dist <= dist_inside)
     t = torch.where(ok, enter + hit_dist / ray_len, INF)
     return _event_hits(o, d, t, vol.material.expand(o.shape[0]))

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.autodiff import refuse_grad
 from .hit import INF, Hits
 
 _BIG = 3.4e38
@@ -133,7 +134,9 @@ class VoxelGrid(nn.Module):
 
 def intersect(grid: VoxelGrid, o, d, t_min, t_max) -> Hits:
     """Closest occupancy-flip boundary along each ray.  o, d: (N, 3), d
-    may be unnormalised; t_min, t_max: scalars or (N,)."""
+    may be unnormalised; t_min, t_max: scalars or (N,).  Raises
+    ValueError where o, d or the grid require grad."""
+    refuse_grad("voxel DDA", o, d, grid)
     n, N, dev = grid.n, o.shape[0], o.device
     t_min = torch.as_tensor(t_min, dtype=torch.float32,
                             device=dev).expand(N)

@@ -200,6 +200,7 @@ class LanePool:
                      | (st["next_work"] < self.total)).item())
 
 
+@torch.no_grad()
 def render_samples_persistent(scene, camera, width, height, seed,
                               sample_start, samples, max_depth=MAX_DEPTH,
                               pool=POOL, film_sum=None, depth_sum=None,
@@ -209,7 +210,9 @@ def render_samples_persistent(scene, camera, width, height, seed,
     the pending-deposit film mode (None: ``pend_enabled``'s default).
 
     Returns (film_sum (npix, 3) float32, depth_sum (npix,) int32); pass
-    them back in to accumulate further passes.
+    them back in to accumulate further passes.  Records no autograd
+    graph: like the reference's while_loop, the pass has no gradient
+    (``trace_wavefront(differentiable=True)`` has).
     """
     lanes = LanePool(scene, camera, width, height, seed, sample_start,
                      samples, max_depth, rr_depth, pend_enabled(pend))

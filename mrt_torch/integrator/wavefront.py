@@ -24,6 +24,7 @@ Two opt-in changes of estimator, as in the reference:
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..materials import lights as lights_mod
 from ..materials import shade
@@ -65,7 +66,7 @@ def roulette(seed, ray_id, b, rr_depth, scat, tp_next):
     that lost removed, the survivors' weight 1 / p_survive where it
     applied, else 1)."""
     rr_sampler = Sampler(seed, ray_id, salt=(1 << 29) + b)
-    p_survive = torch.clamp(torch.amax(tp_next, dim=-1), 0.05, 1.0)
+    p_survive = vec.clamp(torch.amax(tp_next, dim=-1), 0.05, 1.0)
     roll = rr_sampler.next1() < p_survive
     apply_rr = scat & (b >= rr_depth)
     return scat & (~apply_rr | roll), apply_rr, p_survive
@@ -112,8 +113,19 @@ def _bounce(scene, ray_id, seed, b, state, rr_depth=None):
 
 
 def trace_wavefront(scene, o, d, ray_id, seed, max_depth=MAX_DEPTH,
-                    alive0=None, rr_depth=None):
+                    alive0=None, rr_depth=None, differentiable=False):
     """Trace N rays to completion; stops early once every ray is dead.
+
+    differentiable: run exactly `max_depth` bounces, with no early exit
+    and no host sync, each under ``torch.utils.checkpoint`` (the
+    reference's checkpointed ``lax.scan``), so autograd reaches the
+    scene's tensors through hit geometry, attenuation, emission and the
+    background.  A bounce keeps its 7 state tensors and is recomputed in
+    the backward pass; every draw is a pure function of (seed, ray_id,
+    bounce), so the recompute redraws the same values and the discrete
+    events (hit selection, Fresnel and Mix branches, roulette) are
+    constants.  Dead lanes change nothing, so both modes give the same
+    radiance and bounces.
 
     Returns (radiance (N,3), bounces (N,) int32)."""
     n = o.shape[0]
@@ -122,6 +134,12 @@ def trace_wavefront(scene, o, d, ray_id, seed, max_depth=MAX_DEPTH,
     state = (o, d, torch.ones_like(o), torch.zeros_like(o), alive,
              torch.zeros((n,), dtype=torch.int32, device=o.device),
              torch.zeros((n,), device=o.device))
+    if differentiable:
+        for b in range(max_depth):
+            state = checkpoint(_bounce, scene, ray_id, seed, b, state,
+                               rr_depth, use_reentrant=False,
+                               preserve_rng_state=False)
+        return state[3], state[5]
     b = 0
     while b < max_depth and bool(state[4].any()):
         state = _bounce(scene, ray_id, seed, b, state, rr_depth)

@@ -13,10 +13,11 @@ import math
 import torch
 from torch import nn
 
+from ..core.autodiff import Replace
 from ..math import vec
 
 
-class SolidBackground(nn.Module):
+class SolidBackground(Replace, nn.Module):
     def __init__(self, color):
         super().__init__()
         self.register_buffer("color",
@@ -30,7 +31,7 @@ class SolidBackground(nn.Module):
         return torch.broadcast_to(self.color, directions.shape)
 
 
-class SkyBackground(nn.Module):
+class SkyBackground(Replace, nn.Module):
     """White-to-blue vertical gradient."""
 
     def __init__(self):
@@ -60,7 +61,7 @@ class SkySphere(nn.Module):
 
     def eval(self, directions, atlas=None):
         p = vec.unit(directions)
-        theta = torch.arccos(torch.clamp(p[..., 1], -1.0, 1.0))
+        theta = torch.arccos(vec.clamp(p[..., 1], -1.0, 1.0))
         phi = torch.atan2(-p[..., 2], p[..., 0]) + math.pi
         uv = torch.stack([phi / (2.0 * math.pi), theta / math.pi], dim=-1)
         rgba = atlas.sample(self.tex.expand(phi.shape), uv)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..math.vec import cross, dot, length, sqrt
+from ..math.vec import clamp, cross, dot, length, sqrt
 from . import table as T
 
 SPHERE = 0
@@ -137,13 +137,13 @@ def collect_lights(scene):
 
 def _unit(x):
     """x / max(|x|, 1e-20) over the trailing axis."""
-    return x / torch.clamp(length(x), min=1e-20)[..., None]
+    return x / clamp(length(x), 1e-20)[..., None]
 
 
 def bsdf_pdf(lobe, n_unit, w):
     """Solid-angle pdf of the scatter lobe for direction w: cos/pi over
     the hemisphere for lobe 1, 1/(4 pi) for lobe 2, else 0."""
-    pdf_cos = torch.clamp(dot(w, n_unit), min=0.0) / math.pi
+    pdf_cos = clamp(dot(w, n_unit), 0.0) / math.pi
     return torch.where(lobe == 1, pdf_cos,
                        torch.where(lobe == 2, 1.0 / (2.0 * TAU), 0.0))
 
@@ -172,27 +172,27 @@ def sample_direct(scene, hits, sampler, lobe):
     iso = lobe == 2
 
     # Triangle lights: uniform area sample and the geometry term.
-    su = sqrt(torch.clamp(u1, min=1e-12))
+    su = sqrt(clamp(u1, 1e-12))
     b1 = 1.0 - su
     b2 = u2 * su
     x_tri = p0 + e1 * b1[:, None] + e2 * b2[:, None]
     tri_n = _unit(cross(e1, e2))
     to_tri = x_tri - p
     dist2_tri = dot(to_tri, to_tri)
-    dist_tri = sqrt(torch.clamp(dist2_tri, min=1e-12))
+    dist_tri = sqrt(clamp(dist2_tri, 1e-12))
     w_tri = to_tri / dist_tri[:, None]
     cos_p_tri = dot(w_tri, n_unit)
     cos_l_tri = torch.abs(dot(w_tri, tri_n))
     f_tri = torch.where(iso, 1.0 / (2.0 * TAU), cos_p_tri / math.pi)
     weight_tri = (f_tri * cos_l_tri * area
-                  / torch.clamp(dist2_tri, min=1e-12))
-    psa_tri = dist2_tri / torch.clamp(cos_l_tri * area, min=1e-12)
+                  / clamp(dist2_tri, 1e-12))
+    psa_tri = dist2_tri / clamp(cos_l_tri * area, 1e-12)
 
     # Sphere lights: cone sampling (solid-angle pdf).
     to_c = p0 - p
-    dist_c = sqrt(torch.clamp(dot(to_c, to_c), min=1e-12))
-    sin_max = torch.clamp(radius / dist_c, 0.0, 1.0)
-    cos_max = sqrt(torch.clamp(1.0 - sin_max * sin_max, min=0.0))
+    dist_c = sqrt(clamp(dot(to_c, to_c), 1e-12))
+    sin_max = clamp(radius / dist_c, 0.0, 1.0)
+    cos_max = sqrt(clamp(1.0 - sin_max * sin_max, 0.0))
     axis = to_c / dist_c[:, None]
     h = torch.zeros_like(axis)
     far_x = torch.abs(axis[:, 0]) > 0.9
@@ -201,7 +201,7 @@ def sample_direct(scene, hits, sampler, lobe):
     t1 = _unit(cross(axis, h))
     t2 = cross(axis, t1)
     cos_theta = 1.0 - u1 * (1.0 - cos_max)
-    sin_theta = sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    sin_theta = sqrt(clamp(1.0 - cos_theta * cos_theta, 0.0))
     phi = TAU * u2
     w_sph = (axis * cos_theta[:, None]
              + t1 * (sin_theta * torch.cos(phi))[:, None]
@@ -210,12 +210,12 @@ def sample_direct(scene, hits, sampler, lobe):
     solid_angle = TAU * (1.0 - cos_max)
     f_sph = torch.where(iso, 1.0 / (2.0 * TAU), cos_p_sph / math.pi)
     weight_sph = f_sph * solid_angle
-    psa_sph = 1.0 / torch.clamp(solid_angle, min=1e-12)
+    psa_sph = 1.0 / clamp(solid_angle, 1e-12)
     # The near root along the sample direction clips the shadow ray.
     b_q = dot(w_sph, -to_c)
     c_q = dot(to_c, to_c) - radius * radius
-    disc_q = torch.clamp(b_q * b_q - c_q, min=0.0)
-    dist_sph = torch.clamp(-b_q - sqrt(disc_q), min=1e-3)
+    disc_q = clamp(b_q * b_q - c_q, 0.0)
+    dist_sph = clamp(-b_q - sqrt(disc_q), 1e-3)
 
     is_tri = kind == TRI
     w = torch.where(is_tri[:, None], w_tri, w_sph)
@@ -226,7 +226,7 @@ def sample_direct(scene, hits, sampler, lobe):
     p_light = torch.where(is_tri, psa_tri, psa_sph) / float(n_lights)
     p_b = bsdf_pdf(lobe, n_unit, w)
     w_mis = (p_light * p_light
-             / torch.clamp(p_light * p_light + p_b * p_b, min=1e-20))
+             / clamp(p_light * p_light + p_b * p_b, 1e-20))
     weight = weight * w_mis
 
     # Shadow ray: any blocker strictly before the light point?
@@ -244,28 +244,27 @@ def mis_bsdf_weight(scene, hits, o, d, prev_pdf):
     prev_pdf: the light pdf is rebuilt from the hit (``prim_area``: the
     world triangle area, or minus the sphere radius)."""
     n_lights = float(scene.lights.count)
-    d_len = torch.clamp(length(d), min=1e-20)
+    d_len = clamp(length(d), 1e-20)
     w = d / d_len[:, None]
     t_safe = torch.where(hits.hit, hits.t, 1.0)
     dist = t_safe * d_len
     out_unit = _unit(hits.outward_normal)
 
     cos_l = torch.abs(dot(w, out_unit))
-    area = torch.clamp(hits.prim_area, min=0.0)
-    psa_tri = dist * dist / torch.clamp(cos_l * area, min=1e-12)
+    area = clamp(hits.prim_area, 0.0)
+    psa_tri = dist * dist / clamp(cos_l * area, 1e-12)
 
-    r = torch.clamp(-hits.prim_area, min=0.0)
+    r = clamp(-hits.prim_area, 0.0)
     center = hits.point - out_unit * r[:, None]
     to_c = center - o
-    dist_c = torch.clamp(length(to_c), min=1e-12)
-    sin_max = torch.clamp(r / dist_c, 0.0, 1.0)
-    cos_max = sqrt(torch.clamp(1.0 - sin_max * sin_max, min=0.0))
+    dist_c = clamp(length(to_c), 1e-12)
+    sin_max = clamp(r / dist_c, 0.0, 1.0)
+    cos_max = sqrt(clamp(1.0 - sin_max * sin_max, 0.0))
     solid = TAU * (1.0 - cos_max)
-    psa_sph = 1.0 / torch.clamp(solid, min=1e-12)
+    psa_sph = 1.0 / clamp(solid, 1e-12)
 
     p_light = torch.where(hits.prim_area > 0.0, psa_tri,
                           torch.where(hits.prim_area < 0.0, psa_sph,
                                       0.0)) / n_lights
     return (prev_pdf * prev_pdf
-            / torch.clamp(prev_pdf * prev_pdf + p_light * p_light,
-                          min=1e-20))
+            / clamp(prev_pdf * prev_pdf + p_light * p_light, 1e-20))

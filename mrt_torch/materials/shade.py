@@ -52,7 +52,10 @@ def surface_rgba(scene, rows, uv):
     """Per-ray surface colour: the texture sample where the row has a
     texture, else the row's solid albedo."""
     m = scene.materials
-    solid = m.albedo[rows]
+    # Table rows are gathered by index_select wherever a gradient may
+    # flow: its backward adds with index_add_, where indexing's sorts a
+    # wavefront's indices first.
+    solid = m.albedo.index_select(0, rows)
     if scene.atlas is None:
         return solid
     tex = m.tex[rows]
@@ -76,7 +79,7 @@ def _surface(scene, rows, uv, hit):
     dirt, glow = pmdg[..., 2], pmdg[..., 3]
 
     # Faction palette lerped by mask * 3.
-    pal = m.palette[rows]                                    # (N, 4, 3)
+    pal = m.palette.index_select(0, rows)                    # (N, 4, 3)
     i = mat_mask * 3.0
     i0 = torch.clamp(torch.floor(i).to(torch.int64), 0, 3)
     i1 = torch.clamp(torch.ceil(i).to(torch.int64), 0, 3)
@@ -85,12 +88,12 @@ def _surface(scene, rows, uv, hit):
     mat_color = pick(i0)[:, 0] * (1.0 - frac) + pick(i1)[:, 0] * frac
 
     # Dirt-darkened, paint-blended albedo.
-    dirt_c = torch.clamp(dirt, max=1.0)[..., None]
+    dirt_c = vec.clamp(dirt, hi=1.0)[..., None]
     dirt_rgb = torch.stack([dirt * 0.01, dirt * 0.005, dirt * 0.0], dim=-1)
     color = ((albedo * mat_color * (1.0 - paint) + albedo * paint)
              * (1.0 - dirt_c) + dirt_rgb)
-    ratio = torch.clamp(roughness + dirt, max=1.0)
-    glow_e = m.glow3[rows] * glow[..., None] * 10.0
+    ratio = vec.clamp(roughness + dirt, hi=1.0)
+    glow_e = m.glow3.index_select(0, rows) * glow[..., None] * 10.0
     return ar, (color, ratio, glow_e)
 
 
@@ -166,7 +169,8 @@ def emitted(scene, hits, sampler):
     draws.  EVE rows emit their glow."""
     rows = resolve_rows(scene, hits.material, sampler)
     m = scene.materials
-    return _emitted_from(scene, rows, m.mtype[rows], m.emit[rows], hits)
+    return _emitted_from(scene, rows, m.mtype[rows],
+                         m.emit.index_select(0, rows), hits)
 
 
 def _emitted_from(scene, rows, mtype, emit_rgb, hits, surf=None):
@@ -195,8 +199,8 @@ def scatter(scene, hits, d_in, sampler):
     the horizon, lights, null) get scattered=False and lobe 0."""
     rows = resolve_rows(scene, hits.material, sampler)
     m = scene.materials
-    return _scatter_from(scene, rows, m.mtype[rows], m.params[rows], hits,
-                         d_in, sampler)
+    return _scatter_from(scene, rows, m.mtype[rows],
+                         m.params.index_select(0, rows), hits, d_in, sampler)
 
 
 def _scatter_from(scene, rows, mtype, params, hits, d_in, sampler,
@@ -229,8 +233,8 @@ def _scatter_from(scene, rows, mtype, params, hits, d_in, sampler,
     # Dielectric / Specular: shared Fresnel choice
     ior = params[:, 5]
     refraction_ratio = torch.where(hits.front_face, 1.0 / ior, ior)
-    cos_theta = torch.clamp(vec.dot(-unit_d, normal), max=1.0)
-    sin_theta = vec.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    cos_theta = vec.clamp(vec.dot(-unit_d, normal), hi=1.0)
+    sin_theta = vec.sqrt(vec.clamp(1.0 - cos_theta * cos_theta, 0.0))
     cannot_refract = refraction_ratio * sin_theta > 1.0
     reflect_choice = cannot_refract | (
         _schlick(cos_theta, refraction_ratio) > u_fresnel)
@@ -299,7 +303,7 @@ def shade_hit(scene, hits, d_in, em_sampler, sc_sampler):
     sc_sampler.skip(T.MAX_MIX_DEPTH)
     rows = hits.material
     m = scene.materials
-    params = m.params[rows]
+    params = m.params.index_select(0, rows)
     mtype = m.mtype[rows]
     # One set of texel fetches serves both: the rows are the same.
     surf = (None if scene.atlas is None

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.autodiff import Replace
+
 LAMBERTIAN = 0
 METAL = 1
 DIELECTRIC = 2
@@ -33,12 +35,13 @@ MAX_MIX_DEPTH = 4
 NO_TEXTURE = -1
 
 
-class MaterialTable(nn.Module):
+class MaterialTable(Replace, nn.Module):
     """Buffers: mtype (M,) int32, albedo (M, 4), fuzz (M,), ior (M,),
     emit (M, 3), mix_ratio (M,) float32; mix_left, mix_right (M,) int32;
     tex, tex_no, tex_pmdg (M,) int32 texture ids; palette (M, 4, 3) and
     glow3 (M, 3) float32.  ``mix_depth`` is the table's actual Mix
-    nesting depth."""
+    nesting depth.  ``replace(albedo=...)`` swaps columns, as an inverse
+    render of them does (``core.autodiff.Replace``)."""
 
     FIELDS = {"mtype": torch.int32, "albedo": torch.float32,
               "fuzz": torch.float32, "ior": torch.float32,

@@ -16,7 +16,7 @@ TAU = 2.0 * math.pi
 def unit_vector(u1, u2):
     """Uniform direction on S^2 from two uniforms."""
     z = 1.0 - 2.0 * u1
-    r = vec.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = vec.sqrt(vec.clamp(1.0 - z * z, 0.0))
     phi = TAU * u2
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
@@ -30,7 +30,7 @@ def in_unit_sphere(u1, u2, u3):
     and leaves every nonzero draw unchanged.  The cube root is taken in
     float64 and rounded, as PyTorch has no float32 cbrt."""
     d = unit_vector(u1, u2)
-    u = torch.clamp(u3, min=2.0 ** -25)
+    u = vec.clamp(u3, 2.0 ** -25)
     r = torch.pow(u.to(torch.float64), 1.0 / 3.0).to(torch.float32)
     return d * r[..., None]
 

@@ -28,6 +28,20 @@ def sqrt(x):
     return torch.sqrt(x)
 
 
+def clamp(x, lo=None, hi=None):
+    """torch.clamp with the reference's derivative at a bound: jnp.clip,
+    jnp.maximum and jnp.minimum pass half the gradient where x equals
+    the bound, torch.clamp all of it.  The values are torch.clamp's."""
+    y = torch.clamp(x, lo, hi)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return y
+    tie = torch.zeros_like(x, dtype=torch.bool)
+    for bound in (lo, hi):
+        if bound is not None:
+            tie = tie | (x == bound)
+    return torch.where(tie, 0.5 * y + 0.5 * y.detach(), y)
+
+
 def length_squared(a):
     return dot(a, a)
 
@@ -62,7 +76,7 @@ def reflect(v, n):
 def refract(uv, n, etai_over_etat):
     """Snell refraction of the *unit* vector uv; ``etai_over_etat`` is
     (...)-shaped."""
-    cos_theta = torch.clamp(dot(-uv, n), max=1.0)
+    cos_theta = clamp(dot(-uv, n), hi=1.0)
     r_out_perp = (uv + n * cos_theta[..., None]) * etai_over_etat[..., None]
     k = torch.abs(1.0 - length_squared(r_out_perp))
     safe = sqrt(torch.where(k > 0.0, k, 1.0))

@@ -329,12 +329,16 @@ def nearest_t(center, radius, o, d, t_min, t_max, groups=None):
 
     t_min, t_max: scalars or (N,) tensors.  groups: ``group_table``'s
     tables for these spheres, needed on the card.  Returns (t (N,)
-    float32, +inf on a miss; index (N,) int32)."""
+    float32, +inf on a miss; index (N,) int32), with no autograd graph
+    on either device (``geometry.spheres.winner_t`` gives t its
+    derivative)."""
     n = o.shape[0]
     _check(center, radius, o, d, t_min, t_max)
     if o.device.type == "cpu":
-        return nearest_t_plain(center, radius, o, d, _lanes(t_min, n, "cpu"),
-                               _lanes(t_max, n, "cpu"))
+        with torch.no_grad():
+            return nearest_t_plain(center, radius, o, d,
+                                   _lanes(t_min, n, "cpu"),
+                                   _lanes(t_max, n, "cpu"))
     if o.device.type != "cuda":
         raise ValueError(f"nearest_t: no kernel for device {o.device}")
     _check_groups(groups, center.shape[0], o.device)

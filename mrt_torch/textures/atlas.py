@@ -23,6 +23,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.autodiff import Replace
+from ..math import vec
+
 # Row kinds
 RAW = 0
 BLEND = 1
@@ -76,10 +79,12 @@ def _ycbcr(luma, chroma):
     return r, g, b
 
 
-class TextureAtlas(nn.Module):
+class TextureAtlas(Replace, nn.Module):
     """Buffers: data (P, 4) float32 texels, row-major per texture;
     offset, width, height, wrap, kind, left, right, mode (T,) int32;
-    fb_color (T, 4) float32.  ``all_raw``: every row is RAW."""
+    fb_color (T, 4) float32.  ``all_raw``: every row is RAW.
+    ``replace(data=...)`` swaps the texels, as an inverse render of
+    them does (``core.autodiff.Replace``)."""
 
     FIELDS = {"data": torch.float32, "offset": torch.int32,
               "width": torch.int32, "height": torch.int32,
@@ -105,7 +110,7 @@ class TextureAtlas(nn.Module):
         rep = torch.where(x < 0.0, 1.0 - torch.remainder(torch.abs(x), 1.0),
                           x)
         rep = torch.where(rep > 1.0, torch.remainder(rep, 1.0), rep)
-        clamp = torch.clamp(x, 0.0, 1.0)
+        clamp = vec.clamp(x, 0.0, 1.0)
         mir = 1.0 - torch.abs(
             torch.remainder(torch.abs(x) / 2.0, 1.0) * 2.0 - 1.0)
         return torch.where(w == REPEAT, rep, torch.where(w == CLAMP, clamp,
@@ -132,7 +137,9 @@ class TextureAtlas(nn.Module):
         x1 = torch.ceil(xi).to(torch.int64)
         y1 = torch.ceil(yi).to(torch.int64)
         w = w.to(torch.int64)
-        texel = lambda xx, yy: self.data[off + yy * w + xx]
+        # index_select: its backward adds with index_add_ (indexing's
+        # sorts the indices).
+        texel = lambda xx, yy: self.data.index_select(0, off + yy * w + xx)
         p0 = texel(x0, y0) * (1.0 - tx) + texel(x1, y0) * tx
         p1 = texel(x0, y1) * (1.0 - tx) + texel(x1, y1) * tx
         return p1 * ty + p0 * (1.0 - ty)
@@ -155,15 +162,15 @@ class TextureAtlas(nn.Module):
             mode == LIGHTEN, torch.maximum(sl, sr),
             torch.where(mode == DARKEN, torch.minimum(sl, sr),
                         torch.where(mode == ADDITION,
-                                    torch.clamp(sl + sr, max=1.0),
-                                    torch.clamp(sl - sr, min=0.0))))
+                                    vec.clamp(sl + sr, hi=1.0),
+                                    vec.clamp(sl - sr, 0.0))))
 
         rgb = torch.stack(_ycbcr(sl, sr), dim=-1)
-        ycbcr = torch.cat([torch.pow(torch.clamp(rgb, 0.0, 1.0), 2.2),
+        ycbcr = torch.cat([torch.pow(vec.clamp(rgb, 0.0, 1.0), 2.2),
                            torch.ones_like(rgb[..., :1])], dim=-1)
 
         a = sl[..., 3:4]
-        fallback = self.fb_color[ids] * (1.0 - a) + sl * a
+        fallback = self.fb_color.index_select(0, ids) * (1.0 - a) + sl * a
         return torch.where(kind == RAW, sl,
                            torch.where(kind == BLEND, blended,
                                        torch.where(kind == YCBCR, ycbcr,

@@ -28,7 +28,9 @@ misaligned vector rows, and both kernels replay in a CUDA graph;
 ``compact_apply`` through B2 and B3 equals its plain version on the CPU.  B4 adds the
 dying lanes' dyadic values like its plain version; the probes P1-P3 give
 their plain versions' values (P3 up to the card's opt-in limit and a
-refusal past it).
+refusal past it).  The gradient path (``mrt_torch.inverse``) launches B1
+in the forward and in the checkpoint's recompute, and its gradients
+equal those with the plain version's winners.
 """
 
 import pytest
@@ -665,3 +667,44 @@ def test_probes_match_plain(cuda):
     assert res["p1"]["value"] == P.closed_form()
     assert set(res["p2"]) == set(P.VARIANTS)
     assert res["p3"][227] == "3.0" and res["p3"][228].startswith("refused")
+
+
+def test_gradient_pass_b1_winners_match_plain(cuda, monkeypatch):
+    # The gradient path on the card: B1 searches the winners in the
+    # forward and again in the checkpoint's recompute; with
+    # nearest_t_plain's winners on the same CUDA tensors the loss is the
+    # same and the gradients within atomics' reassociation.
+    from mrt_torch import inverse
+    from mrt_torch.scenes import get
+
+    scene, camera = get("rtiow")(aspect_ratio=1.0, grid=3).generate(
+        device=cuda)
+
+    def grads():
+        a = scene.materials.albedo.clone().requires_grad_(True)
+        c = scene.spheres.center.clone().requires_grad_(True)
+        moved = scene.replace(
+            materials=scene.materials.replace(albedo=a),
+            spheres=scene.spheres.replace(center=c))
+        img = inverse.render_image(moved, camera, 48, 48, spp=1, seed=2,
+                                   max_depth=4)
+        loss = torch.mean(img ** 2)
+        loss.backward()
+        return loss.item(), a.grad, c.grad
+
+    B1.nearest_t.launches = 0
+    lk, *gk = grads()
+    assert B1.nearest_t.launches == 8  # 4 bounces, forward and recompute
+    plain = lambda center, radius, o, d, lo, hi, groups=None: (
+        B1.nearest_t_plain(center.detach(), radius, o.detach(), d.detach(),
+                           torch.as_tensor(lo, device=cuda).expand(
+                               o.shape[0]).contiguous(),
+                           torch.as_tensor(hi, device=cuda).expand(
+                               o.shape[0]).contiguous()))
+    monkeypatch.setattr(B1, "nearest_t", plain)
+    lp, *gp = grads()
+    assert lk == lp
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all() and (a != 0).any()
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * b.abs().max().item())

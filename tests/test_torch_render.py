@@ -193,6 +193,15 @@ def test_port_imports_neither_jax_nor_mrt():
         "                              0, width=6, height=4, max_depth=3,\n"
         "                              pool=16, rr_depth=1, pend=True)\n"
         "assert film.depth_sum.sum() > 0\n"
+        "from mrt_torch import inverse\n"
+        "from mrt_torch.core import autodiff\n"
+        "scene, camera = get('rtiow')(aspect_ratio=1.0, grid=2).generate(\n"
+        "    device='cpu')\n"
+        "a = scene.materials.albedo.clone().requires_grad_(True)\n"
+        "inverse.render_image(scene.replace(materials=scene.materials\n"
+        "                     .replace(albedo=a)), camera, 4, 4, spp=1,\n"
+        "                     max_depth=2).sum().backward()\n"
+        "assert a.grad is not None\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mrt'))\n"
         "assert not bad, bad\n"
