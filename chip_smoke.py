@@ -107,7 +107,27 @@ Each phase prints one line:
      beside indexing; kernels a recovery step (torch.profiler); then the
      same camera at 256x144 with B1's winners and with nearest_t_plain's
      on the card: winners bit-equal, gradients within 1e-5 of the
-     largest.
+     largest;
+ 21. the user's entry point (``mrt_torch.__main__``): ``main`` in-process
+     as ``python -m mrt_torch --scene rtiow`` at 1920x1080, depth 50,
+     ``--spp 8 --samples-per-pass 4 --denoise --display-mode denoise
+     --checkpoint``, then resumed from that checkpoint to ``--spp 16``:
+     the checkpoint and the film at 8 then 16 samples, B1 once a step and
+     16 times in the AOV pre-pass, B2 once a step and no other kernel, the
+     PNG equal to the film's DENOISE bytes; the five display modes
+     exported and decoded by ``load_png``; the denoiser at 1080p (ms, device
+     kernels, peak bytes, its output finite in [0, 1]) and on the card
+     against the CPU on artifacts/denoise_buffers.npz (1e-5); png_encode at
+     1080p; the AOV pre-pass of rtiow, sphere_grid and lucy at 1080p (ms,
+     launches: 16 of each of its kernels), its first and last batches'
+     B1, B5 and B7 winners against the plain versions on the card (B1 and
+     B5 in their own order bit-equal, B5 and B7 >= 99.9% against the
+     escape order), the whole frame at 256x144 against the port's CPU run
+     (1e-5; the BVH walks may keep another winner on 0.1% of pixels, C15);
+     ``serve`` at 320x180 in a thread (/status, /frame.png decoded, keys 2
+     and e, the stop event); ``python -X importtime -m mrt_torch`` at
+     320x180, spp 2, without ``--device`` as a subprocess (on the card, no
+     PIL, JAX or mrt imported; without a visible card it refuses).
 
 Each main path runs with every launch count set to 0 just before it and
 read just after.  Then a JSON line with each kernel's numbers (B2, B3
@@ -1609,6 +1629,456 @@ def phase_grad(dev):
                 gather_backward_ms=gather_ms)
 
 
+
+# Phase 21: the CLI's default scene and size, its checkpoint's two runs,
+# the AOV pre-pass's scenes, and the size of the viewer's and the
+# subprocess's small renders.
+CLI_W, CLI_H = WIDTH, HEIGHT
+CLI_SPP = (8, 16)
+AOV_SCENES = ("rtiow", "sphere_grid", "lucy")
+AOV_CROP_W, AOV_CROP_H = CROP_W, CROP_H
+VIEW_W, VIEW_H = 320, 180
+
+
+@contextlib.contextmanager
+def timed_calls(module, name, out):
+    """Inside the block, each call of module.name appends its seconds,
+    from a device sync to a device sync, to `out`."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+        return result
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def first_and_last_calls(module, name, out):
+    """Inside the block, the arguments of the first and of the last call
+    of module.name go into out["first"] and out["last"] (tensors
+    cloned)."""
+    fn = getattr(module, name)
+    keep = lambda x: x.detach().clone() if torch.is_tensor(x) else x
+
+    def spy(*args, **kwargs):
+        call = ([keep(a) for a in args], {k: keep(v) for k, v in
+                                          kwargs.items()})
+        out.setdefault("first", call)
+        out["last"] = call
+        out["calls"] = out.get("calls", 0) + 1
+        return fn(*args, **kwargs)
+
+    # The wrapper counts its launches on the module's attribute: the spy.
+    spy.launches = fn.launches
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        fn.launches = spy.launches
+        setattr(module, name, fn)
+
+
+def cli_run(dev, argv):
+    """mrt_torch.__main__.main(argv) with the launch counts set to 0
+    just before and read just after: (film, launches, steps, pass
+    seconds, AOV pre-pass seconds, wall seconds, peak device bytes)."""
+    from mrt_torch import __main__ as cli
+    from mrt_torch.runtime import render as R
+
+    passes, aovs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with counting_steps() as steps, \
+            timed_calls(R, "render_pass_persistent", passes), \
+            timed_calls(R, "aov_pass", aovs):
+        t0 = time.perf_counter()
+        film = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return (film, read_launches(), steps["steps"], passes, aovs, wall,
+            torch.cuda.max_memory_allocated())
+
+
+def kernel_winners(name, calls, dev):
+    """The first and last captured calls of kernel `name` ("B1", "B5",
+    "B7") against their plain versions on the same tensors on the card:
+    B1 bit-equal to nearest_t_plain; B5 bit-equal to the octant-order
+    walk, B5 and B7 >= 99.9% equal to the escape order (B7 also to its
+    own order).  Returns {"first"/"last": (rays, agreement)}."""
+    from mrt_torch.ops import bvh as K
+    from mrt_torch.ops import spheres as B1
+
+    out = {}
+    for which in ("first", "last"):
+        args, kw = calls[which]
+        if name == "B1":
+            center, radius, o, d, lo, hi = args
+            n = o.shape[0]
+            t_k, i_k = B1.nearest_t(center, radius, o, d, lo, hi, **kw)
+            t_p, i_p = B1.nearest_t_plain(center, radius, o, d,
+                                          as_lanes(lo, n, dev),
+                                          as_lanes(hi, n, dev))
+            check(torch.equal(t_k, t_p) and torch.equal(i_k, i_p),
+                  f"AOV pre-pass, {which} batch: B1 differs from "
+                  f"nearest_t_plain on {(i_k != i_p).sum().item()} lanes")
+            agree = 1.0
+        elif name == "B5":
+            nodes, meta, sph, o, d, lo, hi = args
+            n = o.shape[0]
+            lanes = (as_lanes(lo, n, dev), as_lanes(hi, n, dev))
+            t_k, i_k = K.sphere_bvh_hit(nodes, meta, sph, o, d, lo, hi, **kw)
+            t_p, i_p = K.sphere_bvh_plain(nodes, meta, sph, o, d, *lanes,
+                                          order=kw["card"][1])
+            check(torch.equal(t_k, t_p) and torch.equal(i_k, i_p),
+                  f"AOV pre-pass, {which} batch: B5 differs from its "
+                  f"octant-order walk on {(i_k != i_p).sum().item()} lanes")
+            t_e, i_e = K.sphere_bvh_plain(nodes, meta, sph, o, d, *lanes)
+            agree = compare_hits(f"AOV B5 {which} (escape order)", t_k, i_k,
+                                 t_e, i_e)[2]
+        else:
+            tl, o, d, lo, hi = args
+            n = o.shape[0]
+            lanes = (as_lanes(lo, n, dev), as_lanes(hi, n, dev))
+            k = K.tlas_hit(tl, o, d, lo, hi)
+            pair = lambda w: w[1].to(torch.int64) * (1 << 31) + w[2]
+            for ordered in (True, False):
+                p = K.tlas_plain(tl, o, d, *lanes, ordered=ordered)
+                agree = compare_hits(
+                    f"AOV B7 {which} ({'own' if ordered else 'escape'} "
+                    "order)", k[0], pair(k), p[0], pair(p),
+                    uv=((k[3], p[3]), (k[4], p[4])))[2]
+        out[which] = (n, agree)
+    return out
+
+
+def aov_scene(name, dev):
+    """The AOV pre-pass of scene `name` at CLI_W x CLI_H on the card:
+    its device ms (two runs, CUDA events), launches (counts set to 0
+    before each), its first and last batches' winners against the plain
+    versions, and the whole frame at the crop against the port's CPU
+    run."""
+    from mrt_torch.integrator import wavefront
+    from mrt_torch.ops import bvh as K
+    from mrt_torch.ops import spheres as B1
+    from mrt_torch.runtime import render as R
+    from mrt_torch.scenes import get
+
+    scene, camera = get(name)().generate(device=dev)
+    batches = -(-CLI_W * CLI_H // wavefront.RAY_BATCH)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        reset_launches()
+        _, ms = events_ms(lambda: R.aov_pass(scene, camera, width=CLI_W,
+                                             height=CLI_H, seed=1))
+        runs.append((ms, read_launches()))
+    kernels = {"rtiow": ("B1",), "sphere_grid": ("B5", "B7"),
+               "lucy": ("B1", "B7")}[name]
+    for _, launches in runs:
+        check(all(launches[k] == batches for k in kernels)
+              and all(v == 0 for k, v in launches.items()
+                      if k not in kernels),
+              f"{name} AOV pre-pass: {launches}, not {batches} launches "
+              f"of each of {kernels}")
+    spots = {"B1": (B1, "nearest_t"), "B5": (K, "sphere_bvh_hit"),
+             "B7": (K, "tlas_hit")}
+    calls = {k: {} for k in kernels}
+    with contextlib.ExitStack() as stack:
+        for k in kernels:
+            stack.enter_context(first_and_last_calls(*spots[k], calls[k]))
+        R.aov_pass(scene, camera, width=CLI_W, height=CLI_H, seed=1)
+    winners = {k: kernel_winners(k, calls[k], dev) for k in kernels}
+    del calls
+    # The whole frame at the crop, card against the port's CPU run.
+    card = [x.cpu() for x in R.aov_pass(scene, camera, width=AOV_CROP_W,
+                                        height=AOV_CROP_H, seed=1)]
+    scene_c, camera_c = get(name)().generate(device="cpu")
+    host = R.aov_pass(scene_c, camera_c, width=AOV_CROP_W, height=AOV_CROP_H,
+                      seed=1)
+    far = ((card[0] - host[0]).abs().amax(-1) > 1e-5) | (
+        (card[1] - host[1]).abs().amax(-1) > 1e-5)
+    share = far.float().mean().item()
+    # B1 is bit-equal to the brute force; the BVH walks may keep another
+    # winner on ~1 ray in 10^4 (C15).
+    check(far.sum().item() == 0 if name == "rtiow" else share <= 1e-3,
+          f"{name} AOV frame {AOV_CROP_W}x{AOV_CROP_H}: {far.sum().item()} "
+          "pixels further than 1e-5 from the CPU run")
+    err = max((a - b).abs()[~far].max().item() for a, b in zip(card, host))
+    del scene, camera, scene_c, camera_c
+    return dict(ms=[r[0] for r in runs], launches=runs[0][1],
+                winners=winners, crop_far=far.sum().item(), crop_err=err,
+                batches=batches)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def viewer_check(dev, work):
+    """serve() at VIEW_W x VIEW_H in a thread: /status, /frame.png
+    (decoded), key 2 (DENOISE), key e (export writes a PNG), then the
+    stop event.  Returns the seconds to the first frame."""
+    import threading
+    import urllib.request
+
+    from mrt_torch.runtime.config import RenderConfig
+    from mrt_torch.runtime.io import decode_png, load_png
+    from mrt_torch.runtime.viewer import serve
+
+    config = RenderConfig(scene="rtiow", width=VIEW_W, height=VIEW_H, spp=64,
+                          samples_per_pass=1, max_depth=8, serve=True,
+                          port=free_port(),
+                          output=os.path.join(work, "live.png"))
+    get = lambda path: urllib.request.urlopen(
+        f"http://127.0.0.1:{config.port}{path}", timeout=10).read()
+
+    def wait(test, what, seconds=120):
+        deadline = time.time() + seconds
+        while time.time() < deadline:
+            try:
+                value = test()
+                if value:
+                    return value
+            except OSError:
+                pass
+            time.sleep(0.1)
+        raise RuntimeError(f"viewer: {what} not seen in {seconds} s")
+
+    stop = threading.Event()
+    thread = threading.Thread(target=serve, args=(config,),
+                              kwargs=dict(log=lambda *a: None, stop=stop,
+                                          device=dev),
+                              daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        status = wait(lambda: (lambda s: s if s["samples"] >= 1 else None)(
+            json.loads(get("/status"))), "a first pass")
+        first_s = time.perf_counter() - t0
+        frame = decode_png(get("/frame.png"))
+        check(frame.shape == (VIEW_H, VIEW_W, 4),
+              f"/frame.png decoded to {frame.shape}")
+        get("/key?k=2")
+        wait(lambda: json.loads(get("/status"))["mode"] == "denoise",
+             "mode denoise")
+        get("/key?k=e")
+        wait(lambda: os.path.exists(config.output), "the exported PNG")
+        check(load_png(config.output).shape == (VIEW_H, VIEW_W, 4),
+              "the exported PNG has another size")
+    finally:
+        stop.set()
+        thread.join(timeout=120)
+    check(not thread.is_alive(), "the viewer's render thread did not stop")
+    return dict(first_frame_s=first_s, status=status)
+
+
+def cli_subprocess(work):
+    """``python -m mrt_torch`` at VIEW_W x VIEW_H, spp 2, without
+    --device: it renders on the card (and without a visible card it
+    raises instead of falling back to the CPU), and imports no PIL, JAX
+    or mrt (``-X importtime`` lists every module it imports)."""
+    from mrt_torch.runtime.io import load_png
+
+    out = os.path.join(work, "sub.png")
+    args = ["-m", "mrt_torch", "--scene", "rtiow", "--width", str(VIEW_W),
+            "--height", str(VIEW_H), "--spp", "2", "-o", out]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-X", "importtime"] + args,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    seconds = time.perf_counter() - t0
+    check(res.returncode == 0, f"python -m mrt_torch failed: "
+                               f"{res.stderr[-2000:]}")
+    modules = [line.rsplit("|", 1)[1].strip() for line in
+               res.stderr.splitlines() if line.startswith("import time:")]
+    bad = sorted({m for m in modules
+                  if m.split(".")[0] in ("PIL", "jax", "jaxlib", "mrt")})
+    check(len(modules) > 100 and not bad,
+          f"python -m mrt_torch imported {bad} ({len(modules)} modules)")
+    check(load_png(out).shape == (VIEW_H, VIEW_W, 4),
+          "the subprocess's PNG has another size")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable] + args, cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    check(res.returncode != 0 and "no CUDA device" in res.stderr,
+          "python -m mrt_torch without a visible card did not refuse")
+    return dict(seconds=seconds, modules=len(modules))
+
+
+def phase_cli(dev):
+    """Phase 21: the user's entry point on the card."""
+    import tempfile
+
+    from mrt_torch.integrator import wavefront
+    from mrt_torch.runtime import denoise as D
+    from mrt_torch.runtime import io as IO
+    from mrt_torch.runtime.config import RenderConfig
+    from mrt_torch.runtime.driver import export
+    from mrt_torch.runtime.film import DisplayMode, Film
+
+    work = tempfile.mkdtemp(prefix="mrt_cli_")
+    ckpt = os.path.join(work, "rtiow.npz")
+    out = os.path.join(work, "rtiow.png")
+    argv = ["--scene", "rtiow", "--width", str(CLI_W), "--height",
+            str(CLI_H), "--max-depth", "50", "--samples-per-pass", "4",
+            "--denoise", "--display-mode", "denoise", "--checkpoint", ckpt,
+            "-o", out]
+    runs = []
+    denoiser = D.make_denoiser()
+    batches = -(-CLI_W * CLI_H // wavefront.RAY_BATCH)
+    for spp in CLI_SPP:
+        film, launches, steps, passes, aovs, wall, peak = cli_run(
+            dev, argv + ["--spp", str(spp)])
+        check(film.samples == spp and Film.load_state(ckpt, device=dev)[
+            0].samples == spp, f"the checkpoint holds "
+                              f"{Film.load_state(ckpt, device=dev)[0].samples}"
+                              f" samples, the film {film.samples}, not {spp}")
+        check(launches["B1"] == steps + batches and launches["B2"] == steps
+              and all(v == 0 for k, v in launches.items()
+                      if k not in ("B1", "B2")),
+              f"CLI run to spp {spp}: {steps} steps, launches {launches}; "
+              f"B1 should launch once a step and {batches} times in the "
+              "pre-pass, B2 once a step")
+        shown = film.to_rgb_bytes(DisplayMode.DENOISE, denoiser=denoiser)
+        check(np.array_equal((IO.load_png(out)[..., :3] * 255.0).round()
+                             .astype(np.uint8), shown[::-1]),
+              "the CLI's PNG differs from film.to_rgb_bytes(DENOISE)")
+        runs.append(dict(spp=spp, steps=steps, launches=launches,
+                         pass_s=passes, aov_s=aovs, wall_s=wall,
+                         peak_bytes=peak))
+        log(21, f"python -m mrt_torch (in-process main) --scene rtiow "
+                f"{CLI_W}x{CLI_H} depth 50 --spp {spp} --samples-per-pass 4 "
+                f"--denoise --display-mode denoise --checkpoint: "
+                f"{film.samples} samples in the film and the checkpoint; "
+                f"{wall:.3f} s wall; passes "
+                f"{[round(x, 3) for x in passes]} s; AOV pre-pass "
+                f"{[round(x, 3) for x in aovs]} s; {steps} steps; launches "
+                f"B1 {launches['B1']} (steps + {batches}), B2 "
+                f"{launches['B2']}; "
+                f"peak {peak} B")
+    # The five display modes, exported as the driver exports them.
+    modes = {}
+    for mode in DisplayMode:
+        path = os.path.join(work, f"{mode.value}.png")
+        config = RenderConfig(display_mode=mode.value, denoise=True,
+                              output=path)
+        t0 = time.perf_counter()
+        export(film, path, config)
+        modes[mode.value] = time.perf_counter() - t0
+        want = film.to_rgb_bytes(mode, denoiser=denoiser)[::-1]
+        got = (IO.load_png(path)[..., :3] * 255.0).round().astype(np.uint8)
+        check(np.array_equal(got, want),
+              f"exported {mode.value} PNG differs from to_rgb_bytes")
+    rgb = film.to_float_rgb(DisplayMode.DEFAULT)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    den, den_ms = events_ms(lambda: D.denoise(rgb, film.albedo, film.normal))
+    den_ms = [den_ms] + [events_ms(lambda: D.denoise(
+        rgb, film.albedo, film.normal))[1] for _ in range(2)]
+    den_peak = torch.cuda.max_memory_allocated() - base
+    check(torch.isfinite(den).all().item() and den.min().item() >= 0.0
+          and den.max().item() <= 1.0 + 1e-6,
+          f"denoised frame: min {den.min().item()}, max {den.max().item()}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        D.denoise(rgb, film.albedo, film.normal)
+        torch.cuda.synchronize()
+    den_kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type.name == "CUDA")
+    shown = film.to_rgb_bytes(DisplayMode.DEFAULT)
+    png_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        png = IO.png_encode(shown)
+        png_ms.append((time.perf_counter() - t0) * 1e3)
+    check(np.array_equal(IO.decode_png(png)[..., :3], shown[::-1]),
+          "png_encode does not round-trip")
+    log(21, f"exports at {CLI_W}x{CLI_H} (to_rgb_bytes + PNG + write, s): "
+            f"{ {k: round(v, 3) for k, v in modes.items()} }, each decoded "
+            f"by load_png equal to to_rgb_bytes; denoiser {CLI_W}x{CLI_H}: "
+            f"{[round(x, 2) for x in den_ms]} ms (CUDA events), "
+            f"{den_kernels} device kernels (torch.profiler), peak {den_peak} "
+            f"B over the {base} B already allocated, output finite in "
+            f"[{den.min().item():.6f}, {den.max().item():.6f}]; png_encode "
+            f"{[round(x, 1) for x in png_ms]} ms ({len(png)} B)")
+    del den, rgb
+
+    # The denoiser on the card against the port's CPU run.
+    buffers = np.load(os.path.join(ROOT, "artifacts", "denoise_buffers.npz"))
+    den_err = {}
+    for name in ("rtiow", "cornell"):
+        for guides in ("both", "none"):
+            arrays = [buffers[f"{name}_{k}"] for k in ("low", "albedo",
+                                                       "normal")]
+            if guides == "none":
+                arrays[1:] = [None, None]
+            on = lambda d: [None if a is None else torch.from_numpy(a).to(d)
+                            for a in arrays]
+            err = (D.denoise(*on(dev)).cpu() - D.denoise(*on("cpu"))).abs()
+            den_err[f"{name} {guides}"] = err.max().item()
+            check(den_err[f"{name} {guides}"] <= 1e-5,
+                  f"denoise on the card vs the CPU, {name} {guides}: "
+                  f"{den_err[f'{name} {guides}']}")
+    log(21, f"denoise 160x160 on the card against the port's CPU run: "
+            f"max |diff| {den_err} (<= 1e-5)")
+
+    aov = {}
+    for name in AOV_SCENES:
+        aov[name] = r = aov_scene(name, dev)
+        wins = "; ".join(
+            f"{k} first {v['first'][0]} rays {v['first'][1]:.6f}, last "
+            f"{v['last'][0]} rays {v['last'][1]:.6f}"
+            for k, v in r["winners"].items())
+        log(21, f"AOV pre-pass {name} {CLI_W}x{CLI_H}: {r['batches']} "
+                f"batches, {[round(x, 2) for x in r['ms']]} ms (CUDA events, "
+                f"two runs), launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }; winners "
+                f"against the plain versions on the card ({wins}); "
+                f"{AOV_CROP_W}x{AOV_CROP_H} frame against the CPU run: "
+                f"{r['crop_far']} pixels past 1e-5, the rest within "
+                f"{r['crop_err']:.2e}")
+
+    view = viewer_check(dev, work)
+    log(21, f"serve {VIEW_W}x{VIEW_H} in a thread: first pass published in "
+            f"{view['first_frame_s']:.2f} s, /status {view['status']}, "
+            "/frame.png decoded, key 2 -> denoise, key e exported a PNG, "
+            "stopped")
+    sub = cli_subprocess(work)
+    log(21, f"python -X importtime -m mrt_torch --scene rtiow {VIEW_W}x"
+            f"{VIEW_H} --spp 2 (no --device): {sub['seconds']:.1f} s, "
+            f"{sub['modules']} modules imported, none of PIL, jax, mrt; the "
+            "PNG decoded; with CUDA_VISIBLE_DEVICES='' it refused (no "
+            "CUDA device)")
+    return dict(runs=runs, export_s=modes, denoise_ms=den_ms,
+                denoise_kernels=den_kernels, denoise_peak_bytes=den_peak,
+                denoise_cpu_err=den_err, png_encode_ms=png_ms,
+                aov={k: dict(ms=v["ms"], launches={a: b for a, b in
+                                                   v["launches"].items()
+                                                   if b},
+                             crop_far=v["crop_far"],
+                             winners={a: {w: list(x) for w, x in b.items()}
+                                      for a, b in v["winners"].items()})
+                     for k, v in aov.items()},
+                viewer_first_frame_s=view["first_frame_s"],
+                subprocess_s=sub["seconds"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1650,6 +2120,7 @@ def main():
     menger = phase_menger(dev)
     probes = phase_probes(dev)
     grad = phase_grad(dev)
+    cli = phase_cli(dev)
 
     kernels = [
         dict(name="B1 sphere nearest hit", route="cuda",
@@ -1657,12 +2128,17 @@ def main():
              replaces="mrt/ops/pallas_spheres.py:43",
              launches=rtiow["B1"],
              launches_grad_forward=grad["launches_forward"],
-             launches_grad_recompute=grad["launches_recompute"], **b1),
+             launches_grad_recompute=grad["launches_recompute"],
+             launches_cli=cli["runs"][0]["launches"]["B1"],
+             launches_cli_resume=cli["runs"][1]["launches"]["B1"],
+             launches_aov=cli["aov"]["rtiow"]["launches"]["B1"], **b1),
         dict(name="B2 film segment-add", route="cuda",
              source="mrt_torch/csrc/deposit.cu",
              replaces="mrt/ops/pallas_onehot.py:51",
              launches=grid["B2"], launches_rtiow=rtiow["B2"],
-             launches_eve_compact=eve["compact"]["launches"]["B2"], **b2),
+             launches_eve_compact=eve["compact"]["launches"]["B2"],
+             launches_cli=cli["runs"][0]["launches"]["B2"],
+             launches_cli_resume=cli["runs"][1]["launches"]["B2"], **b2),
         dict(name="B3 row gather (compaction expand)", route="cuda",
              source="mrt_torch/csrc/gather.cu",
              replaces="mrt/ops/pallas_onehot.py:218",
@@ -1701,6 +2177,7 @@ def main():
     ]
     grad.pop("recover")
     log(20, f"gradient path: {json.dumps(grad)}")
+    log(21, f"entry point: {json.dumps(cli)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,10 +16,18 @@ Layout:
     mrt_torch.materials   material table, shading, backgrounds, lights
     mrt_torch.scenes      scene registry (rtiow, cornell, sphere_grid,
                           lucy, playground, eve, menger)
-    mrt_torch.integrator  wavefront and persistent integrators
+    mrt_torch.integrator  wavefront and persistent integrators, the AOV
+                          (albedo/normal) pre-pass (integrator.aov)
     mrt_torch.inverse     differentiable renders, losses, optimize
-    mrt_torch.runtime     film, render driver, asset lookup, input
-                          record/replay, character physics
+    mrt_torch.runtime     film and display modes, render, asset lookup,
+                          input record/replay, character physics;
+                          runtime.io (PNG codec without PIL),
+                          runtime.config, runtime.driver, runtime.viewer
+                          (the live HTTP viewer), runtime.denoise (the
+                          à-trous filter)
+    mrt_torch.utils       profiling: render stats, timers, torch.profiler
+                          traces
+    mrt_torch.__main__    ``python -m mrt_torch``: mrt's CLI and --device
     mrt_torch.ops         kernel wrappers and their plain versions
     mrt_torch.csrc        CUDA sources, built with nvcc at first use
     mrt_torch.convert     numpy parameters -> port modules
@@ -27,8 +35,9 @@ Layout:
     mrt_torch.tools       hardware probes (probe_stream: P1-P3)
 
 Scene, materials and camera are ``nn.Module``s holding buffers, so
-``.to(device)`` moves them.  Scene factories and ``Film.create`` build
-on the CUDA card unless given ``device="cpu"``.  Every random number is the counter-based
+``.to(device)`` moves them.  Scene factories, ``Film.create`` and the
+entry points (``run``, ``serve``, ``main``) build on the CUDA card
+unless given ``device="cpu"``.  Every random number is the counter-based
 PCG4D of ``mrt_torch.math.rng``; there is no global RNG state.
 """
 

@@ -6,9 +6,8 @@ usemtl/mtllib, 1-based indices, triangular faces, the ``v//n`` form
 corner), group filtering, and ``SimpleTexturedBuilder``, which parses
 the .mtl's newmtl/Kd rows into Lambertian materials and flips V.
 
-Textures (``map_Kd``) need a PNG reader, which the port does not have
-yet: ``SimpleTexturedBuilder`` takes a texture atlas as the reference's
-does, but raises on a ``map_Kd`` row instead of dropping the texture.
+A ``map_Kd`` row loads its PNG (``runtime.io.load_png``) into the
+builder's texture atlas, and the material samples it.
 """
 
 from __future__ import annotations
@@ -155,8 +154,8 @@ class SimpleTexturedBuilder(ObjBuilder):
 
     Args:
       materials: a MaterialBuilder (rows added per .mtl material).
-      atlas: an AtlasBuilder for ``map_Kd`` textures, or None.  The port
-        has no PNG reader yet, so a ``map_Kd`` row raises either way.
+      atlas: an AtlasBuilder for ``map_Kd`` textures (needed only when
+        the .mtl has one).
       filtered_groups: group names to exclude.
       wrap: the atlas wrap mode of ``map_Kd`` textures (None: REPEAT).
     """
@@ -184,9 +183,11 @@ class SimpleTexturedBuilder(ObjBuilder):
             print(f"unable to load material library: {e}")
 
     def _parse_mtl(self, path):
-        """newmtl/Kd rows; map_Kd raises (no PNG reader)."""
+        """newmtl/Kd/map_Kd rows: a textured material samples its
+        map_Kd, the others are Lambertian in their Kd."""
         current = None
         diffuse = {}
+        texture = {}
         with open(path, "r", errors="replace") as f:
             for line in f:
                 parts = line.strip().split()
@@ -201,9 +202,11 @@ class SimpleTexturedBuilder(ObjBuilder):
                     except ValueError:
                         pass
                 elif parts[0] == "map_Kd" and current and len(parts) > 1:
-                    raise NotImplementedError(
-                        f"{path}: material {current!r} has a map_Kd "
-                        f"texture; mrt_torch has no PNG reader yet")
+                    tex_path = os.path.join(os.path.dirname(path), parts[1])
+                    texture[current] = self.atlas.add_png(tex_path,
+                                                          wrap=self.wrap)
+        for name, tid in texture.items():
+            self._mtl_rows[name] = self.materials.lambertian(tex=tid)
         for name, kd in diffuse.items():
             if name not in self._mtl_rows:
                 self._mtl_rows[name] = self.materials.lambertian(

@@ -1,10 +1,12 @@
 """Progressive accumulation film, tonemapping and display modes (mirrors
-``mrt.runtime.film`` for the DEFAULT and DEPTH modes).
+``mrt.runtime.film``).
 
 The film is ``(sum, depth_sum, samples)``; merging is addition.  Saving
 those three and reloading resumes a progressive render exactly.  The
-AOV guides ``albedo`` and ``normal`` ride along, None until set; a
-checkpoint keeps them, as mrt's does.
+AOV guides ``albedo`` and ``normal`` (the pre-pass of
+``integrator/aov.py``) ride along, None until set; a checkpoint keeps
+them, as mrt's does.  They feed the ALBEDO and NORMAL display modes and
+the denoiser of the DENOISE mode.
 """
 
 from __future__ import annotations
@@ -21,7 +23,10 @@ from ..core.device import resolve
 
 class DisplayMode(enum.Enum):
     DEFAULT = "default"
+    DENOISE = "denoise"
     DEPTH = "depth"
+    ALBEDO = "albedo"
+    NORMAL = "normal"
 
 
 @dataclasses.dataclass
@@ -43,6 +48,14 @@ class Film:
             samples=0,
         )
 
+    @property
+    def width(self):
+        return self.sum.shape[1]
+
+    @property
+    def height(self):
+        return self.sum.shape[0]
+
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
 
@@ -52,14 +65,30 @@ class Film:
                             depth_sum=self.depth_sum + bounces,
                             samples=self.samples + 1)
 
+    def with_aov(self, albedo, normal):
+        return self.replace(albedo=albedo, normal=normal)
+
+    def clear(self):
+        """No samples; the guides stay."""
+        return self.replace(sum=torch.zeros_like(self.sum),
+                            depth_sum=torch.zeros_like(self.depth_sum),
+                            samples=0)
+
     def mean(self):
         return self.sum / float(max(self.samples, 1))
 
-    def to_float_rgb(self, mode: DisplayMode = DisplayMode.DEFAULT):
-        """Per-pixel float RGB in [0, 1]; rows run bottom-up."""
-        if mode is DisplayMode.DEFAULT:
+    def to_float_rgb(self, mode: DisplayMode = DisplayMode.DEFAULT,
+                     denoiser=None):
+        """Per-pixel float RGB in [0, 1]; rows run bottom-up.  DENOISE
+        passes DEFAULT's image and the guides to `denoiser` (without one
+        it is DEFAULT); ALBEDO and NORMAL are zeros without their guide."""
+        if mode in (DisplayMode.DEFAULT, DisplayMode.DENOISE):
             out = torch.clamp(self.mean() ** (1.0 / 2.2), 0.0, 1.0)
-            return out if self.samples > 0 else torch.zeros_like(out)
+            if self.samples == 0:
+                out = torch.zeros_like(out)
+            if mode is DisplayMode.DENOISE and denoiser is not None:
+                out = denoiser(out, self.albedo, self.normal)
+            return out
         if mode is DisplayMode.DEPTH:
             # Mean depth normalised by its image maximum.
             max_depth = torch.clamp(torch.max(self.depth_sum), min=1)
@@ -67,11 +96,20 @@ class Film:
             if self.samples == 0:
                 depth = torch.zeros_like(depth)
             return depth[..., None].expand(*depth.shape, 3)
+        if mode is DisplayMode.ALBEDO:
+            if self.albedo is None:
+                return torch.zeros_like(self.sum)
+            return torch.clamp(self.albedo, 0.0, 1.0) ** (1.0 / 2.2)
+        if mode is DisplayMode.NORMAL:
+            if self.normal is None:
+                return torch.zeros_like(self.sum)
+            return (self.normal + 1.0) / 2.0
         raise ValueError(f"unknown display mode {mode}")
 
-    def to_rgb_bytes(self, mode: DisplayMode = DisplayMode.DEFAULT):
+    def to_rgb_bytes(self, mode: DisplayMode = DisplayMode.DEFAULT,
+                     denoiser=None):
         """uint8 RGB, rows bottom-up, truncating like ``(p * 255) as u8``."""
-        floats = self.to_float_rgb(mode).cpu().numpy()
+        floats = self.to_float_rgb(mode, denoiser=denoiser).cpu().numpy()
         return (floats * 255.0).astype(np.uint8)
 
     def save_state(self, path, seed=0):

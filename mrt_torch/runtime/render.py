@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from ..integrator import wavefront
+from ..integrator import aov, wavefront
 from ..integrator.persistent import POOL, render_samples_persistent
 from .film import Film
 
@@ -39,31 +39,56 @@ def render_pass_persistent(scene, camera, film: Film, seed, sample_start,
                         samples=film.samples + samples)
 
 
+def aov_pass(scene, camera, *, width, height, seed=0):
+    """The albedo and normal guide pre-pass: (albedo, normal), each
+    (H, W, 3)."""
+    return aov.albedo_normal_frame(scene, camera, width, height, seed=seed)
+
+
 def render(scene, camera, width, height, spp=64, seed=1,
-           max_depth=wavefront.MAX_DEPTH, samples_per_pass=None, film=None,
-           progress=None, persistent=False, rr_depth=None):
+           max_depth=wavefront.MAX_DEPTH, samples_per_pass=None,
+           with_aov=False, film=None, progress=None, persistent=False,
+           rr_depth=None, sort_rays=None):
     """Progressive render to `spp` total samples.
 
     Args:
       samples_per_pass: spp per pass (None = all at once).
+      with_aov: run the guide pre-pass first and attach its albedo and
+        normal to the film (the denoiser's and the display modes').
       film: resume from an existing film (checkpointed state).
       progress: optional callback(film) after each pass.
       persistent: use the ray-regeneration integrator (same estimator,
         different float accumulation order).
       rr_depth: Russian roulette from that bounce on (None: off).
+      sort_rays: None or False; the reference's lane sorter is not
+        ported (its 1024-lane packets are a TPU cost), so True raises.
 
     Returns the accumulated Film, on the camera's device.
     """
+    if sort_rays:
+        raise NotImplementedError(
+            "sort_rays=True: mrt_torch has no lane sorter (its kernels "
+            "walk one ray a thread); pass None or False")
     if film is None:
         film = Film.create(width, height, device=camera.origin.device)
-    pass_fn = render_pass_persistent if persistent else render_pass
+    if with_aov:
+        film = film.with_aov(*aov_pass(scene, camera, width=width,
+                                       height=height, seed=seed))
     chunk = samples_per_pass or spp
     done = film.samples
     while done < spp:
         step = min(chunk, spp - done)
-        film = pass_fn(scene, camera, film, seed, done, width=width,
-                       height=height, max_depth=max_depth, samples=step,
-                       rr_depth=rr_depth)
+        if persistent:
+            # Lanes past the pass's work items would idle from the start
+            # and change nothing: a small frame takes one lane an item.
+            film = render_pass_persistent(
+                scene, camera, film, seed, done, width=width, height=height,
+                max_depth=max_depth, samples=step, rr_depth=rr_depth,
+                pool=min(POOL, width * height * step))
+        else:
+            film = render_pass(scene, camera, film, seed, done, width=width,
+                               height=height, max_depth=max_depth,
+                               samples=step, rr_depth=rr_depth)
         done += step
         if progress is not None:
             progress(film)

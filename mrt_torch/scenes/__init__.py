@@ -22,5 +22,9 @@ def get(name):
     return _REGISTRY[name]
 
 
+def names():
+    return sorted(_REGISTRY)
+
+
 from . import (cornell, eve, lucy, menger,  # noqa: E402,F401
                playground, rtiow, sphere_grid)

@@ -10,8 +10,8 @@
 The CCP game assets are not in the repository: when a hull's files are
 absent, a procedural stand-in ship and synthetic packed textures take
 their place (the same draws as the JAX package, seeded by a CRC of the
-hull's name).  Loading the real hulls needs a PNG reader, which the
-port does not have yet (``AtlasBuilder.add_png`` raises).
+hull's name).  When they are present, ``load_ship`` reads the OBJ and
+its three PNGs (``AtlasBuilder.add_png``), as the reference does.
 """
 
 from __future__ import annotations

@@ -206,9 +206,9 @@ class AtlasBuilder:
         return tid
 
     def add_png(self, path, wrap=REPEAT):
-        raise NotImplementedError(
-            f"add_png({path!r}): mrt_torch has no PNG reader yet; pass the "
-            "decoded (H, W, 4) pixels to add_raw")
+        """A RAW row of the PNG file's normalised RGBA texels."""
+        from ..runtime.io import load_png
+        return self.add_raw(load_png(path), wrap=wrap)
 
     def add_solid(self, rgba):
         """1x1 solid colour."""

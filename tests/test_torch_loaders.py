@@ -3,10 +3,9 @@
 
 All of it is host code on both sides, so the outputs must be equal:
 vertices, faces, Triangles arrays (byte-equal) and material rows, on
-the JAX loader tests' fixtures and on the playground level.  One
-stated difference: the port has no PNG reader yet, so its
-``SimpleTexturedBuilder`` raises on a ``map_Kd`` row where the JAX one
-loads the texture; without one, both take a texture atlas alike.
+the JAX loader tests' fixtures and on the playground level.  A
+``map_Kd`` row loads its PNG in both packages (tests/test_torch_png.py
+holds the texels and rows against JAX's builder).
 """
 
 import os
@@ -106,11 +105,18 @@ def test_playground_level_matches():
 
 
 def test_map_kd_raises_instead_of_dropping_the_texture(tmp_path):
+    # A map_Kd whose file is missing fails the .mtl in both packages (the
+    # library's OSError is reported, then its faces find no material);
+    # one given no atlas to load it into raises.  Neither drops the
+    # texture.
     path = _write_obj(tmp_path, MTL + "newmtl tex\nmap_Kd checker.png\n")
-    for atlas in (None, TAtlasBuilder()):
-        with pytest.raises(NotImplementedError, match="map_Kd.*PNG reader"):
-            TL.load_obj(path, TL.SimpleTexturedBuilder(TMaterialBuilder(),
-                                                       atlas))
+    for mod, mats, atlas, error, match in (
+            (JL, JMaterialBuilder, AtlasBuilder(), ValueError, "No material"),
+            (TL, TMaterialBuilder, TAtlasBuilder(), ValueError, "No material"),
+            (JL, JMaterialBuilder, None, AttributeError, "add_png"),
+            (TL, TMaterialBuilder, None, AttributeError, "add_png")):
+        with pytest.raises(error, match=match):
+            mod.load_obj(path, mod.SimpleTexturedBuilder(mats(), atlas))
 
 
 def test_textured_builder_takes_an_atlas(tmp_path):

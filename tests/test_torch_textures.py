@@ -29,6 +29,8 @@ Tolerances and why:
 """
 
 import os
+import struct
+import zlib
 
 import numpy as np
 import pytest
@@ -128,9 +130,22 @@ def test_atlas_sample_matches_reference(monkeypatch, xla_pow):
     np.testing.assert_array_equal(fast, want[raw])
 
 
-def test_add_png_raises():
-    with pytest.raises(NotImplementedError, match="PNG"):
-        TA.AtlasBuilder().add_png("stars.png")
+def test_add_png_raises(tmp_path):
+    # add_png reads the file now (tests/test_torch_png.py holds its
+    # texels against JAX's); a missing or interlaced file raises, as a
+    # missing one does in JAX's atlas.
+    missing = str(tmp_path / "stars.png")
+    for mod in (JA, TA):
+        with pytest.raises(FileNotFoundError):
+            mod.AtlasBuilder().add_png(missing)
+    head = struct.pack(">IIBBBBB", 1, 1, 8, 2, 0, 0, 1)
+    with open(missing, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + struct.pack(">I", 13) + b"IHDR"
+                + head + struct.pack(">I", zlib.crc32(b"IHDR" + head))
+                + struct.pack(">I", 0) + b"IEND"
+                + struct.pack(">I", zlib.crc32(b"IEND")))
+    with pytest.raises(ValueError, match="interlaced"):
+        TA.AtlasBuilder().add_png(missing)
 
 
 def _faces(mod):
