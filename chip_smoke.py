@@ -127,11 +127,26 @@ Each phase prints one line:
      ``serve`` at 320x180 in a thread (/status, /frame.png decoded, keys 2
      and e, the stop event); ``python -X importtime -m mrt_torch`` at
      320x180, spp 2, without ``--device`` as a subprocess (on the card, no
-     PIL, JAX or mrt imported; without a visible card it refuses).
+     PIL, JAX or mrt imported; without a visible card it refuses);
+ 22. the sharded paths (``mrt_torch.parallel``): (a) a one-process NCCL
+     group, mesh (1, 1): ``render_sharded(persistent=True)`` of RTIOW at
+     1920x1080, depth 50, spp 2, pool 2^17, equal to phase 6's film
+     (bounce counts exact, radiance within f32 reassociation), B1 and B2
+     once a step and no other kernel, the pass seconds beside phase 6's
+     and the all-reduce's; ``render_pass_sharded`` (wavefront) at 256x144,
+     depth 8, spp 2, against the same pass on the CPU: bit-equal with the
+     CPU's sin and cos substituted on the card (ROADMAP C20, C22), and the
+     pixels that differ without; (b) two ranks of a gloo group on the one
+     card, two subprocesses (``chip_smoke.py shard-worker``), meshes (2, 1)
+     and (1, 2): RTIOW at 1920x1080, depth 50, spp 2 against phase 6's
+     film and sphere_grid at 480x270, spp 2 (B5, B7, B2) against a
+     one-process pass, under the same rule.  Two ranks sharing one card
+     give no multi-GPU time.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after.  Then a JSON line with each kernel's numbers (B2, B3
-and B4 also with ``floor_ms``, phase 4's launch floor), and as
+and B4 also with ``floor_ms``, phase 4's launch floor; B1 and B2 also
+``launches_sharded``, phase 22's), and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; so does a machine without CUDA.  Imports no JAX.
 
@@ -2079,7 +2094,250 @@ def phase_cli(dev):
                 subprocess_s=sub["seconds"])
 
 
+SHARD_W, SHARD_H = 256, 144   # phase 22's wavefront pass
+GRID_W, GRID_H = 480, 270     # phase 22's sphere_grid on two ranks
+SHARD_MESHES = ((2, 1), (1, 2))
+
+
+@contextlib.contextmanager
+def timed_all_reduce(out):
+    """Adds the seconds of each Mesh.all_reduce inside the block (the
+    device synced before and after it) to out["all_reduce_s"]."""
+    from mrt_torch.parallel.mesh import Mesh
+
+    fn = Mesh.all_reduce
+    out["all_reduce_s"] = 0.0
+
+    def timed(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn(self, *a, **k)
+        torch.cuda.synchronize()
+        out["all_reduce_s"] += time.perf_counter() - t0
+        return y
+
+    Mesh.all_reduce = timed
+    try:
+        yield
+    finally:
+        Mesh.all_reduce = fn
+
+
+@contextlib.contextmanager
+def cpu_trig():
+    """The CPU's float32 sin and cos on every device inside the block:
+    CUDA's differ from them by an ulp on some inputs (ROADMAP C22)."""
+    saved = torch.sin, torch.cos
+    torch.sin, torch.cos = (
+        (lambda x, fn=fn: fn(x.cpu()).to(x.device)) for fn in saved)
+    try:
+        yield
+    finally:
+        torch.sin, torch.cos = saved
+
+
+def shard_pass(name, dev, width, height, mesh):
+    """render_sharded(persistent=True) of scene `name` at depth 50, spp 2,
+    with launch counts set to 0 just before, after one all-reduce and one
+    gather of a float on each axis (a backend sets up its communicators
+    at a group's first collective).  Returns (film, seconds, launches,
+    steps, all-reduce seconds)."""
+    from mrt_torch.parallel import render_sharded
+    from mrt_torch.scenes import get
+
+    scene, camera = get(name)().generate(device=dev)
+    for axis in mesh.groups:
+        mesh.all_gather(mesh.all_reduce(torch.ones(1, device=dev), axis),
+                        axis)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {}
+    with counting_steps() as steps, timed_all_reduce(out):
+        t0 = time.perf_counter()
+        film = render_sharded(scene, camera, width, height, mesh, spp=2,
+                              seed=1, max_depth=50, persistent=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return film, seconds, read_launches(), steps["steps"], out["all_reduce_s"]
+
+
+def shard_worker(rank, init, out):
+    """One of phase 22's two ranks on the card (a subprocess): a gloo
+    group, the meshes of SHARD_MESHES, RTIOW at 1080p and sphere_grid at
+    GRID_W x GRID_H; rank 0 writes each gathered film, every rank its
+    numbers, under `out`."""
+    sys.path.insert(0, ROOT)
+    from mrt_torch.ops import _build
+    from mrt_torch.parallel import init_distributed, make_mesh
+
+    dev = torch.device("cuda", 0)
+    _build.library()
+    init_distributed(init, num_processes=2, process_id=rank,
+                     backend="gloo", device=dev, timeout=600)
+    numbers = {}
+    for name, w, h in (("rtiow", WIDTH, HEIGHT),
+                       ("sphere_grid", GRID_W, GRID_H)):
+        for tile, spp in SHARD_MESHES:
+            mesh = make_mesh(tile=tile, spp=spp, device=dev)
+            film, seconds, launches, steps, ar = shard_pass(name, dev, w, h,
+                                                            mesh)
+            key = f"{name}-{tile}x{spp}"
+            numbers[key] = dict(seconds=seconds, launches=launches,
+                                steps=steps, all_reduce_s=ar)
+            if rank == 0:
+                np.savez(os.path.join(out, key + ".npz"),
+                         sum=film.sum.cpu().numpy(),
+                         depth=film.depth_sum.cpu().numpy(),
+                         samples=film.samples)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(numbers, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_sharded(dev, rtiow):
+    """Phase 22: the sharded paths on the card.  `rtiow`: phase 6's
+    film_out.  Returns the numbers of the JSON line."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mrt_torch.parallel import make_mesh, render_pass_sharded
+    from mrt_torch.parallel.mesh import Mesh
+    from mrt_torch.runtime.film import Film
+    from mrt_torch.runtime.render import render_pass_persistent
+    from mrt_torch.scenes import get
+
+    # (a) One process, one NCCL group, mesh (1, 1).
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(tile=1, spp=1, device=dev)
+        check(mesh.groups["spp"] is not None, "no process group on (1, 1)")
+        film, seconds, launches, steps, ar = shard_pass("rtiow", dev, WIDTH,
+                                                        HEIGHT, mesh)
+        check(launches["B1"] == launches["B2"] == steps > 0
+              and not any(v for k, v in launches.items()
+                          if k not in ("B1", "B2")),
+              f"sharded RTIOW: B1 and B2 not once a step ({steps} steps): "
+              f"{launches}")
+        check(film.samples == 2, f"samples {film.samples}")
+        diff, scale = films_agree("sharded RTIOW (1, 1) against phase 6",
+                                  film, rtiow["film"])
+        log(22, f"(a) NCCL, mesh (1, 1): render_sharded(persistent=True) of "
+                f"RTIOW {WIDTH}x{HEIGHT} depth 50 spp 2 pool {RAYS}: "
+                f"{seconds:.3f} s (phase 6: {rtiow['seconds']:.3f} s), "
+                f"{steps} steps (phase 6: {rtiow['steps']}), all-reduce "
+                f"{ar * 1e3:.3f} ms a pass, launches {launches}; bounce "
+                f"counts equal phase 6's, radiance within {diff:.3g} (max "
+                f"{scale:.3g})")
+        a = dict(seconds=seconds, phase6_seconds=rtiow["seconds"],
+                 steps=steps, all_reduce_ms=ar * 1e3, launches=launches)
+
+        # The wavefront pass on the card against the CPU's (C20).
+        passes = {}
+        for where, d, trig in (("card", dev, contextlib.nullcontext),
+                               ("card, CPU sin/cos", dev, cpu_trig),
+                               ("cpu", torch.device("cpu"),
+                                contextlib.nullcontext)):
+            scene, camera = get("rtiow")().generate(device=d)
+            m = mesh if d.type == "cuda" else Mesh(1, 1, d)
+            with trig():
+                f = render_pass_sharded(
+                    scene, camera, Film.create(SHARD_W, SHARD_H, device=d),
+                    1, 0, width=SHARD_W, height=SHARD_H, samples=2,
+                    max_depth=8, mesh=m)
+            passes[where] = (f.sum.cpu(), f.depth_sum.cpu())
+        cpu_sum, cpu_depth = passes["cpu"]
+        card_sum, card_depth = passes["card, CPU sin/cos"]
+        check(torch.equal(card_depth, cpu_depth)
+              and torch.equal(card_sum, cpu_sum) and cpu_depth.sum() > 0,
+              "render_pass_sharded on the card (CPU sin/cos) is not "
+              "bit-equal to the CPU's")
+        raw_sum, raw_depth = passes["card"]
+        raw = dict(depth_px=int((raw_depth != cpu_depth).sum()),
+                   radiance_px=int((raw_sum != cpu_sum).any(-1).sum()),
+                   max_abs=(raw_sum - cpu_sum).abs().max().item())
+        log(22, f"(a) render_pass_sharded {SHARD_W}x{SHARD_H} depth 8 spp 2: "
+                "bit-equal to the CPU's with the CPU's sin and cos on the "
+                f"card; with the card's own, {raw['depth_px']} px with "
+                f"another bounce count and {raw['radiance_px']} px another "
+                f"radiance (max {raw['max_abs']:.3g}) of "
+                f"{SHARD_W * SHARD_H} (C22)")
+        a["wavefront_card_trig"] = raw
+    finally:
+        dist.destroy_process_group()
+
+    # (b) Two gloo ranks on the one card, in two subprocesses.
+    work = tempfile.mkdtemp(prefix="mrt_shard_")
+    try:
+        init = f"file://{os.path.join(work, 'store')}"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "shard-worker", str(r), init, work], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, out in zip(procs, logs):
+            check(p.returncode == 0, f"shard worker failed:\n{out[-3000:]}")
+        wall = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+                 for r in range(2)]
+        scene, camera = get("sphere_grid")().generate(device=dev)
+        grid = render_pass_persistent(
+            scene, camera, Film.create(GRID_W, GRID_H, device=dev), 1, 0,
+            width=GRID_W, height=GRID_H, max_depth=50, samples=2, pool=RAYS)
+        b = {}
+        for name, want, kernels in (("rtiow", rtiow["film"], ("B1", "B2")),
+                                    ("sphere_grid", grid,
+                                     ("B2", "B5", "B7"))):
+            for tile, spp in SHARD_MESHES:
+                key = f"{name}-{tile}x{spp}"
+                z = np.load(os.path.join(work, key + ".npz"))
+                got = Film(sum=torch.from_numpy(z["sum"]).to(dev),
+                           depth_sum=torch.from_numpy(z["depth"]).to(dev),
+                           samples=int(z["samples"]))
+                check(got.samples == 2, f"{key}: samples {got.samples}")
+                diff, scale = films_agree(f"two ranks, {key}", got, want)
+                per = [r[key] for r in ranks]
+                for r in per:
+                    check(all(r["launches"][k] > 0 for k in kernels),
+                          f"{key}: {kernels} did not launch: "
+                          f"{r['launches']}")
+                b[key] = dict(seconds=[r["seconds"] for r in per],
+                              steps=[r["steps"] for r in per],
+                              all_reduce_ms=[r["all_reduce_s"] * 1e3
+                                             for r in per],
+                              max_abs=diff)
+                log(22, f"(b) gloo, two ranks on one card, mesh ({tile}, "
+                        f"{spp}): {name} equal to the one-process film "
+                        f"(bounce counts exact, radiance within {diff:.3g} "
+                        f"of max {scale:.3g}); a rank's pass "
+                        f"{b[key]['seconds'][0]:.3f}/{b[key]['seconds'][1]:.3f}"
+                        f" s, steps {b[key]['steps']}, all-reduce "
+                        f"{b[key]['all_reduce_ms'][0]:.3f}/"
+                        f"{b[key]['all_reduce_ms'][1]:.3f} ms (no multi-GPU "
+                        "time: the ranks share one card)")
+        log(22, f"(b) two subprocesses, start to exit: {wall:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(one_process=a, two_ranks=b)
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "shard-worker":
+        return shard_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2100,8 +2358,8 @@ def main():
 
     b2 = phase_b2(dev)
     phase_golden(5, "rtiow", dev, grid=5)
-    rtiow_rays, grid_rays = {}, {}
-    rtiow, _ = phase_main(6, "rtiow", dev, ("B1", "B2"),
+    rtiow_rays, grid_rays, rtiow_film = {}, {}, {}
+    rtiow, _ = phase_main(6, "rtiow", dev, ("B1", "B2"), film_out=rtiow_film,
                           during=captured_rays("B1", rtiow_rays))
     b1 = phase_b1(dev, rtiow_rays)
     b7 = phase_b7(dev)
@@ -2121,6 +2379,7 @@ def main():
     probes = phase_probes(dev)
     grad = phase_grad(dev)
     cli = phase_cli(dev)
+    sharded = phase_sharded(dev, rtiow_film)
 
     kernels = [
         dict(name="B1 sphere nearest hit", route="cuda",
@@ -2131,14 +2390,18 @@ def main():
              launches_grad_recompute=grad["launches_recompute"],
              launches_cli=cli["runs"][0]["launches"]["B1"],
              launches_cli_resume=cli["runs"][1]["launches"]["B1"],
-             launches_aov=cli["aov"]["rtiow"]["launches"]["B1"], **b1),
+             launches_aov=cli["aov"]["rtiow"]["launches"]["B1"],
+             launches_sharded=sharded["one_process"]["launches"]["B1"],
+             **b1),
         dict(name="B2 film segment-add", route="cuda",
              source="mrt_torch/csrc/deposit.cu",
              replaces="mrt/ops/pallas_onehot.py:51",
              launches=grid["B2"], launches_rtiow=rtiow["B2"],
              launches_eve_compact=eve["compact"]["launches"]["B2"],
              launches_cli=cli["runs"][0]["launches"]["B2"],
-             launches_cli_resume=cli["runs"][1]["launches"]["B2"], **b2),
+             launches_cli_resume=cli["runs"][1]["launches"]["B2"],
+             launches_sharded=sharded["one_process"]["launches"]["B2"],
+             **b2),
         dict(name="B3 row gather (compaction expand)", route="cuda",
              source="mrt_torch/csrc/gather.cu",
              replaces="mrt/ops/pallas_onehot.py:218",
@@ -2178,6 +2441,7 @@ def main():
     grad.pop("recover")
     log(20, f"gradient path: {json.dumps(grad)}")
     log(21, f"entry point: {json.dumps(cli)}")
+    log(22, f"sharded paths: {json.dumps(sharded)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,8 @@ Layout:
                           runtime.config, runtime.driver, runtime.viewer
                           (the live HTTP viewer), runtime.denoise (the
                           à-trous filter)
+    mrt_torch.parallel    (tile, spp) meshes over torch.distributed
+                          ranks, sharded rendering
     mrt_torch.utils       profiling: render stats, timers, torch.profiler
                           traces
     mrt_torch.__main__    ``python -m mrt_torch``: mrt's CLI and --device

@@ -2,10 +2,14 @@
 
 The flags and defaults of ``python -m mrt``, plus ``--device`` (the
 counterpart of JAX_PLATFORMS; default: the CUDA card, raising without
-one; ``--device cpu`` renders on the CPU).  Three flags differ from
-mrt's: ``--mesh-tile`` and ``--mesh-spp`` > 1 raise until sharding is
-ported (ROADMAP A6), ``--sort-rays`` raises (no lane sorter), and
-``--profile-dir`` writes a ``torch.profiler`` trace.
+one; ``--device cpu`` renders on the CPU).  ``--mesh-tile`` and
+``--mesh-spp`` shard the frame over a (tile, spp) mesh of
+``torch.distributed`` ranks; their product must be the world size (one
+process, or the ranks a launcher starts:
+``torchrun --nproc-per-node 4 -m mrt_torch --mesh-tile 2 --mesh-spp 2``,
+rank r on card r, rank 0 writing the PNG).  Two flags differ from mrt's:
+``--sort-rays`` raises (no lane sorter), and ``--profile-dir`` writes a
+``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -44,8 +48,8 @@ def build_parser():
     p.add_argument("--read-input", default=None)
     p.add_argument("--write-input", default=None)
     p.add_argument("--mesh-tile", type=int, default=None,
-                   help="tile-axis size for multi-device rendering (not "
-                        "ported yet: raises)")
+                   help="tile-axis size for multi-device rendering "
+                        "(torch.distributed ranks)")
     p.add_argument("--mesh-spp", type=int, default=1)
     p.add_argument("--rr-depth", type=int, default=None,
                    help="Russian roulette start bounce (default off)")

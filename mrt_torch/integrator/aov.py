@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..materials import shade
+from ..math import vec
 from ..math.rng import Sampler
 from . import wavefront
 
@@ -46,11 +47,8 @@ def albedo_normal_frame(scene, camera, width, height, seed=0):
     device = camera.origin.device
     n = width * height
     ray_id = torch.arange(n, dtype=torch.int64, device=device)
-    # Divided by tensors: CUDA divides by a Python scalar through its
-    # reciprocal, an ulp off the quotient on some pixels (ROADMAP C20).
-    size = torch.tensor([float(width), float(height)], device=device)
-    s = ((ray_id % width).to(torch.float32) + 0.5) / size[0]
-    t = ((ray_id // width).to(torch.float32) + 0.5) / size[1]
+    s = vec.div((ray_id % width).to(torch.float32) + 0.5, width)
+    t = vec.div((ray_id // width).to(torch.float32) + 0.5, height)
     zeros = torch.zeros((n,), device=device)
     o, d = camera.rays(s, t, zeros, zeros)
     albedo, normal = [], []

@@ -5,7 +5,11 @@ A fixed pool of P lanes consumes a queue of (pixel, sample) work items;
 the moment a path terminates, its lane claims the next item and
 generates that sample's camera ray, so lanes stay busy at any depth.
 Work items are pixel-major: item -> (pixel = item // samples,
-sample = item % samples).
+sample = item % samples).  A shard of the frame (``parallel.render``)
+passes ``pixel_offset``, ``n_pixels`` and ``sample_stride``: its items
+cover pixels [pixel_offset, pixel_offset + n_pixels) and its k-th sample
+of a pixel is sample_start + k * sample_stride; its film holds those
+pixels alone.
 
 Every random draw is the same pure function of (seed, pixel, sample,
 bounce) as in the wavefront integrator, so both give the same
@@ -65,14 +69,16 @@ class LanePool:
     pool of lanes."""
 
     def __init__(self, scene, camera, width, height, seed, sample_start,
-                 samples, max_depth, rr_depth=None, pend=False):
+                 samples, max_depth, rr_depth=None, pend=False,
+                 pixel_offset=0, n_pixels=None, sample_stride=1):
         self.scene, self.camera = scene, camera
         self.rr_depth, self.pend = rr_depth, pend
         self.width = width
         self.seed = seed
         self.sample_start, self.samples = sample_start, samples
+        self.pixel_offset, self.sample_stride = pixel_offset, sample_stride
         self.max_depth = max_depth
-        self.npix = width * height
+        self.npix = n_pixels if n_pixels is not None else width * height
         self.total = self.npix * samples
         self.device = camera.origin.device
         # 1/width and 1/height rounded to float32: the camera multiplies
@@ -91,8 +97,8 @@ class LanePool:
         of wavefront.render_sample.  Returns (o, d, ray_id)."""
         q = item // self.samples
         s_idx = item - q * self.samples
-        pixel = q
-        sample = (self.sample_start + s_idx) & MASK
+        pixel = self.pixel_offset + q
+        sample = (self.sample_start + s_idx * self.sample_stride) & MASK
         px = (pixel % self.width).to(torch.float32)
         py = (pixel // self.width).to(torch.float32)
         cam = Sampler(self.seed, (pixel + mul32(sample, 0x9E3779B9)) & MASK,
@@ -204,18 +210,24 @@ class LanePool:
 def render_samples_persistent(scene, camera, width, height, seed,
                               sample_start, samples, max_depth=MAX_DEPTH,
                               pool=POOL, film_sum=None, depth_sum=None,
-                              rr_depth=None, pend=None):
+                              rr_depth=None, pend=None, pixel_offset=0,
+                              n_pixels=None, sample_stride=1):
     """Render `samples` spp of the frame with a pool of `pool` lanes.
     rr_depth: Russian roulette from that bounce on (None: off); pend:
     the pending-deposit film mode (None: ``pend_enabled``'s default).
+    pixel_offset, n_pixels, sample_stride: render the shard of pixels
+    [pixel_offset, pixel_offset + n_pixels) (None: the whole frame) at
+    samples sample_start + k * sample_stride, k < samples.
 
-    Returns (film_sum (npix, 3) float32, depth_sum (npix,) int32); pass
-    them back in to accumulate further passes.  Records no autograd
-    graph: like the reference's while_loop, the pass has no gradient
+    Returns (film_sum (npix, 3) float32, depth_sum (npix,) int32) with
+    npix = n_pixels or width * height; pass them back in to accumulate
+    further passes.  Records no autograd graph: like the reference's
+    while_loop, the pass has no gradient
     (``trace_wavefront(differentiable=True)`` has).
     """
     lanes = LanePool(scene, camera, width, height, seed, sample_start,
-                     samples, max_depth, rr_depth, pend_enabled(pend))
+                     samples, max_depth, rr_depth, pend_enabled(pend),
+                     pixel_offset, n_pixels, sample_stride)
     device = lanes.device
     film = torch.zeros((lanes.npix, 4), dtype=torch.float32, device=device)
     if film_sum is not None:

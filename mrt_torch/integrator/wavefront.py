@@ -183,9 +183,20 @@ def render_sample(scene, camera, width, height, seed, sample_index,
     """One 1-spp pass over the full frame.
 
     Returns (radiance (H,W,3), bounces (H,W) int32)."""
+    return render_rows(scene, camera, width, height, 0, height, seed,
+                       sample_index, max_depth, rr_depth)
+
+
+def render_rows(scene, camera, width, height, row0, n_rows, seed,
+                sample_index, max_depth=MAX_DEPTH, rr_depth=None):
+    """One 1-spp pass over rows [row0, row0 + n_rows) of the frame, each
+    ray's id its global pixel id, so a row tile draws the numbers the
+    whole frame does (``parallel.render``).
+
+    Returns (radiance (n_rows,W,3), bounces (n_rows,W) int32)."""
     device = camera.origin.device
-    n = width * height
-    ray_id = torch.arange(n, dtype=torch.int64, device=device)
+    n = n_rows * width
+    ray_id = row0 * width + torch.arange(n, dtype=torch.int64, device=device)
     px = (ray_id % width).to(torch.float32)
     py = (ray_id // width).to(torch.float32)
 
@@ -195,12 +206,12 @@ def render_sample(scene, camera, width, height, seed, sample_index,
     jx, jy, du, dv = cam.next4()
 
     # Pixel-jittered viewport coords; t runs bottom-up.
-    s = (px + jx) / float(width)
-    t = (py + jy) / float(height)
+    s = vec.div(px + jx, width)
+    t = vec.div(py + jy, height)
     o, d = camera.rays(s, t, du, dv)
     sample_salt = (sample * 0x85EBCA6B) & MASK
     radiance, bounces = trace_batched(scene, o, d, ray_id ^ sample_salt,
                                       seed, max_depth=max_depth,
                                       rr_depth=rr_depth)
-    return (radiance.reshape(height, width, 3),
-            bounces.reshape(height, width))
+    return (radiance.reshape(n_rows, width, 3),
+            bounces.reshape(n_rows, width))

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from .integrator import wavefront
+from .math import vec
 from .math.rng import MASK, Sampler
 
 
@@ -42,15 +43,15 @@ def render_image(scene, camera, width, height, spp=4, seed=0, max_depth=6):
         cam = Sampler(seed, (ray_id + ((0x9E3779B9 * s) & MASK)) & MASK,
                       salt=0xC0FFEE)
         jx, jy, du, dv = cam.next4()
-        sx = (px + jx) / float(width)
-        ty = (py + jy) / float(height)
+        sx = vec.div(px + jx, width)
+        ty = vec.div(py + jy, height)
         o, d = camera.rays(sx, ty, du, dv)
         salt = (s * 0x85EBCA6B) & MASK
         radiance, _ = wavefront.trace_wavefront(
             scene, o, d, ray_id ^ salt, seed, max_depth=max_depth,
             differentiable=True)
         acc = acc + radiance
-    return (acc / spp).reshape(height, width, 3)
+    return vec.div(acc, spp).reshape(height, width, 3)
 
 
 def l2_loss(img, target):

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..math.vec import clamp, cross, dot, length, sqrt
+from ..math.vec import clamp, cross, div, dot, length, sqrt
 from . import table as T
 
 SPHERE = 0
@@ -223,7 +223,7 @@ def sample_direct(scene, hits, sampler, lobe):
     dist = torch.where(is_tri, dist_tri, dist_sph)
     valid = capable & (weight > 0.0)
 
-    p_light = torch.where(is_tri, psa_tri, psa_sph) / float(n_lights)
+    p_light = div(torch.where(is_tri, psa_tri, psa_sph), n_lights)
     p_b = bsdf_pdf(lobe, n_unit, w)
     w_mis = (p_light * p_light
              / clamp(p_light * p_light + p_b * p_b, 1e-20))
@@ -263,8 +263,8 @@ def mis_bsdf_weight(scene, hits, o, d, prev_pdf):
     solid = TAU * (1.0 - cos_max)
     psa_sph = 1.0 / clamp(solid, 1e-12)
 
-    p_light = torch.where(hits.prim_area > 0.0, psa_tri,
-                          torch.where(hits.prim_area < 0.0, psa_sph,
-                                      0.0)) / n_lights
+    p_light = div(torch.where(hits.prim_area > 0.0, psa_tri,
+                              torch.where(hits.prim_area < 0.0, psa_sph,
+                                          0.0)), n_lights)
     return (prev_pdf * prev_pdf
             / clamp(prev_pdf * prev_pdf + p_light * p_light, 1e-20))

@@ -28,6 +28,14 @@ def sqrt(x):
     return torch.sqrt(x)
 
 
+def div(x, s):
+    """x / s for a Python number s, the true quotient on every device.
+    CUDA divides a tensor by a host scalar as x * (1 / s), an ulp off the
+    quotient on some inputs, where the CPU and the reference divide
+    (ROADMAP C20); a 0-dim tensor on x's device is divided by."""
+    return x / x.new_full((), float(s))
+
+
 def clamp(x, lo=None, hi=None):
     """torch.clamp with the reference's derivative at a bound: jnp.clip,
     jnp.maximum and jnp.minimum pass half the gradient where x equals

@@ -37,7 +37,7 @@ class RenderConfig:
     # Input record/replay
     read_input: Optional[str] = None
     write_input: Optional[str] = None
-    # Multi-device (not ported yet: ROADMAP A6)
+    # Multi-device: a (tile, spp) mesh of torch.distributed ranks
     mesh_tile: Optional[int] = None
     mesh_spp: int = 1
     # A torch.profiler trace of the run is written here

@@ -33,7 +33,7 @@ def _box3(img):
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
             acc = acc + _shift2d(img, dy, dx)
-    return acc / 9.0
+    return vec.div(acc, 9.0)
 
 
 def _sq_dist(a, b):
@@ -71,11 +71,13 @@ def denoise(rgb, albedo=None, normal=None, iterations=3, sigma_color=0.2,
                                  float(_KERNEL[ky] * _KERNEL[kx]))
                 w = w * torch.exp(-_sq_dist(c, out) / color_denom)
                 if albedo is not None:
-                    w = w * torch.exp(-_sq_dist(_shift2d(albedo, dy, dx),
-                                                albedo) / sigma_albedo ** 2)
+                    w = w * torch.exp(vec.div(
+                        -_sq_dist(_shift2d(albedo, dy, dx), albedo),
+                        sigma_albedo ** 2))
                 if normal is not None:
-                    w = w * torch.exp(-_sq_dist(_shift2d(normal, dy, dx),
-                                                normal) / sigma_normal ** 2)
+                    w = w * torch.exp(vec.div(
+                        -_sq_dist(_shift2d(normal, dy, dx), normal),
+                        sigma_normal ** 2))
                 accum = accum + c * w
                 weight = weight + w
         out = accum / torch.clamp(weight, min=1e-8)

@@ -5,10 +5,12 @@ with ETA logs, input record/replay, checkpoints with resume and retry,
 the viewer, and an optional ``torch.profiler`` trace.  Everything runs
 on ``device`` (None: the CUDA card; raises without one).
 
-Three of mrt's options differ: multi-device rendering (``mesh_tile``,
-``mesh_spp > 1``) raises until sharding is ported (ROADMAP A6),
-``sort_rays=True`` raises (no lane sorter), and ``profile_dir`` records
-a ``torch.profiler`` trace in place of ``jax.profiler``'s.
+Multi-device rendering (``mesh_tile``, ``mesh_spp > 1``) renders over
+a (tile, spp) mesh of ``torch.distributed`` ranks (``mrt_torch.parallel``);
+a launcher that sets WORLD_SIZE > 1 (torchrun) makes ``run`` join its
+process group, and only rank 0 writes files.  Two of mrt's options
+differ: ``sort_rays=True`` raises (no lane sorter), and ``profile_dir``
+records a ``torch.profiler`` trace in place of ``jax.profiler``'s.
 """
 
 from __future__ import annotations
@@ -20,21 +22,18 @@ import time
 import torch
 
 from .. import scenes
-from ..core.device import resolve
+from ..parallel.mesh import init_from_launcher, is_leader, make_mesh
+from ..parallel.render import render_sharded
 from ..utils.profiling import trace
 from .config import RenderConfig
 from .film import DisplayMode, Film
 from .input import InputCollection, InputRecorder, InputReplay
 from .io import save_png
-from .render import render
+from .render import aov_pass, render
 
 
 def check_supported(config: RenderConfig):
-    """Raise on the options the port does not have."""
-    if config.mesh_tile is not None or config.mesh_spp > 1:
-        raise NotImplementedError(
-            "mesh_tile / mesh_spp > 1: multi-device rendering is not "
-            "ported yet (ROADMAP A6)")
+    """Raise on the option the port does not have."""
     if config.sort_rays:
         raise NotImplementedError(
             "sort_rays=True: mrt_torch has no lane sorter; pass None or "
@@ -57,10 +56,24 @@ def _sync(film):
 
 def render_frame(scene, camera, config: RenderConfig, film=None,
                  progress=None):
-    """Render one frame as the config says, on the camera's device."""
+    """Render one frame as the config says (on one device or over a
+    mesh of ranks), on the camera's device."""
     check_supported(config)
     needs_aov = (config.denoise
                  or config.display_mode in ("denoise", "albedo", "normal"))
+    if config.mesh_tile is not None or config.mesh_spp > 1:
+        mesh = make_mesh(tile=config.mesh_tile, spp=config.mesh_spp,
+                         device=camera.origin.device)
+        film = render_sharded(
+            scene, camera, config.width, config.height, mesh,
+            spp=config.spp, seed=config.seed, max_depth=config.max_depth,
+            samples_per_pass=config.samples_per_pass, film=film,
+            persistent=config.persistent, rr_depth=config.rr_depth)
+        if needs_aov:
+            film = film.with_aov(*aov_pass(scene, camera, width=config.width,
+                                           height=config.height,
+                                           seed=config.seed))
+        return film
     return render(scene, camera, config.width, config.height,
                   spp=config.spp, seed=config.seed,
                   max_depth=config.max_depth,
@@ -71,6 +84,10 @@ def render_frame(scene, camera, config: RenderConfig, film=None,
 
 
 def export(film: Film, path, config: RenderConfig):
+    """Write the film's PNG in the config's display mode (rank 0 alone
+    under a process group)."""
+    if not is_leader():
+        return
     mode = DisplayMode(config.display_mode)
     save_png(path, film.to_rgb_bytes(mode, denoiser=_denoiser_for(config)))
 
@@ -86,7 +103,7 @@ def _generate(sc, t, frame, inp, config, device):
 def run(config: RenderConfig, log=print, device=None):
     """Top-level entry: one frame, an animation, or the viewer."""
     check_supported(config)
-    device = resolve(device)
+    device = init_from_launcher(device)
     sc = scenes.get(config.scene)(aspect_ratio=config.aspect_ratio)
 
     replay = InputReplay(config.read_input) if config.read_input else None
@@ -116,7 +133,7 @@ def run(config: RenderConfig, log=print, device=None):
             eta = elapsed / (frame + 1) * (total - frame - 1)
             log(f"frame {frame + 1}/{total} "
                 f"({elapsed:.0f}s elapsed, ETA {eta:.0f}s)")
-        if recorder is not None:
+        if recorder is not None and is_leader():
             recorder.save(config.write_input)
         return film
 
@@ -133,7 +150,7 @@ def _single_frame(config, sc, replay, log, device):
     def progress(f):
         # Checkpointing after every pass doubles as recovery: a fault
         # mid-render resumes from the last pass.
-        if config.checkpoint:
+        if config.checkpoint and is_leader():
             f.save_state(config.checkpoint, seed=config.seed)
         if config.preview:
             export(f, config.output, config)
@@ -153,10 +170,11 @@ def _single_frame(config, sc, replay, log, device):
             if os.path.exists(config.checkpoint):
                 film, _ = Film.load_state(config.checkpoint, device=device)
     log(f"rendered {config.spp} spp in {time.time() - t0:.1f}s")
-    if config.checkpoint:
+    if config.checkpoint and is_leader():
         film.save_state(config.checkpoint, seed=config.seed)
     export(film, config.output, config)
-    log(f"wrote {config.output}")
+    if is_leader():
+        log(f"wrote {config.output}")
     return film
 
 

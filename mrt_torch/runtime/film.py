@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve
+from ..math import vec
 
 
 class DisplayMode(enum.Enum):
@@ -75,7 +76,7 @@ class Film:
                             samples=0)
 
     def mean(self):
-        return self.sum / float(max(self.samples, 1))
+        return vec.div(self.sum, max(self.samples, 1))
 
     def to_float_rgb(self, mode: DisplayMode = DisplayMode.DEFAULT,
                      denoiser=None):

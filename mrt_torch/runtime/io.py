@@ -9,7 +9,8 @@ gives, the reference's reading, including PIL's own mappings: 1-, 2-
 and 4-bit grey scaled to 0..255; 16-bit grey clipped to 255; 16-bit
 colour cut to its high byte; the low byte of a tRNS colour compared
 with the mapped values; palette alphas from tRNS (255 past its end) and black past the
-palette's end.  Interlaced (Adam7) files raise ``ValueError``.
+palette's end.  Interlaced (Adam7) files are read pass by pass, as PIL
+reads them.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
            6: (8, 16)}
+# Adam7's seven passes: (first column, first row, column step, row step).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunk(kind, data):
@@ -154,6 +158,24 @@ def _samples(data, w, depth, channels):
     return (bits @ weights)[:, :w, None].astype(np.int64)
 
 
+def _deinterlace(raw, w, h, depth, channels, bpp):
+    """Adam7 image data -> (H, W, channels) samples: each pass is a
+    sub-image with its own scanlines and filters, one after another in
+    the stream (a pass with no pixels has no bytes), scattered into the
+    image at its (row, column) lattice."""
+    v = np.zeros((h, w, channels), np.int64)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * channels * depth + 7) // 8
+        rows = _unfilter(raw[pos:], ph, stride, bpp)
+        v[y0::dy, x0::dx] = _samples(rows, pw, depth, channels)
+        pos += ph * (stride + 1)
+    return v
+
+
 def _rgba(v, ctype, depth, palette, trns):
     """Samples -> (H, W, 4) uint8 as PIL's convert("RGBA") maps them."""
     h, w = v.shape[:2]
@@ -208,16 +230,17 @@ def decode_png(data):
     w, h, depth, ctype, _, _, interlace = header
     if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
         raise ValueError(f"PNG colour type {ctype} at bit depth {depth}")
-    if interlace:
-        raise ValueError("interlaced (Adam7) PNG files are not read")
     if not idat:
         raise ValueError("PNG file has no IDAT")
     channels = _CHANNELS[ctype]
-    stride = (w * channels * depth + 7) // 8
     bpp = max(1, channels * depth // 8)
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, stride, bpp)
-    return _rgba(_samples(rows, w, depth, channels), ctype, depth, palette,
-                 trns)
+    raw = memoryview(zlib.decompress(b"".join(idat)))
+    if interlace:
+        v = _deinterlace(raw, w, h, depth, channels, bpp)
+    else:
+        stride = (w * channels * depth + 7) // 8
+        v = _samples(_unfilter(raw, h, stride, bpp), w, depth, channels)
+    return _rgba(v, ctype, depth, palette, trns)
 
 
 def load_png(path):

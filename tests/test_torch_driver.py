@@ -316,10 +316,27 @@ def test_profile_preview_and_nee(tmp_path, monkeypatch):
 
 
 def test_unported_options_and_a_missing_card_raise(tmp_path, monkeypatch):
+    # The mesh options render over torch.distributed ranks now: on one
+    # process a 1x1 mesh renders the unsharded film, and a mesh that does
+    # not fit the world raises, as JAX's make_mesh does with too few
+    # devices.  The lane sorter and a missing card still raise.
+    base = ["--width", "8", "--height", "4", "--spp", "2",
+            "--samples-per-pass", "1", "--device", "cpu"]
+    for flags in ([], ["--batched"]):
+        films = [main(base + flags + extra + ["-o", str(tmp_path / name)])
+                 for extra, name in (([], "plain.png"),
+                                     (["--mesh-tile", "1"], "mesh.png"))]
+        np.testing.assert_array_equal(films[1].depth_sum.numpy(),
+                                      films[0].depth_sum.numpy())
+        np.testing.assert_allclose(films[1].sum.numpy(),
+                                   films[0].sum.numpy(), rtol=1e-6,
+                                   atol=1e-7)
+        assert films[1].samples == 2
     base = ["--width", "8", "--height", "4", "--spp", "1", "-o",
             str(tmp_path / "x.png")]
-    for extra in (["--mesh-tile", "2"], ["--mesh-spp", "2"]):
-        with pytest.raises(NotImplementedError, match="A6"):
+    for extra, shape in ((["--mesh-tile", "2"], "2x1"),
+                         (["--mesh-spp", "2"], "0x2")):
+        with pytest.raises(ValueError, match=f"mesh {shape} != 1 devices"):
             main(base + extra + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="sort"):
         main(base + ["--sort-rays", "--device", "cpu"])

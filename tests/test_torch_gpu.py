@@ -30,7 +30,11 @@ dying lanes' dyadic values like its plain version; the probes P1-P3 give
 their plain versions' values (P3 up to the card's opt-in limit and a
 refusal past it).  The gradient path (``mrt_torch.inverse``) launches B1
 in the forward and in the checkpoint's recompute, and its gradients
-equal those with the plain version's winners.
+equal those with the plain version's winners.  Divisions by a host
+number give the CPU's quotient on the card (ROADMAP C20): the wavefront's
+camera coordinates, ``Film.mean``, the lights' pdf; with the CPU's sin
+and cos substituted on the card (its own differ, ROADMAP C22) a 256x144
+RTIOW wavefront film is bit-equal to the CPU's.
 """
 
 import pytest
@@ -708,3 +712,106 @@ def test_gradient_pass_b1_winners_match_plain(cuda, monkeypatch):
         assert torch.isfinite(a).all() and (a != 0).any()
         torch.testing.assert_close(a, b, rtol=1e-5,
                                    atol=1e-5 * b.abs().max().item())
+
+
+def cpu_trig(monkeypatch):
+    """The CPU's float32 sin and cos on every device: CUDA's differ from
+    them by an ulp on some inputs (ROADMAP C22)."""
+    for name in ("sin", "cos"):
+        fn = getattr(torch, name)
+        monkeypatch.setattr(torch, name,
+                            lambda x, fn=fn: fn(x.cpu()).to(x.device))
+
+
+def test_c20_wavefront_film_equals_the_cpu(cuda, monkeypatch):
+    from mrt_torch.core.camera import Camera
+    from mrt_torch.integrator import wavefront
+    from mrt_torch.scenes import get
+
+    cpu_trig(monkeypatch)
+    seen = []
+    rays = Camera.rays
+
+    def spy(self, s, t, du, dv):
+        seen.append((s.cpu(), t.cpu()))
+        return rays(self, s, t, du, dv)
+
+    monkeypatch.setattr(Camera, "rays", spy)
+    films = []
+    for dev in ("cpu", "cuda"):
+        scene, camera = get("rtiow")().generate(device=dev)
+        films.append([x.cpu() for x in wavefront.render_sample(
+            scene, camera, 256, 144, 1, 3, max_depth=8)])
+    (s0, t0), (s1, t1) = seen
+    assert torch.equal(s0, s1) and torch.equal(t0, t1)
+    assert torch.equal(films[0][1], films[1][1])
+    assert torch.equal(films[0][0], films[1][0])
+    assert films[0][1].sum() > 0
+
+
+def test_c20_film_mean_and_light_pdf_equal_the_cpu(cuda, monkeypatch):
+    import types
+
+    import numpy as np
+
+    from mrt_torch.geometry.hit import Hits
+    from mrt_torch.materials import lights
+    from mrt_torch.math.rng import Sampler
+    from mrt_torch.runtime.film import Film
+
+    rs = np.random.default_rng(20)
+    total = torch.from_numpy(rs.random((144, 256, 3)).astype(np.float32))
+    means = [Film(sum=total.to(dev), depth_sum=None, samples=7).mean().cpu()
+             for dev in ("cpu", "cuda")]
+    assert torch.equal(means[0], means[1])
+
+    # mis_bsdf_weight's light pdf, from the same hits on both devices.
+    n = 1 << 16
+    cols = {k: rs.standard_normal((n, 3)).astype(np.float32)
+            for k in ("o", "d", "point", "normal")}
+    area = (rs.random(n) * 4 - 2).astype(np.float32)
+    t = rs.random(n).astype(np.float32) * 5
+    pdf = rs.random(n).astype(np.float32)
+    scene = types.SimpleNamespace(lights=types.SimpleNamespace(count=3))
+    out = []
+    for dev in ("cpu", "cuda"):
+        on = lambda x: torch.from_numpy(x).to(dev)
+        hits = Hits.none(n, device=dev)
+        hits = hits.__class__(**dict(
+            vars(hits), t=on(t), point=on(cols["point"]),
+            normal=on(cols["normal"]), prim_area=on(area),
+            hit=on(area != 0), front_face=torch.ones(n, dtype=torch.bool,
+                                                     device=dev)))
+        out.append(lights.mis_bsdf_weight(scene, hits, on(cols["o"]),
+                                          on(cols["d"]), on(pdf)).cpu())
+    assert torch.equal(out[0], out[1])
+
+    # sample_direct's light pdf on cornell's first hits (found on the
+    # CPU), with the CPU's sin and cos on the card.
+    import torch_golden_scenes as TG
+
+    cpu_trig(monkeypatch)
+    pdfs = []
+    div = lights.div
+
+    def spy(x, s):
+        q = div(x, s)
+        pdfs.append(q.cpu())
+        return q
+
+    monkeypatch.setattr(lights, "div", spy)
+    scene, camera = TG.cornell_nee("cpu")
+    s, t = (torch.from_numpy(rs.random(4096).astype(np.float32))
+            for _ in range(2))
+    zeros = torch.zeros(4096)
+    o, d = camera.rays(s, t, zeros, zeros)
+    hits = scene.intersect(o, d, t_min=1e-3)
+    lobe = torch.where(hits.hit, 1, 0)
+    for dev in ("cpu", "cuda"):
+        moved = hits.__class__(**{k: v if v is None else v.to(dev)
+                                  for k, v in vars(hits).items()})
+        lights.sample_direct(TG.cornell_nee(dev)[0], moved,
+                             Sampler(5, torch.arange(4096, device=dev),
+                                     salt=7), lobe.to(dev))
+    assert len(pdfs) == 2 and bool(torch.isfinite(pdfs[0]).all())
+    assert torch.equal(pdfs[0], pdfs[1])

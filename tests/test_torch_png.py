@@ -76,12 +76,45 @@ def _filter(rows, bpp, kinds):
     return bytes(out)
 
 
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unpack(rows, width, depth, channels):
+    """Packed rows (H, stride) uint8 -> (H, width, channels) samples."""
+    h = rows.shape[0]
+    if depth == 16:
+        v = np.ascontiguousarray(rows).view(">u2").astype(np.int64)
+    elif depth == 8:
+        v = rows.astype(np.int64)
+    else:
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+        v = bits @ (1 << np.arange(depth - 1, -1, -1))
+    return v[:, :width * channels].reshape(h, width, channels)
+
+
+def _adam7(rows, width, depth, channels, bpp, kinds):
+    """The seven Adam7 passes of packed rows, each filtered on its own
+    (its first row against zeros), one after another; a pass with no
+    pixels writes nothing."""
+    v = _unpack(rows, width, depth, channels)
+    out = b""
+    for x0, y0, dx, dy in ADAM7:
+        sub = v[y0::dy, x0::dx]
+        if sub.size:
+            out += _filter(_pack(sub.reshape(sub.shape[0], -1), depth), bpp,
+                           kinds)
+    return out
+
+
 def write_png(path, rows, width, depth, ctype, kinds=(0,), plte=None,
               trns=None, interlace=0):
-    """A PNG of unfiltered rows (H, stride) uint8, its IDAT split in two."""
+    """A PNG of unfiltered rows (H, stride) uint8, its IDAT split in two;
+    interlace=1 writes the image as Adam7's seven passes."""
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
     bpp = max(1, channels * depth // 8)
-    data = zlib.compress(_filter(rows, bpp, kinds))
+    data = zlib.compress(_adam7(rows, width, depth, channels, bpp, kinds)
+                         if interlace else _filter(rows, bpp, kinds))
     head = struct.pack(">IIBBBBB", width, rows.shape[0], depth, ctype, 0, 0,
                        interlace)
     out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", head)
@@ -101,7 +134,12 @@ def _rows(rs, h, width, depth, ctype, high=None):
     """Random samples packed into (H, stride) uint8 rows."""
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
     top = (1 << depth) if high is None else high
-    v = rs.integers(0, top, (h, width * channels))
+    return _pack(rs.integers(0, top, (h, width * channels)), depth)
+
+
+def _pack(v, depth):
+    """(H, N) samples -> (H, stride) uint8 rows at the bit depth."""
+    h = v.shape[0]
     if depth == 16:
         return v.astype(">u2").view(np.uint8).reshape(h, -1)
     if depth == 8:
@@ -137,6 +175,28 @@ def test_every_format_and_filter_decodes_like_pil(tmp_path, ctype, depth):
     for kinds in KINDS:
         _same(write_png(tmp_path / "a.png", rows, width, depth, ctype, kinds,
                         plte=plte))
+
+
+# (width, height): under 8x8, where passes are empty, and widths that are
+# not a multiple of 8.
+ADAM7_SIZES = [(1, 1), (2, 3), (5, 4), (7, 9), (13, 7), (17, 11)]
+
+
+@pytest.mark.parametrize("ctype,depth", FORMATS)
+def test_interlaced_files_decode_like_pil(tmp_path, ctype, depth):
+    rs = np.random.default_rng(ctype * 100 + depth + 1)
+    high = 8 if ctype == 3 else None
+    plte = PLTE if ctype == 3 else None
+    for i, (width, h) in enumerate(ADAM7_SIZES):
+        rows = _rows(rs, h, width, depth, ctype, high)
+        path = write_png(tmp_path / "a.png", rows, width, depth, ctype,
+                         KINDS[i % len(KINDS)], plte=plte, interlace=1)
+        assert Image.open(path).info.get("interlace") == 1
+        got = _same(path)
+        # The same samples written without interlacing read the same.
+        flat = write_png(tmp_path / "f.png", rows, width, depth, ctype,
+                         plte=plte)
+        assert TIO.load_png(flat).tobytes() == got.tobytes()
 
 
 def _trns_cases(ctype, depth, rows, rs):
@@ -239,10 +299,11 @@ def test_pil_mappings_are_pinned(tmp_path):
 
 
 def test_interlaced_and_broken_files_raise(tmp_path):
+    # An interlaced file reads as PIL reads it; broken files raise.
     rows = _rows(np.random.default_rng(0), 4, 4, 8, 2)
     path = write_png(tmp_path / "i.png", rows, 4, 8, 2, interlace=1)
-    with pytest.raises(ValueError, match="interlaced"):
-        TIO.load_png(path)
+    assert Image.open(path).info.get("interlace") == 1
+    _same(path)
     data = bytearray(open(write_png(tmp_path / "ok.png", rows, 4, 8, 2),
                           "rb").read())
     data[40] ^= 1   # inside IDAT: the CRC no longer holds

@@ -155,7 +155,7 @@ def test_port_imports_neither_jax_nor_mrt():
         "from mrt_torch.ops import compact, gather\n"
         "from mrt_torch.geometry import volumes, voxels\n"
         "from mrt_torch.materials import lights\n"
-        "from mrt_torch.tools import probe_stream\n"
+        "from mrt_torch.tools import device_math, probe_stream\n"
         "from mrt_torch import profile\n"
         "from mrt_torch.textures import atlas\n"
         "from mrt_torch.runtime.film import Film\n"
@@ -202,6 +202,11 @@ def test_port_imports_neither_jax_nor_mrt():
         "                     .replace(albedo=a)), camera, 4, 4, spp=1,\n"
         "                     max_depth=2).sum().backward()\n"
         "assert a.grad is not None\n"
+        "from mrt_torch import parallel\n"
+        "from mrt_torch.parallel import make_mesh, render_sharded\n"
+        "film = render_sharded(scene, camera, 6, 4, make_mesh(device='cpu'),\n"
+        "                      spp=1, max_depth=2, persistent=True)\n"
+        "assert film.samples == 1 and parallel.init_distributed() is None\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mrt'))\n"
         "assert not bad, bad\n"
@@ -215,16 +220,29 @@ def test_port_imports_neither_jax_nor_mrt():
 
 @pytest.mark.parametrize("entry", ["rtiow", "cornell", "sphere_grid", "lucy",
                                    "playground", "eve", "menger", "film",
-                                   "load_state"])
+                                   "load_state", "make_mesh",
+                                   "init_distributed", "render_sharded"])
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     # Without a card and without device="cpu" the entry points raise;
     # they never carry on quietly on the CPU.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     path = tmp_path / "film.npz"
     Film.create(2, 3, device="cpu").save_state(path)
+    from mrt_torch import parallel
+
+    def sharded():
+        scene, camera = get("rtiow")(aspect_ratio=1.0, grid=2).generate(
+            device="cpu")
+        return parallel.render_sharded(scene, camera, 2, 2, spp=1)
+
+    # init_distributed resolves the device before it joins any group.
     build = dict(
         film=lambda: Film.create(2, 3),
-        load_state=lambda: Film.load_state(path)).get(
+        load_state=lambda: Film.load_state(path),
+        make_mesh=parallel.make_mesh,
+        init_distributed=lambda: parallel.init_distributed(
+            "localhost:1", num_processes=2, process_id=0),
+        render_sharded=sharded).get(
             entry, lambda: get(entry)(aspect_ratio=1.0).generate())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()

@@ -132,8 +132,9 @@ def test_atlas_sample_matches_reference(monkeypatch, xla_pow):
 
 def test_add_png_raises(tmp_path):
     # add_png reads the file now (tests/test_torch_png.py holds its
-    # texels against JAX's); a missing or interlaced file raises, as a
-    # missing one does in JAX's atlas.
+    # texels against JAX's); a missing file raises in both packages, as
+    # does a header-only one (PIL cannot load it; the port finds no
+    # IDAT).  An interlaced texture reads the same texels in both.
     missing = str(tmp_path / "stars.png")
     for mod in (JA, TA):
         with pytest.raises(FileNotFoundError):
@@ -144,8 +145,20 @@ def test_add_png_raises(tmp_path):
                 + head + struct.pack(">I", zlib.crc32(b"IHDR" + head))
                 + struct.pack(">I", 0) + b"IEND"
                 + struct.pack(">I", zlib.crc32(b"IEND")))
-    with pytest.raises(ValueError, match="interlaced"):
+    with pytest.raises(OSError, match="cannot"):
+        JA.AtlasBuilder().add_png(missing)
+    with pytest.raises(ValueError, match="no IDAT"):
         TA.AtlasBuilder().add_png(missing)
+    from test_torch_png import _rows, write_png
+    laced = write_png(tmp_path / "laced.png",
+                      _rows(np.random.default_rng(5), 11, 9, 8, 6), 9, 8, 6,
+                      (0, 1, 2, 3, 4), interlace=1)
+    jb, tb = JA.AtlasBuilder(), TA.AtlasBuilder()
+    assert jb.add_png(laced) == tb.add_png(laced)
+    for k in TA.TextureAtlas.FIELDS:
+        want, got = np.asarray(getattr(jb.build(), k)), getattr(tb.build(),
+                                                               k).numpy()
+        assert want.shape == got.shape and want.tobytes() == got.tobytes(), k
 
 
 def _faces(mod):
