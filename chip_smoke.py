@@ -74,7 +74,10 @@ Each phase prints one line:
      bounce counts equal, their radiance within f32 reassociation;
  16. kernel B4 (the pend film mode's masked deposit) against its plain
      version, 2^17 lanes into a 1920x1080x4 film with ~1/3 of them dying,
-     beside Tensor.index_add_ of the masked values;
+     beside Tensor.index_add_ of the masked values, then on 2^17 - 37
+     lanes (not a multiple of the block), with every lane dying and with
+     none: the film within 1e-4 of its largest value, the bounce-count
+     column and the rows of one deposit bit-equal;
  17. the goldens of the lights and voxels slice through both integrators
      on the card: cornell_nee_24 (NEE with MIS) under the C2 rule, also
      through the pend film mode (B4), and menger2_voxel_24 (the voxel
@@ -89,8 +92,10 @@ Each phase prints one line:
      steps a wavefront step;
  19. the probes P1-P3 (``python -m mrt_torch.tools.probe_stream``): P1
      against its closed form, P2 visiting all 1,024 chain entries through
-     a paged shared-memory cache, L2 and shared memory, P3 succeeding up
-     to the card's opt-in shared memory a block and refused past it;
+     a paged shared-memory cache (each page one bulk copy behind an
+     mbarrier; the fills it counts equal to the cache's plain model), L2
+     and shared memory, with the ns of a dependent step of each, P3 succeeding up to the card's opt-in shared memory a block and
+     refused past it;
  20. the gradient path (``mrt_torch.inverse``): tests/test_grad.py's
      albedo recovery (12x12, 60 Adam steps; the loss below 0.6 of the
      first, the albedo within 0.08); one forward and backward pass of the
@@ -1161,27 +1166,60 @@ def phase_texture_goldens(dev):
                  max_outside=40)
 
 
-def phase_b4(dev, floor):
-    """B4 against its plain version at the main path's shapes, beside
-    index_add_ of the masked values (the same library call as B2's)."""
-    from mrt_torch.ops import deposit as B4
-
+def b4_lanes(dev):
+    """Phase 16's B4 inputs, as the pend film mode makes them: b2_lanes'
+    slots and values with small-integer bounce counts in column 3, ~35% of
+    the lanes dying, and every 13th lane's values all zero."""
     idx, vals = b2_lanes(dev)
     g = torch.Generator(device=dev).manual_seed(17)
     die = (torch.rand((RAYS,), device=dev, generator=g) < 0.35).contiguous()
     # The pending column 3 sums bounce counts: small integers.
     vals[:, 3] = torch.randint(0, 8, (RAYS,), device=dev, generator=g).float()
     vals[::13] = 0.0  # dying lanes with nothing to add
-    vals = vals.contiguous()
-    shape = (WIDTH * HEIGHT, 4)
-    film_k = B4.deposit_pending(torch.zeros(shape, device=dev), idx, vals, die)
-    film_p = B4.deposit_pending_plain(torch.zeros(shape, device=dev), idx,
-                                      vals, die)
+    return idx, vals.contiguous(), die
+
+
+def b4_case(what, dest_shape, idx, vals, die):
+    """B4 against its plain version on one set of lanes: the film within
+    1e-4 of its largest value, the bounce-count column and every row that
+    one lane deposits into bit-equal.  Returns (max abs err, largest
+    value, depositing lanes, rows touched)."""
+    from mrt_torch.ops import deposit as B4
+
+    dev = idx.device
+    film_k = B4.deposit_pending(torch.zeros(dest_shape, device=dev), idx,
+                                vals, die)
+    film_p = B4.deposit_pending_plain(torch.zeros(dest_shape, device=dev),
+                                      idx, vals, die)
     torch.cuda.synchronize()
     err = (film_k - film_p).abs().max().item()
     scale = film_p.abs().max().item()
-    check(err <= 1e-4 * scale, f"B4 err {err} (scale {scale})")
-    check(torch.equal(film_k[:, 3], film_p[:, 3]), "B4 depth column")
+    check(err <= 1e-4 * scale, f"B4 {what}: err {err} (scale {scale})")
+    check(torch.equal(film_k[:, 3], film_p[:, 3]), f"B4 {what}: depth column")
+    keep = die & (vals != 0).any(1) & (idx >= 0) & (idx < dest_shape[0])
+    hits = torch.bincount(idx[keep].to(torch.int64), minlength=dest_shape[0])
+    once = hits == 1
+    check(torch.equal(film_k[once].view(torch.int32),
+                      film_p[once].view(torch.int32)),
+          f"B4 {what}: a row of one deposit differs")
+    untouched = hits == 0
+    check(torch.equal(film_k[untouched].view(torch.int32),
+                      torch.zeros_like(film_k[untouched]).view(torch.int32)),
+          f"B4 {what}: a row no lane deposits into changed")
+    return err, scale, int(keep.sum()), int((hits > 0).sum())
+
+
+def phase_b4(dev, floor):
+    """B4 against its plain version at the main path's shapes, beside
+    index_add_ of the masked values (the same library call as B2's); then
+    on a lane count that is not a multiple of the block, with every lane
+    dying, and with none."""
+    from mrt_torch.ops import deposit as B4
+
+    idx, vals, die = b4_lanes(dev)
+    shape = (WIDTH * HEIGHT, 4)
+    err, scale, depositing, touched = b4_case("main path", shape, idx, vals,
+                                              die)
     film = torch.zeros(shape, device=dev)
     kernel = lambda: B4.deposit_pending(film, idx, vals, die)
     plain = lambda: B4.deposit_pending_plain(film, idx, vals, die)
@@ -1191,20 +1229,42 @@ def phase_b4(dev, floor):
     library = lambda: film.index_add_(0, rows, v)
     ms, plain_ms = graph_ms(kernel, 50), graph_ms(plain, 20)
     library_ms = graph_ms(library, 20)
-    # Bytes: each lane's die flag and slot; the depositing lanes' values
-    # and their film rows, read and written.
-    depositing = int(keep.sum())
-    touched = int(torch.unique(idx[keep]).numel())
-    moved = RAYS * (1 + 4) + depositing * 16 + touched * 16 * 2
-    log(16, f"B4 {RAYS} lanes into {shape}, {int(die.sum())} dying, "
+    # Bytes, in the kernel's order: each lane's die flag; each dying lane's
+    # slot, and its values where the slot is in range (read before the
+    # all-zero test); each film row a depositing lane touches, read and
+    # written.
+    dying = int(die.sum())
+    in_range = int((die & (idx >= 0) & (idx < shape[0])).sum())
+    moved = RAYS + dying * 4 + in_range * 16 + touched * 16 * 2
+    log(16, f"B4 {RAYS} lanes into {shape}, {dying} dying, "
             f"{depositing} depositing onto {touched} rows: max abs err "
-            f"{err:.3g} (max {scale:.3g}), depth column exact; device time a "
-            f"call (CUDA graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"index_add_ of the masked values {library_ms:.4f} ms, floor "
-            f"{floor:.5f} ms; call time (CUDA events): wrapper "
-            f"{call_ms(kernel, 50):.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, floor_ms=floor,
+            f"{err:.3g} (max {scale:.3g}), depth column and rows of one "
+            f"deposit exact; device time a call (CUDA graph): kernel "
+            f"{ms:.5f} ms, plain {plain_ms:.4f} ms, index_add_ of the masked "
+            f"values {library_ms:.4f} ms, floor {floor:.5f} ms; call time "
+            f"(CUDA events): wrapper {call_ms(kernel, 50):.4f} ms")
+    odd = RAYS - 37  # not a multiple of the 256-lane block
+    cases = {
+        f"{odd} lanes": (idx[:odd].contiguous(), vals[:odd].contiguous(),
+                         die[:odd].contiguous()),
+        "every lane dying": (idx, vals, torch.ones_like(die)),
+        "no lane dying": (idx, vals, torch.zeros_like(die)),
+    }
+    extra = {}
+    for what, lanes in cases.items():
+        e, sc, dep, rows_hit = b4_case(what, shape, *lanes)
+        extra[what] = dict(max_abs_err=e, scale=sc, depositing=dep,
+                           rows=rows_hit)
+    check(extra["no lane dying"]["depositing"] == 0, "B4: no lane dying")
+    log(16, "B4 " + "; ".join(
+        f"{k}: {x['depositing']} depositing onto {x['rows']} rows, max abs "
+        f"err {x['max_abs_err']:.3g} (max {x['scale']:.3g})"
+        for k, x in extra.items())
+        + ": depth column and rows of one deposit exact")
+    return dict(max_abs_err=max([err] + [x["max_abs_err"]
+                                         for x in extra.values()]),
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                floor_ms=floor, cases=extra,
                 **bound(moved, depositing * 4))
 
 
@@ -1280,6 +1340,7 @@ def phase_probes(dev):
     cyc = torch.empty((4,), dtype=torch.int64, device=dev)
     chain = torch.from_numpy(P.chain()).to(dev)
     visited = torch.empty((1,), dtype=torch.int32, device=dev)
+    fills = torch.empty((1,), dtype=torch.int32, device=dev)
     x = torch.ones((1,), device=dev)
     codes = torch.zeros((2,), dtype=torch.int32)
     kb = max(k for k in P.P3_KB if k * 1024 <= res["smem_optin_bytes"])
@@ -1287,7 +1348,7 @@ def phase_probes(dev):
         "P1": (lambda: _build.launch("mrt_probe_a", dev, f, i, out, cyc),
                lambda: P.probe_a_plain(f, i), 4 * 10 * P.PAGE * 4 + 4),
         "P2": (lambda: _build.launch("mrt_probe_b", dev, chain, P.CHAIN, 0,
-                                     visited, cyc),
+                                     visited, fills, cyc),
                None, P.CHAIN * 4 + 4),
         "P3": (lambda: _build.launch("mrt_probe_c", dev, x, out, kb * 1024,
                                      codes),
@@ -1310,6 +1371,7 @@ def phase_probes(dev):
     p1, p2 = res["p1"], res["p2"]
     rows["P1"]["page_copy_ns"] = p1["page_copy_ns"]
     rows["P2"]["ns_per_step"] = {k: v["ns_per_step"] for k, v in p2.items()}
+    rows["P2"]["page_fills"] = p2["paged"]["fills"]
     rows["P3"].update(sizes=res["p3"], smem_optin_bytes=res["smem_optin_bytes"])
     log(19, f"P1 {p1['value']} (closed form {p1['closed_form']}), page copies "
             + ", ".join(f"{c:.0f} ns" for c in p1["page_copy_ns"])
@@ -1319,7 +1381,9 @@ def phase_probes(dev):
             + ", ".join(f"{k} {v['ns_per_step']:.1f} ns "
                         f"({v['cycles_per_step']:.1f} cycles)"
                         for k, v in p2.items())
-            + f"; paged kernel {rows['P2']['ms']:.4f} ms a call, Python walk "
+            + f"; {p2['paged']['fills']} page fills (bulk copies) counted "
+            f"by the paged walk, as the cache's plain model; paged kernel "
+            f"{rows['P2']['ms']:.4f} ms a call, Python walk "
             f"{rows['P2']['plain_ms']:.3f} ms")
     log(19, "P3 " + ", ".join(f"{k} KB: {v}" for k, v in res["p3"].items())
             + f"; opt-in limit {res['smem_optin_bytes']} B; kernel "

@@ -1,11 +1,12 @@
-// Kernel B2: film segment-add.
+// Kernels B2, film segment-add, and B4, the pend film mode's masked
+// deposit: one template, deposit_kernel<C, drop, pend>.
 //
-//   film[idx[p], c] += vals[p, c]   for every valid lane p
+//   B2: film[idx[p], c] += vals[p, c]   for every valid lane p
 //
 // A lane is valid where 0 <= idx[p] < n_rows and, if a mask is given,
 // mask[p] is set; no other lane's values are read.
 //
-// Replaces the TPU kernels mrt/ops/pallas_onehot.py::_kernel (wrapper
+// B2 replaces the TPU kernels mrt/ops/pallas_onehot.py::_kernel (wrapper
 // onehot_deposit) and ::_kernel_f32 (onehot_deposit_f32).  Those build a
 // one-hot matrix and sum through the matrix unit, with each f32 value
 // split into three bf16 terms; here each lane adds its row into the film
@@ -26,6 +27,32 @@
 // adds vary from run to run: sums agree with the plain version to f32
 // reassociation; the integer bounce counts (< 2^24) stay exact, and unique
 // rows are bit-equal.
+//
+//   B4: dest[slot[p], c] += val[p, c]   for every lane p with die[p],
+//                                       0 <= slot[p] < n_rows and any
+//                                       val[p, :] != 0
+//
+// B4 replaces the TPU kernel mrt/ops/pallas_deposit.py::_kernel (wrapper
+// deposit_add), which stages the lanes' slots and values through SMEM and
+// runs a serial read-modify-write of each dying lane's 4 floats (the TPU
+// has no scatter that can collide).  It is B2's kernel at C = 4 with
+// pend set: the die flags are the mask, read before the slot, so a lane
+// that does not die (about two thirds of them in a step) loads one byte
+// and leaves; a dying lane then reads its slot, its four values in one
+// 16-byte load, leaves where all four are zero, and adds them with one
+// atomicAdd(float4*, float4).  Several lanes can die into one pixel in a
+// step (claims are pixel-major, spp > 1), so plain stores would lose adds.
+// Bound: bytes, the die byte of every lane; the slot of each dying lane
+// and its 16 B of values where the slot is in range (read before the
+// all-zero test can skip the lane); and 16 B read and written on each
+// film row that a depositing lane touches; at
+// the main path's 2^17 lanes that is well under the card's launch floor
+// (1.16-1.38 us on the H100), so the design spends nothing beyond one
+// load a byte for the lanes that stay and one vector atomic a deposit.
+// The sums agree with the plain version to f32 reassociation and the
+// bounce counts stay exact.  A lane that deposits nothing adds nothing
+// here, where the plain version adds +0.0 to row 0: the same on a film
+// whose row 0 is not -0.0 (the film starts at +0.0).
 
 #include <cuda_runtime.h>
 
@@ -35,7 +62,7 @@ namespace {
 
 using mrt_rows::kThreads;
 
-template <int C, bool drop>
+template <int C, bool drop, bool pend>
 __global__ void __launch_bounds__(kThreads)
 deposit_kernel(float* __restrict__ film, int n_rows,
                const int* __restrict__ idx,
@@ -44,13 +71,19 @@ deposit_kernel(float* __restrict__ film, int n_rows,
   const int p = static_cast<int>(blockIdx.x) * kThreads +
                 static_cast<int>(threadIdx.x);
   if (p >= lanes) return;
-  const int row = mrt_rows::lane_row(idx, mask, n_rows, p);
+  const int row = mrt_rows::lane_row<pend>(idx, mask, n_rows, p);
   if (row < 0) return;
   float v[C];
   mrt_rows::load_row<C>(vals + static_cast<long long>(p) * C, v);
-  if (drop) {
+  if constexpr (drop) {
 #pragma unroll
     for (int c = 0; c < C; ++c) v[c] = isfinite(v[c]) ? v[c] : 0.0f;
+  }
+  if constexpr (pend) {
+    bool zero = true;
+#pragma unroll
+    for (int c = 0; c < C; ++c) zero = zero && v[c] == 0.0f;
+    if (zero) return;
   }
   float* dst = film + static_cast<long long>(row) * C;
   if constexpr (C == 4) {
@@ -64,53 +97,16 @@ deposit_kernel(float* __restrict__ film, int n_rows,
   }
 }
 
-// Kernel B4: the pend film mode's masked deposit.
-//
-//   dest[slot[p], c] += val[p, c]   for every lane p with die[p] and any
-//                                   val[p, :] != 0, 0 <= slot[p] < n_rows
-//
-// Replaces the TPU kernel mrt/ops/pallas_deposit.py::_kernel (wrapper
-// deposit_add).  That one stages the lanes' slots and values through
-// SMEM and runs a serial read-modify-write of each dying lane's 4 floats
-// (the TPU has no scatter that can collide).  Here one thread takes one
-// lane and column: it leaves at once where the lane does not
-// die or its four values are all zero (a third or fewer of the lanes die
-// in a step), and the rest do one float atomicAdd.  Several lanes can die
-// into one pixel in one step (claims are pixel-major, spp > 1), so plain
-// stores would lose adds.  The sums agree with the plain version to f32
-// reassociation; the integer bounce counts (< 2^24) stay exact.
-//
-// Bound: bytes.  Each lane's die flag (1 B) and slot (4 B) are read, the
-// dying lanes' values (16 B) and their film rows (16 B read and written).
-__global__ void __launch_bounds__(kThreads)
-deposit_pending_kernel(float* __restrict__ dest, int n_rows,
-                       const int* __restrict__ slot,
-                       const float* __restrict__ val,
-                       const unsigned char* __restrict__ die, int lanes) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (e >= static_cast<long long>(lanes) * 4) return;
-  const int lane = static_cast<int>(e >> 2);
-  if (!die[lane]) return;
-  const float* v = val + static_cast<long long>(lane) * 4;
-  if (v[0] == 0.0f && v[1] == 0.0f && v[2] == 0.0f && v[3] == 0.0f) return;
-  const int row = slot[lane];
-  if (row < 0 || row >= n_rows) return;
-  const int col = static_cast<int>(e & 3);
-  atomicAdd(dest + static_cast<long long>(row) * 4 + col, v[col]);
-}
-
 }  // namespace
 
+// B4: die is one byte a lane (a bool tensor), never null.
 extern "C" int mrt_deposit_pending(float* dest, int n_rows, const int* slot,
                                    const float* val, const unsigned char* die,
                                    int lanes, cudaStream_t stream) {
-  const long long total = static_cast<long long>(lanes) * 4;
-  if (total <= 0) return 0;
-  const int blocks = static_cast<int>((total + kThreads - 1) / kThreads);
-  deposit_pending_kernel<<<blocks, kThreads, 0, stream>>>(dest, n_rows, slot,
-                                                          val, die, lanes);
-  return static_cast<int>(cudaGetLastError());
+  if (lanes <= 0) return 0;
+  return static_cast<int>(mrt_rows::launch_lanes(
+      deposit_kernel<4, false, true>, lanes, stream, dest, n_rows, slot, die,
+      val, lanes));
 }
 
 // mask: one byte a lane (a bool tensor) or null.  Returns a cudaError_t;
@@ -122,8 +118,8 @@ extern "C" int mrt_deposit(float* film, int n_rows, int cols, const int* idx,
   if (lanes <= 0) return 0;
   return static_cast<int>(mrt_rows::by_cols(cols, [&](auto c) {
     constexpr int C = decltype(c)::value;
-    auto kernel = drop_nonfinite ? deposit_kernel<C, true>
-                                 : deposit_kernel<C, false>;
+    auto kernel = drop_nonfinite ? deposit_kernel<C, true, false>
+                                 : deposit_kernel<C, false, false>;
     return mrt_rows::launch_lanes(kernel, lanes, stream, film, n_rows, idx,
                                   mask, vals, lanes);
   }));

@@ -11,12 +11,24 @@
 //     -1) and counts the entries it visits.  Variant 0 keeps a 2-slot
 //     page cache of 256 entries in shared memory (tags, round-robin
 //     victim) and copies a page from global memory inside the loop on a
-//     miss, as the TPU probe does; variant 1 reads global memory directly
+//     miss, as the TPU probe does, and counts its fills (0 for the other
+//     variants); variant 1 reads global memory directly
 //     through L2 (ld.global.cg, no L1); variant 2 walks a copy of the
 //     whole chain in shared memory.  The walk is timed in SM cycles: the
 //     cycles per dependent step are the residency numbers (a miss-paged
 //     cache, L2, shared memory) that a traversal kernel's table placement
 //     needs.
+//     Variant 0's miss is one bulk asynchronous copy (cp.async.bulk, the
+//     copy engine Hopper added beside the SM: one instruction moves the
+//     1 KB page, and the engine counts the bytes it delivers on an
+//     mbarrier in shared memory) where the thread would otherwise start
+//     64 16-byte cp.async itself and wait on their group.  The thread
+//     arms the barrier with the page's 1,024 bytes, starts the copy and
+//     waits on the barrier's phase, which flips once a fill; a fence
+//     orders its earlier reads of the victim slot before the copy engine
+//     overwrites it.  The chain and the slots are 16-byte aligned and a
+//     page is a multiple of 16 bytes, as the copy needs (the wrapper
+//     checks the chain).
 // P3  a block with a dynamic shared buffer of `bytes` writes its first
 //     and last word (x and 2x) and returns their sum, 3x.  Past the
 //     card's opt-in limit the attribute or the launch is refused; the
@@ -39,6 +51,52 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier that one arrival completes, made visible to the copy
+// engine (the async proxy) before its first use.
+__device__ __forceinline__ void mbarrier_init(unsigned long long* bar) {
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], 1;\n"
+      "fence.mbarrier_init.release.cluster;\n"
+      "fence.proxy.async.shared::cta;\n" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, its completion counted on `bar`: the
+// calling thread's arrival, with the bytes the barrier must then see.
+// The fence orders this thread's earlier generic reads of `smem` before
+// the copy engine's write.
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "fence.proxy.async.shared::cta;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], %2;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbarrier_wait(unsigned long long* bar,
+                                              unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
 }
 
 __global__ void probe_a_kernel(const float* __restrict__ f,
@@ -71,10 +129,11 @@ __global__ void probe_a_kernel(const float* __restrict__ f,
 }
 
 __global__ void probe_b_kernel(const int* __restrict__ chain, int n,
-                               int variant, int* visited,
+                               int variant, int* visited, int* fills,
                                long long* cycles) {
   __shared__ __align__(16) int page[2][kPage];
   __shared__ int tags[2];
+  __shared__ __align__(8) unsigned long long filled;
   extern __shared__ int whole[];
   if (variant == 2) {
     for (int j = threadIdx.x; j < n; j += blockDim.x) whole[j] = chain[j];
@@ -82,7 +141,9 @@ __global__ void probe_b_kernel(const int* __restrict__ chain, int n,
   }
   if (threadIdx.x != 0) return;
   tags[0] = tags[1] = -1;
-  int victim = 0, count = 0, e = 0;
+  if (variant == 0) mbarrier_init(&filled);
+  unsigned phase = 0;
+  int victim = 0, count = 0, misses = 0, e = 0;
   const long long t0 = clock64();
   while (e >= 0) {
     int next;
@@ -92,10 +153,12 @@ __global__ void probe_b_kernel(const int* __restrict__ chain, int n,
       if (slot < 0) {
         slot = victim;
         victim ^= 1;
-        for (int j = 0; j < kPage; j += 4)
-          cp_async16(&page[slot][j], chain + p * kPage + j);
-        cp_async_wait_all();
+        bulk_copy(page[slot], chain + p * kPage, kPage * sizeof(int),
+                  &filled);
+        mbarrier_wait(&filled, phase);
+        phase ^= 1;
         tags[slot] = p;
+        ++misses;
       }
       next = page[slot][e - p * kPage];
     } else if (variant == 1) {
@@ -108,6 +171,7 @@ __global__ void probe_b_kernel(const int* __restrict__ chain, int n,
   }
   cycles[0] = clock64() - t0;
   visited[0] = count;
+  fills[0] = misses;
 }
 
 __global__ void probe_c_kernel(const float* __restrict__ x, float* out,
@@ -128,11 +192,11 @@ extern "C" int mrt_probe_a(const float* f, const int* i, float* out,
 }
 
 extern "C" int mrt_probe_b(const int* chain, int n, int variant,
-                           int* visited, long long* cycles,
+                           int* visited, int* fills, long long* cycles,
                            cudaStream_t stream) {
   const size_t whole = variant == 2 ? n * sizeof(int) : 0;
   probe_b_kernel<<<1, 256, whole, stream>>>(chain, n, variant, visited,
-                                            cycles);
+                                            fills, cycles);
   return static_cast<int>(cudaGetLastError());
 }
 

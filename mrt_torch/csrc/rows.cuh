@@ -1,5 +1,5 @@
-// Rows of C floats, one lane a thread: what kernels B2 (deposit.cu) and
-// B3 (gather.cu) share.
+// Rows of C floats, one lane a thread: what kernels B2 and B4 (deposit.cu)
+// and B3 (gather.cu) share.
 //
 // The column count C is a template parameter (1 to kMaxCols, the TPU
 // gather's limit, mrt/ops/pallas_onehot.py::gather_usable), so a lane's
@@ -53,13 +53,17 @@ __device__ __forceinline__ void store_row(float* __restrict__ dst,
 }
 
 // Lane p's row: idx[p] where the lane is valid (no mask or mask[p] set,
-// and 0 <= idx[p] < rows), else -1.  The index is read once.
+// and 0 <= idx[p] < rows), else -1.  The index is read once, before the
+// mask byte; with mask_first (a mask that few lanes set, never null) the
+// mask byte is read first and an unset lane never loads its index.
+template <bool mask_first = false>
 __device__ __forceinline__ int lane_row(const int* __restrict__ idx,
                                         const unsigned char* __restrict__ mask,
                                         int rows, int p) {
+  if (mask_first && !__ldg(mask + p)) return -1;
   const int row = __ldg(idx + p);
   if (static_cast<unsigned>(row) >= static_cast<unsigned>(rows)) return -1;
-  if (mask != nullptr && !__ldg(mask + p)) return -1;
+  if (!mask_first && mask != nullptr && !__ldg(mask + p)) return -1;
   return row;
 }
 

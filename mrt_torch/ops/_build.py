@@ -46,7 +46,7 @@ SIGNATURES = {
     "mrt_deposit": (_P, _I, _I, _P, _P, _P, _I, _I, _P),
     "mrt_deposit_pending": (_P, _I, _P, _P, _P, _I, _P),
     "mrt_probe_a": (_P, _P, _P, _P, _P),
-    "mrt_probe_b": (_P, _I, _I, _P, _P, _P),
+    "mrt_probe_b": (_P, _I, _I, _P, _P, _P, _P),
     "mrt_probe_c": (_P, _P, _I, _P, _P),
     "mrt_probe_attributes": (_P, _P, _P),
     "mrt_gather": (_P, _I, _I, _P, _P, _I, _P, _P),

@@ -7,7 +7,10 @@ version ``deposit_plain``; on CUDA tensors it launches the CUDA kernel
 ``csrc/deposit.cu`` (which replaces the TPU kernels
 ``mrt/ops/pallas_onehot.py::onehot_deposit`` and ``onehot_deposit_f32``)
 or raises.  ``deposit_pending`` is B4's, with ``deposit_pending_plain``,
-in the same way (it replaces ``mrt/ops/pallas_deposit.py::deposit_add``).
+in the same way (it replaces ``mrt/ops/pallas_deposit.py::deposit_add``;
+its kernel is B2's at 4 columns, the die flags as the mask).  A row of
+4 floats moves as one 16-byte vector (of 2, as 8 bytes), so on the card
+both wrappers raise on a film or values not aligned to it.
 ``deposit.launches`` and ``deposit_pending.launches`` count kernel
 launches.
 
@@ -115,6 +118,7 @@ def deposit_pending(dest, slot, val, die):
         return deposit_pending_plain(dest, slot, val, die)
     if device.type != "cuda":
         raise ValueError(f"deposit_pending: no kernel for device {device}")
+    _build.check_aligned("deposit_pending", 4, dest=dest, val=val)
     _build.launch("mrt_deposit_pending", device, dest, dest.shape[0],
                   slot, val, die, slot.shape[0])
     deposit_pending.launches += 1

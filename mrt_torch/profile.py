@@ -27,6 +27,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import sys
 import time
 
@@ -59,8 +60,13 @@ LAYERS = (
      "deposit_pending"),
 )
 TOP = 15  # device kernels listed by device time
-KERNELS = {"B1": "nearest_t_kernel", "B2": "deposit_kernel",
-           "B3": "row_gather_kernel", "B4": "deposit_pending_kernel",
+# Each hand kernel's device name, a regular expression: B2 and B4 are
+# instances of one template, deposit_kernel<C, drop, pend>, told apart by
+# pend (demangled as the profiler shows it, or mangled).
+KERNELS = {"B1": "nearest_t_kernel",
+           "B2": r"deposit_kernel(<\d+, \w+, false>|ILi\d+ELb[01]ELb0E)",
+           "B3": "row_gather_kernel",
+           "B4": r"deposit_kernel(<4, false, true>|ILi4ELb0ELb1E)",
            "B5": "sphere_bvh_kernel", "B6": "tri_bvh_kernel",
            "B7": "tlas_kernel"}
 
@@ -202,7 +208,7 @@ def main(argv=None):
     kernels, calls = {}, {}
     for e in device:
         for k, v in KERNELS.items():
-            if v in e.key:
+            if re.search(v, e.key):
                 kernels[k] = (kernels.get(k, 0.0)
                               + _device_us(e, self_only=True) / 1e3)
                 calls[k] = calls.get(k, 0) + e.count

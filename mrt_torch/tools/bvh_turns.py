@@ -1,5 +1,5 @@
-"""Kernels B1, B2, B3, B5, B6 and B7 of this checkout, or of another
-one, in turns on the card at the main path's shapes.
+"""Kernels B1-B7 and the probe P2 of this checkout, or of another one,
+in turns on the card at the main path's shapes.
 
     python -m mrt_torch.tools.bvh_turns [--escape] [--kernels K]
         [--out FILE] [--turns N]
@@ -14,7 +14,7 @@ order of the pool (``chip_smoke.captured_rays``).  B2 and B3 take
 chip_smoke's lanes: 2^17 film lanes (``b2_lanes``) and one compaction
 round of the eve fleet (``compaction_lanes``: ~70% masked, 32,768 rows).
 Each entry is timed as the device time of one call, by CUDA-graph replay
-of ``REPS`` calls (``SMALL_REPS`` for B2, B3 and the floor, as
+of ``REPS`` calls (``SMALL_REPS`` for B2, B3, B4 and the floor, as
 chip_smoke times them; ``chip_smoke.graph_ms``; an entry named ", as
 called": between CUDA events, ``chip_smoke.call_ms``, host launches in;
 ", host": host microseconds a call, the mean of ``HOST_CALLS`` calls
@@ -31,6 +31,9 @@ on lucy, eve, cornell and playground (in the regime the wrapper picks).
 ``--kernels compaction``: B2 and B3, each after the op that precedes it
 on the path, the launch floor, the whole ``compact_rows`` and
 ``compact_apply``, and the wrappers' host time (``compaction_entries``).
+``--kernels deposit``: B4 on chip_smoke's phase 16 lanes beside B2 on the
+film and the launch floor, and P2's paged walk with each variant's
+nanoseconds a dependent step (``deposit_entries``).
 ``--root DIR`` times the wrappers of the checkout at DIR (an earlier
 commit; each kernel's entries follow the arguments its wrapper takes:
 the reference layout and one B6 launch a part before the packed tables,
@@ -59,7 +62,7 @@ import torch
 TREE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 REPS = 20
-SMALL_REPS = 50  # as chip_smoke.py times B2, B3 and the floor
+SMALL_REPS = 50  # as chip_smoke.py times B2, B3, B4 and the floor
 HOST_CALLS = 1000
 
 
@@ -307,16 +310,60 @@ def compaction_entries(smoke, dev):
     return out
 
 
+def deposit_entries(smoke, dev):
+    """{name: fn} of B4 and P2, the kernels redesigned after B2 and B3:
+    the launch floor; B4 on chip_smoke's phase 16 lanes (2^17 into the
+    1080p film, ~35% dying; ``b4_lanes``) and with every lane dying; B2 on
+    the film (``b2_lanes``), the same film update with every lane adding;
+    P2's paged walk (a launch of ``probe_b``) and each variant's
+    nanoseconds a dependent step (", ns a step": SM cycles of one walk
+    over the clock rate)."""
+    from mrt_torch.ops import deposit as B2
+    from mrt_torch.tools import probe_stream as P
+
+    one = torch.zeros((1,), device=dev)
+    film = torch.zeros((smoke.WIDTH * smoke.HEIGHT, 4), device=dev)
+    idx, vals = smoke.b2_lanes(dev)
+    slot, val, die = smoke.b4_lanes(dev)
+    every = torch.ones_like(die)
+    chain = torch.from_numpy(P.chain()).to(dev)
+    _, khz = P.attributes(dev)
+
+    def ns_a_step(variant):
+        cycles = P.probe_b(chain, variant)[1]
+        return cycles.item() / P.CHAIN / khz * 1e6
+
+    out = {
+        "floor: add_ of one element": lambda: one.add_(1.0),
+        "B4 film": lambda: B2.deposit_pending(film, slot, val, die),
+        "B4 film, every lane dying": (
+            lambda: B2.deposit_pending(film, slot, val, every)),
+        "B2 film alone": lambda: B2.deposit(film, idx, vals),
+        "P2 paged walk": lambda: P.probe_b(chain, "paged"),
+    }
+    for variant in P.VARIANTS:
+        out[f"P2 {variant}, ns a step"] = lambda v=variant: ns_a_step(v)
+    return out
+
+
 def timer(smoke, name):
     """How entry `name` is timed: host microseconds a call (", host"),
-    CUDA events (", as called"), else CUDA-graph replay (REPS calls;
-    SMALL_REPS for the launch-bound compaction kernels)."""
+    CUDA events (", as called"), the entry's own number (", ns a step"),
+    else CUDA-graph replay (REPS calls; SMALL_REPS for the launch-bound
+    compaction and deposit kernels)."""
     if name.endswith(", host"):
         return lambda fn: smoke.host_us(fn, HOST_CALLS)
     if name.endswith(", as called"):
         return lambda fn: smoke.call_ms(fn, REPS)
-    small = name.startswith(("floor", "B2", "B3", "compact"))
+    if name.endswith(", ns a step"):
+        return lambda fn: fn()
+    small = name.startswith(("floor", "B2", "B3", "B4", "compact"))
     return lambda fn: smoke.graph_ms(fn, SMALL_REPS if small else REPS)
+
+
+def unit(name):
+    return ("us" if name.endswith(", host") else
+            "ns" if name.endswith(", ns a step") else "ms")
 
 
 def main():
@@ -326,9 +373,11 @@ def main():
                     help="add the kernels walking the escape order")
     ap.add_argument("--out", help="write the JSON here too")
     ap.add_argument("--turns", type=int, default=3)
-    ap.add_argument("--kernels", choices=("all", "bvh", "compaction"),
-                    default="all", help="the BVH and sphere kernels (B1, "
-                    "B5-B7), the compaction kernels (B2, B3), or both")
+    ap.add_argument("--kernels", default="all",
+                    choices=("all", "bvh", "compaction", "deposit"),
+                    help="the BVH and sphere kernels (B1, B5-B7), the "
+                    "compaction kernels (B2, B3), B4 and P2 beside B2 "
+                    "(deposit), or all three")
     args = ap.parse_args()
     if args.root and args.escape:
         ap.error("--escape times this checkout's kernels, not --root's")
@@ -345,10 +394,12 @@ def main():
         raise RuntimeError(f"bvh_turns: mrt_torch is not {root}'s")
     dev = torch.device("cuda", 0)
     runs = {}
-    if args.kernels != "compaction":
+    if args.kernels in ("all", "bvh"):
         runs.update(entries(smoke, dev, args.escape))
-    if args.kernels != "bvh":
+    if args.kernels in ("all", "compaction"):
         runs.update(compaction_entries(smoke, dev))
+    if args.kernels in ("all", "deposit"):
+        runs.update(deposit_entries(smoke, dev))
     timers = {name: timer(smoke, name) for name in runs}
     times = {}
     for _ in range(args.turns):
@@ -357,9 +408,8 @@ def main():
     card = smoke.card_line()
     print(f"card: {card}", flush=True)
     for key, ts in times.items():
-        unit = "us" if key.endswith(", host") else "ms"
         print(f"{key}: " + ", ".join(f"{t:.5f}" for t in ts)
-              + f" {unit} (min {min(ts):.5f})", flush=True)
+              + f" {unit(key)} (min {min(ts):.5f})", flush=True)
     line = json.dumps(dict(tree=root, device=card, rays=smoke.RAYS,
                            reps=REPS, small_reps=SMALL_REPS,
                            host_calls=HOST_CALLS, ms=times))

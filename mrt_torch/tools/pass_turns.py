@@ -2,20 +2,24 @@
 process, with the host time of each layer of the step.
 
     python mrt_torch/tools/pass_turns.py --root DIR [--scene sphere_grid]
-        [--rounds 3] [--passes 2] [--unchanged LAYER ...] [--out FILE]
+        [--nee] [--rounds 3] [--passes 2] [--unchanged LAYER ...]
+        [--out FILE]
     python mrt_torch/tools/pass_turns.py --read FILE [FILE ...]
 
 Loads the package of the checkout at DIR beside this checkout's (as
 ``mrt_torch_root``: the package imports itself only relatively), builds
 each checkout's scene, renders a warm-up pass with each, then renders
 ``--passes`` passes with each in the order DIR, this checkout, this
-checkout, DIR, ``--rounds`` times.  One process holds the host's speed
-alike for both; between processes it varies by tens of percent.  The
-passes run the main path (1920x1080, depth 50, spp 2, pool 2^17); each
-records its wall time and, on the host clock and without a device sync,
-the time spent inside each layer of the step (``mrt_torch.profile``'s
-layers, each inclusive: the voxel walk is inside intersect), inside the
-whole step, inside the B1 and B5 wrappers, and inside compaction
+checkout, DIR, ``--rounds`` times (``--nee``: the scene with its light
+table; ``MRT_FILM_PEND=1`` in the environment runs both checkouts in the
+pend film mode, kernel B4).  One process holds
+the host's speed alike for both; between processes it varies by tens of
+percent.  The passes run the main path (1920x1080, depth 50, spp 2, pool
+2^17); each records its wall time and, on the host clock and without a
+device sync, the time spent inside each layer of the step
+(``mrt_torch.profile``'s layers, each inclusive: the voxel walk is
+inside intersect), inside the whole step, inside the B1 and B5
+wrappers, and inside compaction
 (``compact_apply``, and the B2 and B3 calls it makes).  A pass is
 host-bound, so a layer's host time is what issuing its work costs, plus
 whatever wait for the device falls inside it.  Prints one line a turn,
@@ -99,12 +103,14 @@ def package(root):
 class Tree:
     """One checkout's scene, pass and host timers."""
 
-    def __init__(self, root, scene_name):
+    def __init__(self, root, scene_name, nee=False):
         self.root = root
         name = package(root)
         mod = lambda m: importlib.import_module(
             name + m[len("mrt_torch"):])
         scene, camera = mod("mrt_torch.scenes").get(scene_name)().generate()
+        if nee:
+            scene = mod("mrt_torch.geometry.scene").attach_lights(scene)
         film_mod = mod("mrt_torch.runtime.film")
         render = mod("mrt_torch.runtime.render").render_pass_persistent
 
@@ -204,6 +210,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", help="the other checkout")
     ap.add_argument("--scene", action="append")
+    ap.add_argument("--nee", action="store_true",
+                    help="attach the scene's light table (next-event "
+                    "estimation)")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--passes", type=int, default=2)
     ap.add_argument("--out", help="write the JSON here too")
@@ -228,9 +237,10 @@ def main():
         print("pass_turns: no CUDA device", file=sys.stderr)
         return 2
     roots = (os.path.abspath(args.root), TREE)
-    result = dict(device=torch.cuda.get_device_name(0), scenes={})
+    result = dict(device=torch.cuda.get_device_name(0), nee=args.nee,
+                  scenes={})
     for scene in args.scene or ["sphere_grid"]:
-        trees = {root: Tree(root, scene) for root in roots}
+        trees = {root: Tree(root, scene, args.nee) for root in roots}
         for tree in trees.values():
             tree.one_pass()  # warm-up: kernel build, allocator
         records = []

@@ -6,8 +6,9 @@
 P1 (``probe_a``) pages four 256-column slices of an (8, 1024) f32 and a
 (2, 1024) i32 table into shared memory and sums one element of each;
 P2 (``probe_b``) walks a 1,024-entry chain through a 2-slot shared-memory
-page cache, and also through L2 and through a shared-memory copy of the
-whole chain, timing each dependent step; P3 (``probe_c``) asks for a
+page cache filled by Hopper's bulk asynchronous copy behind an mbarrier,
+and also through L2 and through a shared-memory copy of the whole chain,
+timing each dependent step; P3 (``probe_c``) asks for a
 dynamic shared buffer of `kb` KB, writes its first and last word and
 returns 3x, or reports the refusal past the card's opt-in limit.  The
 kernels are ``csrc/probe_stream.cu``; each wrapper runs its plain
@@ -94,24 +95,54 @@ def probe_b_plain(chain_t):
     return torch.tensor([visited], dtype=torch.int32)
 
 
+def paged_misses(chain_t):
+    """The page fills of P2's paged walk, the plain version of the count
+    its kernel returns: its 2-slot cache of PAGE-entry pages (tags,
+    round-robin victim) run in Python over the chain."""
+    c = chain_t.tolist()
+    tags, victim, misses, e = [-1, -1], 0, 0, 0
+    while e >= 0:
+        if e // PAGE not in tags:
+            tags[victim] = e // PAGE
+            victim ^= 1
+            misses += 1
+        e = c[e]
+    return misses
+
+
 # P2's variants: the paged 2-slot cache, L2 directly, shared memory.
 VARIANTS = ("paged", "l2", "shared")
 
 
 def probe_b(chain_t, variant="paged"):
-    """(visited (1,) int32, SM cycles of the walk (1,) int64; None on
-    the CPU)."""
+    """(visited (1,) int32, SM cycles of the walk (1,) int64, None on
+    the CPU; page fills (1,) int32, 0 but for the paged walk).  The chain
+    is whole pages of PAGE entries; on the card its data must be 16-byte
+    aligned (the paged walk copies a page with one bulk copy, which takes
+    16-byte aligned ends)."""
     if chain_t.dtype != torch.int32 or chain_t.dim() != 1:
         raise TypeError(f"probe_b: chain {chain_t.dtype} "
                         f"{tuple(chain_t.shape)}, not int32 (n,)")
+    if chain_t.shape[0] % PAGE:
+        raise ValueError(f"probe_b: a chain of {chain_t.shape[0]} entries "
+                         f"is not whole pages of {PAGE}")
     if chain_t.device.type == "cpu":
-        return probe_b_plain(chain_t), None
+        fills = paged_misses(chain_t) if variant == "paged" else 0
+        return (probe_b_plain(chain_t), None,
+                torch.tensor([fills], dtype=torch.int32))
+    if chain_t.device.type != "cuda":
+        raise ValueError(f"probe_b: no kernel for device {chain_t.device}")
+    chain_t = chain_t.contiguous()
+    if chain_t.data_ptr() % 16:
+        raise ValueError("probe_b: chain is not 16-byte aligned (a page "
+                         "moves as one bulk copy)")
     visited = torch.empty((1,), dtype=torch.int32, device=chain_t.device)
+    fills = torch.empty((1,), dtype=torch.int32, device=chain_t.device)
     cycles = torch.empty((1,), dtype=torch.int64, device=chain_t.device)
-    _build.launch("mrt_probe_b", chain_t.device, chain_t.contiguous(),
-                  chain_t.shape[0], VARIANTS.index(variant), visited, cycles)
+    _build.launch("mrt_probe_b", chain_t.device, chain_t, chain_t.shape[0],
+                  VARIANTS.index(variant), visited, fills, cycles)
     probe_b.launches += 1
-    return visited, cycles
+    return visited, cycles, fills
 
 
 def probe_c_plain(x):
@@ -153,8 +184,8 @@ def error_name(code):
 def run(device):
     """Every probe on the card against its plain version; returns a dict
     of results.  Raises where a result is wrong: P1 off its closed form,
-    P2 not visiting every entry, P3 refused at or below the opt-in limit
-    or accepted past it."""
+    P2 not visiting every entry or its page fills off the cache's plain
+    model, P3 refused at or below the opt-in limit or accepted past it."""
     smem_optin, khz = attributes(device)
     ns = lambda cycles: cycles / khz * 1e6  # SM cycles -> ns
 
@@ -168,12 +199,17 @@ def run(device):
     c = torch.from_numpy(chain()).to(device)
     walks = {}
     for variant in VARIANTS:
-        visited, cyc = probe_b(c, variant)
+        visited, cyc, fills = probe_b(c, variant)
         if visited.item() != CHAIN or probe_b_plain(c).item() != CHAIN:
             raise RuntimeError(f"P2 {variant}: visited {visited.item()}, "
                                f"not {CHAIN}")
+        model = paged_misses(c) if variant == "paged" else 0
+        if fills.item() != model:
+            raise RuntimeError(f"P2 {variant}: {fills.item()} page fills, "
+                               f"the cache's plain model {model}")
         walks[variant] = dict(cycles_per_step=cyc.item() / CHAIN,
-                              ns_per_step=ns(cyc.item() / CHAIN))
+                              ns_per_step=ns(cyc.item() / CHAIN),
+                              fills=fills.item())
 
     x = torch.ones((1,), device=device)
     sizes = {}
@@ -205,8 +241,9 @@ def main():
     print(f"P1: {p1['value']} (closed form {p1['closed_form']}); page copy "
           + ", ".join(f"{c} cycles" for c in p1["page_copy_cycles"]))
     for variant, w in res["p2"].items():
+        fills = f", {w['fills']} page fills" if variant == "paged" else ""
         print(f"P2 {variant}: {CHAIN} visited, {w['cycles_per_step']:.1f} "
-              f"cycles ({w['ns_per_step']:.1f} ns) a dependent step")
+              f"cycles ({w['ns_per_step']:.1f} ns) a dependent step{fills}")
     for kb, what in res["p3"].items():
         print(f"P3 {kb} KB: {what}")
     print(f"opt-in shared memory a block {res['smem_optin_bytes']} B, SM "

@@ -26,9 +26,13 @@ mask; B2 adds masked rows at 1 to 5 columns, bit-equal on unique rows
 all 2^17 lanes on one row (its count column exact); both wrappers refuse
 misaligned vector rows, and both kernels replay in a CUDA graph;
 ``compact_apply`` through B2 and B3 equals its plain version on the CPU.  B4 adds the
-dying lanes' dyadic values like its plain version; the probes P1-P3 give
-their plain versions' values (P3 up to the card's opt-in limit and a
-refusal past it).  The gradient path (``mrt_torch.inverse``) launches B1
+dying lanes' dyadic values like its plain version, bit for bit, on lane
+counts that are not a multiple of the block, with every lane dying and
+with none, with slots out of range; 1,000 lanes on one row within f32
+reassociation (bounce counts exact); its wrapper refuses misaligned rows.
+The probes P1-P3 give their plain versions' values (P3 up to the card's
+opt-in limit and a refusal past it); each of P2's walks visits every
+entry, and its wrapper refuses a misaligned chain.  The gradient path (``mrt_torch.inverse``) launches B1
 in the forward and in the checkpoint's recompute, and its gradients
 equal those with the plain version's winners.  Divisions by a host
 number give the CPU's quotient on the card (ROADMAP C20): the wavefront's
@@ -664,12 +668,118 @@ def test_b4_kernel_matches_plain(cuda):
                            val, die)
 
 
+def _b4_case(cuda, p, rows, rate, seed):
+    """p lanes of dyadic values (exact sums in any order) into `rows`
+    film rows, a fraction `rate` dying, slots out of range on some lanes,
+    a tenth of the lanes all zero, small-integer bounce counts."""
+    g = torch.Generator().manual_seed(seed)
+    slot = torch.randint(-10, rows + 10, (p,), generator=g,
+                         dtype=torch.int32)
+    val = torch.randint(-64, 64, (p, 4), generator=g).float() / 8
+    val[:, 3] = torch.randint(0, 8, (p,), generator=g).float()
+    val[torch.rand((p,), generator=g) < 0.1] = 0.0
+    die = torch.rand((p,), generator=g) < rate
+    return slot.to(cuda), val.to(cuda), die.to(cuda)
+
+
+@pytest.mark.parametrize("p,rate", [(20001, 0.35), (1 << 17, 1.0),
+                                    (1 << 17, 0.0), (257, 0.5)],
+                         ids=["odd-lanes", "all-dying", "none-dying",
+                              "one-block-and-one"])
+def test_b4_kernel_cases_match_plain(cuda, p, rate):
+    rows = 5000
+    slot, val, die = _b4_case(cuda, p, rows, rate, 50 + p % 97)
+    film = torch.full((rows, 4), 0.5, device=cuda)
+    before = B2.deposit_pending.launches
+    k = B2.deposit_pending(film.clone(), slot, val, die)
+    q = B2.deposit_pending_plain(film.clone(), slot, val, die)
+    torch.cuda.synchronize()
+    assert B2.deposit_pending.launches == before + 1
+    assert torch.equal(k.view(torch.int32), q.view(torch.int32))
+    assert torch.equal(k, film) == (rate == 0.0)
+
+
+def test_b4_kernel_drops_out_of_range_slots(cuda):
+    rows, p = 64, 4096
+    slot, val, die = _b4_case(cuda, p, rows, 1.0, 61)
+    slot = torch.where(torch.arange(p, device=cuda) % 2 == 0,
+                       torch.tensor([-1, rows, 2**31 - 1, -2**31],
+                                    dtype=torch.int32,
+                                    device=cuda).repeat(p // 4), slot)
+    k = B2.deposit_pending(torch.zeros((rows, 4), device=cuda), slot, val,
+                           die)
+    q = B2.deposit_pending_plain(torch.zeros((rows, 4), device=cuda), slot,
+                                 val, die)
+    torch.cuda.synchronize()
+    assert torch.equal(k, q) and k.abs().sum() > 0
+
+
+def test_b4_kernel_all_lanes_onto_one_row(cuda):
+    # 1,000 dying lanes into row 5: sums of values in [0, 1) within f32
+    # reassociation (rtol 1e-5); the bounce counts (integers) exact.
+    g = torch.Generator().manual_seed(62)
+    p = 1000
+    slot = torch.full((p,), 5, dtype=torch.int32, device=cuda)
+    val = torch.rand((p, 4), generator=g).to(cuda)
+    val[:, 3] = torch.randint(1, 8, (p,), generator=g).float().to(cuda)
+    die = torch.ones((p,), dtype=torch.bool, device=cuda)
+    k = B2.deposit_pending(torch.zeros((8, 4), device=cuda), slot, val, die)
+    q = B2.deposit_pending_plain(torch.zeros((8, 4), device=cuda), slot, val,
+                                 die)
+    torch.cuda.synchronize()
+    assert torch.equal(k[:, 3], q[:, 3])
+    assert torch.allclose(k, q, rtol=1e-5, atol=0)
+    assert torch.equal(k[6:], torch.zeros_like(k[6:]))
+
+
+def test_b4_wrapper_raises_on_misaligned_rows(cuda):
+    slot, val, die = _b4_case(cuda, 64, 8, 0.5, 63)
+    dest = torch.zeros((8, 4), device=cuda)
+    before = B2.deposit_pending.launches
+    with pytest.raises(ValueError, match="val is not 16-byte aligned"):
+        B2.deposit_pending(dest, slot, _misaligned(val), die)
+    with pytest.raises(ValueError, match="dest is not 16-byte aligned"):
+        B2.deposit_pending(_misaligned(dest), slot, val, die)
+    assert B2.deposit_pending.launches == before
+
+
+@pytest.mark.parametrize("variant", ["paged", "l2", "shared"])
+def test_p2_each_variant_visits_every_entry(cuda, variant):
+    from mrt_torch.tools import probe_stream as P
+
+    before = P.probe_b.launches
+    for seed in range(3):
+        chain = torch.from_numpy(P.chain(seed=seed)).to(cuda)
+        visited, cycles, fills = P.probe_b(chain, variant)
+        torch.cuda.synchronize()
+        assert visited.item() == P.CHAIN == P.probe_b_plain(chain).item()
+        assert cycles.item() > 0
+        # The kernel's own count of its cache's fills (tags, victim).
+        want = P.paged_misses(chain) if variant == "paged" else 0
+        assert fills.item() == want
+    assert P.probe_b.launches == before + 3
+
+
+def test_p2_wrapper_raises_on_a_misaligned_chain(cuda):
+    from mrt_torch.tools import probe_stream as P
+
+    chain = torch.from_numpy(P.chain()).to(cuda)
+    before = P.probe_b.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        P.probe_b(_misaligned(chain))
+    with pytest.raises(ValueError, match="whole pages"):
+        P.probe_b(chain[:1000])
+    assert P.probe_b.launches == before
+
+
 def test_probes_match_plain(cuda):
     from mrt_torch.tools import probe_stream as P
 
     res = P.run(cuda)  # raises where a probe disagrees with its plain one
-    assert res["p1"]["value"] == P.closed_form()
+    assert res["p1"]["value"] == res["p1"]["closed_form"] == P.closed_form()
     assert set(res["p2"]) == set(P.VARIANTS)
+    assert res["p2"]["paged"]["fills"] == P.paged_misses(
+        torch.from_numpy(P.chain()))
     assert res["p3"][227] == "3.0" and res["p3"][228].startswith("refused")
 
 

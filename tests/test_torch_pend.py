@@ -55,19 +55,19 @@ torch.set_num_threads(2)
 POOL, SLOTS = 2048, 1024
 
 
-def _inputs(rs, unique):
-    """Random B4 inputs: ~1/3 of the lanes die, some dying lanes all
-    zero, and (unless `unique`) many lanes on few rows."""
-    slot = (rs.permutation(POOL) % SLOTS if unique
-            else rs.integers(0, 64, POOL)).astype(np.int32)
-    die = rs.random(POOL) < 0.35
+def _inputs(rs, unique, pool=POOL, rate=0.35):
+    """Random B4 inputs: a fraction `rate` of the `pool` lanes die, some
+    dying lanes all zero, and (unless `unique`) many lanes on few rows."""
+    slot = (rs.permutation(pool) % SLOTS if unique
+            else rs.integers(0, 64, pool)).astype(np.int32)
+    die = rs.random(pool) < rate
     if unique:
-        die &= np.arange(POOL) < SLOTS  # one dying lane a row
+        die &= np.arange(pool) < SLOTS  # one dying lane a row
         slot[:SLOTS] = rs.permutation(SLOTS)
-        val = rs.standard_normal((POOL, 4)).astype(np.float32)
+        val = rs.standard_normal((pool, 4)).astype(np.float32)
     else:
-        val = (rs.integers(-64, 64, (POOL, 4)) / 8.0).astype(np.float32)
-    val[rs.random(POOL) < 0.1] = 0.0
+        val = (rs.integers(-64, 64, (pool, 4)) / 8.0).astype(np.float32)
+    val[rs.random(pool) < 0.1] = 0.0
     dest = (rs.integers(-64, 64, (SLOTS, 4)) / 8.0).astype(np.float32)
     return dest, slot, val, die
 
@@ -94,6 +94,28 @@ def test_deposit_pending_plain_matches_deposit_add(unique):
     with pytest.raises(ValueError, match="no kernel"):
         deposit_pending(*(torch.from_numpy(x).to("meta")
                           for x in (dest, slot, val, die)))
+
+
+# (seed, death rate, pool): pools are whole multiples of the TPU
+# kernel's 1,024-lane block.
+RATES = [(5, 0.0, 1024), (6, 0.1, 1024), (7, 0.6, 2048), (8, 1.0, 3072),
+         (9, 0.35, 4096)]
+
+
+@pytest.mark.parametrize("seed,rate,pool", RATES,
+                         ids=[f"seed{s}-rate{r}-pool{p}" for s, r, p in RATES])
+def test_deposit_pending_plain_matches_deposit_add_at_death_rates(seed, rate,
+                                                                  pool):
+    dest, slot, val, die = _inputs(np.random.default_rng(seed), False, pool,
+                                   rate)
+    want = np.asarray(pallas_deposit.deposit_add(
+        jnp.asarray(dest), jnp.asarray(slot), jnp.asarray(val),
+        jnp.asarray(die), interpret=True))
+    got = deposit_pending_plain(torch.from_numpy(dest.copy()),
+                                torch.from_numpy(slot), torch.from_numpy(val),
+                                torch.from_numpy(die))
+    assert got.numpy().tobytes() == want.tobytes()
+    assert np.array_equal(want, dest) == (rate == 0.0)
 
 
 def test_pend_resolution(monkeypatch):

@@ -37,12 +37,38 @@ def test_p1_indexed_sum(capsys):
 def test_p2_chain_walk(capsys):
     c = torch.from_numpy(P.chain())
     assert sorted(c.tolist()) == [-1] + list(range(1, P.CHAIN))
-    got, cycles = P.probe_b(c)
+    got, cycles, fills = P.probe_b(c)
     assert cycles is None and got.item() == P.CHAIN == 1024
+    assert fills.item() == P.paged_misses(c)
+    for variant in ("l2", "shared"):
+        assert P.probe_b(c, variant)[2].item() == 0
     assert JP.probe_b(True)
     assert got.item() == _printed(capsys, "visited")
     with pytest.raises(TypeError):
         P.probe_b(c.long())
+
+
+def test_p2_chain_must_be_whole_pages():
+    # The kernel's paged walk copies whole pages: the wrapper refuses a
+    # chain that is not, on any device.
+    c = torch.from_numpy(P.chain())
+    with pytest.raises(ValueError, match="whole pages"):
+        P.probe_b(c[:P.CHAIN - 24])
+    assert P.probe_b(torch.from_numpy(P.chain(2 * P.CHAIN)))[0].item() == (
+        2 * P.CHAIN)
+    with pytest.raises(ValueError, match="no kernel"):
+        P.probe_b(c.to("meta"))
+
+
+def test_p2_page_fills_model():
+    # The paged walk's cache in Python: a chain in entry order fills each
+    # of its 4 pages once; the random chain's next page is one of the 2
+    # cached about half the time.
+    order = torch.cat([torch.arange(1, P.CHAIN, dtype=torch.int32),
+                       torch.tensor([-1], dtype=torch.int32)])
+    assert P.paged_misses(order) == 4
+    fills = P.paged_misses(torch.from_numpy(P.chain()))
+    assert 0.4 * P.CHAIN < fills < 0.6 * P.CHAIN
 
 
 def test_p3_three_x():
