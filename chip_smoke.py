@@ -91,11 +91,16 @@ Each phase prints one line:
      cells walked by the DDA, the ground through B7, B2), with its DDA
      steps a wavefront step;
  19. the probes P1-P3 (``python -m mrt_torch.tools.probe_stream``): P1
-     against its closed form, P2 visiting all 1,024 chain entries through
+     against its closed form bit for bit, its four pages in flight at
+     once (bulk copies, an mbarrier a page) arriving in page order, with
+     each page's arrival ns; P2 visiting all 1,024 chain entries through
      a paged shared-memory cache (each page one bulk copy behind an
      mbarrier; the fills it counts equal to the cache's plain model), L2
-     and shared memory, with the ns of a dependent step of each, P3 succeeding up to the card's opt-in shared memory a block and
-     refused past it;
+     and shared memory, with the ns of a dependent step of each; P3
+     succeeding up to the card's opt-in shared memory a block and refused
+     past it, its sizes asked largest first, then smallest first (its
+     attribute raised once, at the first call); each kernel timed by
+     CUDA-graph replay beside its plain version, P3 also as called;
  20. the gradient path (``mrt_torch.inverse``): tests/test_grad.py's
      albedo recovery (12x12, 60 Adam steps; the loss below 0.6 of the
      first, the albedo within 0.08); one forward and backward pass of the
@@ -1344,37 +1349,48 @@ def phase_probes(dev):
     x = torch.ones((1,), device=dev)
     codes = torch.zeros((2,), dtype=torch.int32)
     kb = max(k for k in P.P3_KB if k * 1024 <= res["smem_optin_bytes"])
+    # name: (the kernel's launch, its plain version, bytes moved, the
+    # kernel's result as left by the last replay).
     kernels = {
         "P1": (lambda: _build.launch("mrt_probe_a", dev, f, i, out, cyc),
-               lambda: P.probe_a_plain(f, i), 4 * 10 * P.PAGE * 4 + 4),
+               lambda: P.probe_a_plain(f, i), 4 * 10 * P.PAGE * 4 + 4,
+               lambda: out),
         "P2": (lambda: _build.launch("mrt_probe_b", dev, chain, P.CHAIN, 0,
                                      visited, fills, cyc),
-               None, P.CHAIN * 4 + 4),
+               None, P.CHAIN * 4 + 4, lambda: visited),
         "P3": (lambda: _build.launch("mrt_probe_c", dev, x, out, kb * 1024,
                                      codes),
-               lambda: P.probe_c_plain(x), 8),
+               lambda: P.probe_c_plain(x), 8, lambda: out),
     }
     rows = {}
-    for name, (kernel, plain, moved) in kernels.items():
-        # P3's entry raises the kernel's shared memory attribute, which a
-        # CUDA graph capture does not take: CUDA events around its calls.
-        ms = call_ms(kernel, 20) if name == "P3" else graph_ms(kernel, 20)
+    for name, (kernel, plain, moved, result) in kernels.items():
+        ms = graph_ms(kernel, 20)
+        got = result().item()
         if plain is None:  # the Python walk syncs: host time of one call
             t0 = time.perf_counter()
-            P.probe_b_plain(chain)
+            want = P.probe_b_plain(chain).item()
             plain_ms = (time.perf_counter() - t0) * 1e3
         else:
+            want = plain().item()
             plain_ms = graph_ms(plain, 20)
-        rows[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        err = abs(got - want)
+        check(err == 0.0, f"{name} replayed: {got}, plain {want}")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           library_ms=None, launches=launches[name],
                           **bound(moved, 0))
+    # P3 also as called: CUDA events around 20 host calls, the host's
+    # launch gaps in, beside graph replay's device time.
+    rows["P3"]["ms_as_called"] = call_ms(kernels["P3"][0], 20)
     p1, p2 = res["p1"], res["p2"]
-    rows["P1"]["page_copy_ns"] = p1["page_copy_ns"]
+    check(p1["value"] == P.closed_form() == 7208.0,
+          f"P1: {p1['value']}, not 7208.0")
+    rows["P1"]["page_arrival_ns"] = p1["page_arrival_ns"]
     rows["P2"]["ns_per_step"] = {k: v["ns_per_step"] for k, v in p2.items()}
     rows["P2"]["page_fills"] = p2["paged"]["fills"]
     rows["P3"].update(sizes=res["p3"], smem_optin_bytes=res["smem_optin_bytes"])
-    log(19, f"P1 {p1['value']} (closed form {p1['closed_form']}), page copies "
-            + ", ".join(f"{c:.0f} ns" for c in p1["page_copy_ns"])
+    log(19, f"P1 {p1['value']} (closed form {p1['closed_form']}), pages "
+            "arrive (all four in flight, bulk copies) after "
+            + ", ".join(f"{c:.0f} ns" for c in p1["page_arrival_ns"])
             + f" at {res['clock_khz']} kHz; kernel {rows['P1']['ms']:.4f} ms "
             f"a call, plain {rows['P1']['plain_ms']:.4f} ms")
     log(19, "P2 1024 visited on each walk; a dependent step: "
@@ -1385,10 +1401,12 @@ def phase_probes(dev):
             f"by the paged walk, as the cache's plain model; paged kernel "
             f"{rows['P2']['ms']:.4f} ms a call, Python walk "
             f"{rows['P2']['plain_ms']:.3f} ms")
-    log(19, "P3 " + ", ".join(f"{k} KB: {v}" for k, v in res["p3"].items())
+    log(19, "P3, largest size first, then smallest first: "
+            + ", ".join(f"{k} KB: {v}" for k, v in res["p3"].items())
             + f"; opt-in limit {res['smem_optin_bytes']} B; kernel "
-            f"{rows['P3']['ms']:.4f} ms a call ({kb} KB, CUDA events), plain "
-            f"{rows['P3']['plain_ms']:.4f} ms")
+            f"{rows['P3']['ms']:.5f} ms a call ({kb} KB, CUDA-graph replay), "
+            f"{rows['P3']['ms_as_called']:.5f} ms as called (CUDA events), "
+            f"plain {rows['P3']['plain_ms']:.5f} ms")
     return rows
 
 

@@ -1,5 +1,5 @@
-"""Kernels B1-B7 and the probe P2 of this checkout, or of another one,
-in turns on the card at the main path's shapes.
+"""Kernels B1-B7 and the probes P1-P3 of this checkout, or of another
+one, in turns on the card at the main path's shapes.
 
     python -m mrt_torch.tools.bvh_turns [--escape] [--kernels K]
         [--out FILE] [--turns N]
@@ -34,6 +34,12 @@ on the path, the launch floor, the whole ``compact_rows`` and
 ``--kernels deposit``: B4 on chip_smoke's phase 16 lanes beside B2 on the
 film and the launch floor, and P2's paged walk with each variant's
 nanoseconds a dependent step (``deposit_entries``).
+``--kernels probes``: P1 (its launch, by graph replay, and the arrival of
+each of its four pages, ", arrival ns": SM cycles from the first copy's
+start over the clock rate; with an earlier checkout, whose P1 copies the
+pages one after another, each page's own copy time), P3 at 227 KB as
+called and (this checkout's, whose attribute is raised once a process)
+by graph replay, and the launch floor (``probe_entries``).
 ``--root DIR`` times the wrappers of the checkout at DIR (an earlier
 commit; each kernel's entries follow the arguments its wrapper takes:
 the reference layout and one B6 launch a part before the packed tables,
@@ -346,24 +352,65 @@ def deposit_entries(smoke, dev):
     return out
 
 
+def probe_entries(smoke, dev, earlier):
+    """{name: fn} of the probes P1 and P3 as phase 19 times them: the
+    launch floor; P1's launch and its pages' arrival ns (", arrival ns",
+    one launch each); P3's launch at 227 KB as called and, unless
+    `earlier` (a checkout whose P3 raises its attribute on every call,
+    which a graph capture does not take), by graph replay."""
+    from mrt_torch.ops import _build
+    from mrt_torch.tools import probe_stream as P
+
+    one = torch.zeros((1,), device=dev)
+    f, i = P.tables(dev)
+    res = torch.empty((1,), device=dev)
+    cycles = torch.empty((4,), dtype=torch.int64, device=dev)
+    x = torch.ones((1,), device=dev)
+    codes = torch.zeros((2,), dtype=torch.int32)
+    _, khz = P.attributes(dev)
+    p1 = lambda: _build.launch("mrt_probe_a", dev, f, i, res, cycles)
+    p3 = lambda: _build.launch("mrt_probe_c", dev, x, res, 227 * 1024, codes)
+    p3()  # the first call raises the attribute (this checkout: once)
+    if codes.any():
+        raise RuntimeError(f"P3 at 227 KB refused: {codes.tolist()}")
+
+    def arrival_ns(k):
+        return P.probe_a(f, i)[1][k].item() / khz * 1e6
+
+    out = {
+        "floor: add_ of one element": lambda: one.add_(1.0),
+        "P1": p1,
+    }
+    for k in range(4):
+        out[f"P1 page {k}, arrival ns"] = lambda k=k: arrival_ns(k)
+    if not earlier:
+        out["P3 227 KB"] = p3
+    out["P3 227 KB, as called"] = p3
+    return out
+
+
 def timer(smoke, name):
     """How entry `name` is timed: host microseconds a call (", host"),
-    CUDA events (", as called"), the entry's own number (", ns a step"),
-    else CUDA-graph replay (REPS calls; SMALL_REPS for the launch-bound
-    compaction and deposit kernels)."""
+    CUDA events (", as called"), the entry's own number (", ns a step",
+    ", arrival ns"), else CUDA-graph replay (REPS calls; SMALL_REPS for
+    the launch-bound compaction and deposit kernels)."""
     if name.endswith(", host"):
         return lambda fn: smoke.host_us(fn, HOST_CALLS)
     if name.endswith(", as called"):
         return lambda fn: smoke.call_ms(fn, REPS)
-    if name.endswith(", ns a step"):
+    if name.endswith(NS):
         return lambda fn: fn()
     small = name.startswith(("floor", "B2", "B3", "B4", "compact"))
     return lambda fn: smoke.graph_ms(fn, SMALL_REPS if small else REPS)
 
 
+# The suffixes of entries that return their own nanoseconds.
+NS = (", ns a step", ", arrival ns")
+
+
 def unit(name):
     return ("us" if name.endswith(", host") else
-            "ns" if name.endswith(", ns a step") else "ms")
+            "ns" if name.endswith(NS) else "ms")
 
 
 def main():
@@ -374,10 +421,12 @@ def main():
     ap.add_argument("--out", help="write the JSON here too")
     ap.add_argument("--turns", type=int, default=3)
     ap.add_argument("--kernels", default="all",
-                    choices=("all", "bvh", "compaction", "deposit"),
+                    choices=("all", "bvh", "compaction", "deposit",
+                             "probes"),
                     help="the BVH and sphere kernels (B1, B5-B7), the "
                     "compaction kernels (B2, B3), B4 and P2 beside B2 "
-                    "(deposit), or all three")
+                    "(deposit), P1 and P3 beside the launch floor "
+                    "(probes), or all four")
     args = ap.parse_args()
     if args.root and args.escape:
         ap.error("--escape times this checkout's kernels, not --root's")
@@ -400,6 +449,8 @@ def main():
         runs.update(compaction_entries(smoke, dev))
     if args.kernels in ("all", "deposit"):
         runs.update(deposit_entries(smoke, dev))
+    if args.kernels in ("all", "probes"):
+        runs.update(probe_entries(smoke, dev, earlier=bool(args.root)))
     timers = {name: timer(smoke, name) for name in runs}
     times = {}
     for _ in range(args.turns):

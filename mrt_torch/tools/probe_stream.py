@@ -4,13 +4,17 @@
     python -m mrt_torch.tools.probe_stream
 
 P1 (``probe_a``) pages four 256-column slices of an (8, 1024) f32 and a
-(2, 1024) i32 table into shared memory and sums one element of each;
+(2, 1024) i32 table into shared memory, all four in flight at once as
+bulk asynchronous copies, each page behind its own mbarrier, and sums
+one element of each; its four timings are the pages' arrival times;
 P2 (``probe_b``) walks a 1,024-entry chain through a 2-slot shared-memory
 page cache filled by Hopper's bulk asynchronous copy behind an mbarrier,
 and also through L2 and through a shared-memory copy of the whole chain,
 timing each dependent step; P3 (``probe_c``) asks for a
 dynamic shared buffer of `kb` KB, writes its first and last word and
-returns 3x, or reports the refusal past the card's opt-in limit.  The
+returns 3x, or reports the refusal past the card's opt-in limit (the
+kernel's shared-memory attribute is raised once a device and process,
+to that limit, so a call is one launch).  The
 kernels are ``csrc/probe_stream.cu``; each wrapper runs its plain
 PyTorch version on CPU tensors and counts its launches (``launches``).
 
@@ -61,16 +65,29 @@ def probe_a_plain(f, i):
 
 
 def probe_a(f, i):
-    """(sum (1,) f32, SM cycles of each page's copy (4,) int64; None on
-    the CPU)."""
+    """(sum (1,) f32, arrival of each page (4,) int64 or None on the
+    CPU): the SM cycles from one start, just before the first copy, to
+    page k's barrier completing, with all four pages in flight.  f is
+    float32 and i int32 on any device; on the card both contiguous with
+    16-byte aligned data (every row of a page moves as one bulk copy,
+    which takes 16-byte aligned ends)."""
+    if f.dtype != torch.float32 or i.dtype != torch.int32:
+        raise TypeError(f"probe_a: f {f.dtype}, i {i.dtype}, not float32 "
+                        "and int32")
     if f.shape != (8, 4 * PAGE) or i.shape != (2, 4 * PAGE):
         raise ValueError(f"probe_a: f {tuple(f.shape)}, i {tuple(i.shape)}")
     if f.device.type == "cpu":
         return probe_a_plain(f, i), None
+    if f.device.type != "cuda" or i.device != f.device:
+        raise ValueError(f"probe_a: no kernel for f on {f.device}, i on "
+                         f"{i.device}")
+    for name, x in (("f", f), ("i", i)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"probe_a: {name} is not contiguous and 16-byte "
+                             "aligned (a page's rows move as bulk copies)")
     out = torch.empty((1,), dtype=torch.float32, device=f.device)
     cycles = torch.empty((4,), dtype=torch.int64, device=f.device)
-    _build.launch("mrt_probe_a", f.device, f.contiguous(), i.contiguous(),
-                  out, cycles)
+    _build.launch("mrt_probe_a", f.device, f, i, out, cycles)
     probe_a.launches += 1
     return out, cycles
 
@@ -151,8 +168,10 @@ def probe_c_plain(x):
 
 def probe_c(x, kb):
     """(3x (1,), None) with a dynamic shared buffer of `kb` KB, or
-    (None, (attribute code, launch code)) where the card refused it.  On
-    the CPU, the plain version."""
+    (None, (attribute code, launch code)) where the card refused it: the
+    answer to raising the kernel's attribute to the opt-in limit (once a
+    device and process, at the first call) and this launch's.  On the
+    CPU, the plain version."""
     if x.device.type == "cpu":
         return probe_c_plain(x), None
     out = torch.zeros((1,), dtype=torch.float32, device=x.device)
@@ -183,9 +202,11 @@ def error_name(code):
 
 def run(device):
     """Every probe on the card against its plain version; returns a dict
-    of results.  Raises where a result is wrong: P1 off its closed form,
-    P2 not visiting every entry or its page fills off the cache's plain
-    model, P3 refused at or below the opt-in limit or accepted past it."""
+    of results.  Raises where a result is wrong: P1 off its closed form
+    or its page arrivals not positive and in page order, P2 not visiting
+    every entry or its page fills off the cache's plain model, P3 refused
+    at or below the opt-in limit or accepted past it, its sizes asked
+    largest first, then smallest first."""
     smem_optin, khz = attributes(device)
     ns = lambda cycles: cycles / khz * 1e6  # SM cycles -> ns
 
@@ -194,7 +215,10 @@ def run(device):
     want = closed_form()
     if got.item() != want or probe_a_plain(f, i).item() != want:
         raise RuntimeError(f"P1: {got.item()}, closed form {want}")
-    page_cycles = cycles.tolist()
+    arrivals = cycles.tolist()
+    if arrivals[0] <= 0 or arrivals != sorted(arrivals):
+        raise RuntimeError(f"P1: page arrivals {arrivals} cycles, not "
+                           "positive and in page order")
 
     c = torch.from_numpy(chain()).to(device)
     walks = {}
@@ -213,7 +237,7 @@ def run(device):
 
     x = torch.ones((1,), device=device)
     sizes = {}
-    for kb in P3_KB:
+    for kb in (*reversed(P3_KB), *P3_KB):
         out, codes = probe_c(x, kb)
         fits = kb * 1024 <= smem_optin
         if fits and (codes is not None or out.item() != 3.0):
@@ -222,11 +246,13 @@ def run(device):
         if not fits and codes is None:
             raise RuntimeError(f"P3 {kb} KB past the {smem_optin} B limit "
                                "was accepted")
-        sizes[kb] = ("3.0" if codes is None else
-                     f"refused ({', '.join(error_name(k) for k in codes)})")
+        what = ("3.0" if codes is None else
+                f"refused ({', '.join(error_name(k) for k in codes)})")
+        if sizes.setdefault(kb, what) != what:
+            raise RuntimeError(f"P3 {kb} KB: {sizes[kb]}, then {what}")
     return dict(p1=dict(value=got.item(), closed_form=want,
-                        page_copy_cycles=page_cycles,
-                        page_copy_ns=[ns(x) for x in page_cycles]),
+                        page_arrival_cycles=arrivals,
+                        page_arrival_ns=[ns(x) for x in arrivals]),
                 p2=walks, p3=sizes, smem_optin_bytes=smem_optin,
                 clock_khz=khz)
 
@@ -238,8 +264,9 @@ def main():
     dev = torch.device("cuda", 0)
     res = run(dev)
     p1 = res["p1"]
-    print(f"P1: {p1['value']} (closed form {p1['closed_form']}); page copy "
-          + ", ".join(f"{c} cycles" for c in p1["page_copy_cycles"]))
+    print(f"P1: {p1['value']} (closed form {p1['closed_form']}); pages "
+          "arrive, all four in flight, after "
+          + ", ".join(f"{c} cycles" for c in p1["page_arrival_cycles"]))
     for variant, w in res["p2"].items():
         fills = f", {w['fills']} page fills" if variant == "paged" else ""
         print(f"P2 {variant}: {CHAIN} visited, {w['cycles_per_step']:.1f} "

@@ -31,8 +31,10 @@ counts that are not a multiple of the block, with every lane dying and
 with none, with slots out of range; 1,000 lanes on one row within f32
 reassociation (bounce counts exact); its wrapper refuses misaligned rows.
 The probes P1-P3 give their plain versions' values (P3 up to the card's
-opt-in limit and a refusal past it); each of P2's walks visits every
-entry, and its wrapper refuses a misaligned chain.  The gradient path (``mrt_torch.inverse``) launches B1
+opt-in limit and a refusal past it, its sizes asked in either order, and
+in a CUDA graph); P1's pages arrive in order and its wrapper refuses a
+misaligned table; each of P2's walks visits every entry, and its wrapper
+refuses a misaligned chain.  The gradient path (``mrt_torch.inverse``) launches B1
 in the forward and in the checkpoint's recompute, and its gradients
 equal those with the plain version's winners.  Divisions by a host
 number give the CPU's quotient on the card (ROADMAP C20): the wavefront's
@@ -770,6 +772,69 @@ def test_p2_wrapper_raises_on_a_misaligned_chain(cuda):
     with pytest.raises(ValueError, match="whole pages"):
         P.probe_b(chain[:1000])
     assert P.probe_b.launches == before
+
+
+def test_p1_pages_in_flight_match_closed_form(cuda):
+    from mrt_torch.tools import probe_stream as P
+
+    f, i = P.tables(cuda)
+    before = P.probe_a.launches
+    for _ in range(5):
+        got, cycles = P.probe_a(f, i)
+        torch.cuda.synchronize()
+        assert got.item() == P.closed_form() == 7208.0
+        # Each page's arrival from one start, all four in flight.
+        arrivals = cycles.tolist()
+        assert arrivals[0] > 0 and arrivals == sorted(arrivals)
+    assert P.probe_a.launches == before + 5
+
+
+def test_p1_wrapper_raises_on_a_misaligned_table(cuda):
+    from mrt_torch.tools import probe_stream as P
+
+    f, i = P.tables(cuda)
+    before = P.probe_a.launches
+    with pytest.raises(ValueError, match="f is not contiguous and 16-byte"):
+        P.probe_a(_misaligned(f), i)
+    with pytest.raises(ValueError, match="i is not contiguous and 16-byte"):
+        P.probe_a(f, _misaligned(i))
+    with pytest.raises(ValueError, match="f is not contiguous"):
+        P.probe_a(f.t().contiguous().t(), i)
+    assert P.probe_a.launches == before
+
+
+@pytest.mark.parametrize("order", [(228, 227, 48), (48, 227, 228)])
+def test_p3_sizes_in_either_order(cuda, order):
+    # The attribute is raised once a process, to the opt-in limit,
+    # whichever size the first call asks for.
+    from mrt_torch.tools import probe_stream as P
+
+    x = torch.full((1,), 1.5, device=cuda)
+    before = P.probe_c.launches
+    for kb in order:
+        out, codes = P.probe_c(x, kb)
+        if kb == 228:
+            assert out is None and codes[1] != 0
+        else:
+            assert codes is None and out.item() == 4.5
+    assert P.probe_c.launches == before + 2
+
+
+def test_p3_in_a_cuda_graph(cuda):
+    # A call is one launch: five captured at 227 KB replay to 3x each.
+    from mrt_torch.tools import probe_stream as P
+
+    x = torch.ones((1,), device=cuda)
+    assert P.probe_c(x, 227)[1] is None  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [P.probe_c(x, 227)[0] for _ in range(5)]
+    for out in outs:
+        out.fill_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert [out.item() for out in outs] == [3.0] * 5
 
 
 def test_probes_match_plain(cuda):

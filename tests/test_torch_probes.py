@@ -77,3 +77,39 @@ def test_p3_three_x():
     assert refused is None and got.item() == 3.0
     assert P.probe_c_plain(torch.tensor([2.5])).item() == 7.5
     assert P.probe_a.launches == P.probe_b.launches == P.probe_c.launches == 0
+
+
+@pytest.mark.parametrize("f_type, i_type", [(torch.float64, torch.int32),
+                                            (torch.float32, torch.int64)])
+def test_p1_wrapper_refuses_other_types(f_type, i_type):
+    # The kernel reads f as float32 and i as int32: the wrapper refuses
+    # any other type on every device, before it looks at the device.
+    f, i = P.tables("cpu")
+    with pytest.raises(TypeError, match="not float32 and int32"):
+        P.probe_a(f.to(f_type), i.to(i_type))
+    with pytest.raises(TypeError, match="not float32 and int32"):
+        P.probe_a(f.to("meta", f_type), i.to("meta", i_type))
+    assert P.probe_a.launches == 0
+
+
+@pytest.mark.parametrize("codes", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_p3_refusal_bookkeeping(codes, monkeypatch):
+    # The entry's two codes (the one-time attribute answer and this
+    # launch's), faked: any non-zero one is a refusal, reported as
+    # (None, codes) and not counted as a launch; (0, 0) is a launch.
+    calls = []
+
+    def fake_launch(name, device, x, out, nbytes, got):
+        calls.append((name, nbytes))
+        got.copy_(torch.tensor(codes, dtype=torch.int32))
+
+    monkeypatch.setattr(P._build, "launch", fake_launch)
+    monkeypatch.setattr(P.probe_c, "launches", 0)
+    out, refused = P.probe_c(torch.ones((1,), device="meta"), 228)
+    assert calls == [("mrt_probe_c", 228 * 1024)]
+    if any(codes):
+        assert out is None and refused == codes
+        assert P.probe_c.launches == 0
+    else:
+        assert refused is None and out.shape == (1,)
+        assert P.probe_c.launches == 1
