@@ -151,14 +151,34 @@ Each phase prints one line:
      and (1, 2): RTIOW at 1920x1080, depth 50, spp 2 against phase 6's
      film and sphere_grid at 480x270, spp 2 (B5, B7, B2) against a
      one-process pass, under the same rule.  Two ranks sharing one card
-     give no multi-GPU time.
+     give no multi-GPU time;
+ 23. the lane coherence sorter (``integrator.persistent.sort_lanes``:
+     kernel S1, the key; torch.sort; kernel S2, the permutation; the auto
+     rule now sorts phases 10, 12's lucy and 15): sphere_grid, lucy, eve
+     and lucy with MRT_SORT_DYN=1 at 1920x1080, depth 50, spp 2, pool
+     2^17, unsorted, sorted, sorted, unsorted in one process (seconds,
+     steps, launches a step, mean radiance; S1 and S2 once a sort; the
+     turns of one mode equal; sorted against unsorted equal on
+     sphere_grid, and on lucy and eve, whose B7 walks its TLAS in its
+     warp's octant (C15), at most 1% of pixels apart); S1 and S2 against
+     their plain versions bit for bit on sphere_grid's step-64 lanes
+     (the scene's and the live origins' box; S2 with and without a pend
+     accumulator), timed by CUDA-graph replay beside the launch floor,
+     torch.sort, the plain versions, S2's index_select a column and the
+     whole sorter's launches; B1 (RTIOW, phase 6's step 64), B5
+     (sphere_grid), B7 (lucy, eve) on step 64's lanes of an unsorted
+     pass as they come and sorted (both boxes), in turns: B1's and B5's
+     winners un-permuted bit-equal, B7's under compare_hits' rule.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after.  Then a JSON line with each kernel's numbers (B2, B3
 and B4 also with ``floor_ms``, phase 4's launch floor; B1 and B2 also
 ``launches_sharded``, phase 22's), and as
-the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
-exits non-zero; so does a machine without CUDA.  Imports no JAX.
+the last line ``{"ok": true, "device": {...}}``.  The JSON line's S1
+and S2 entries replace no Pallas kernel (``replaces`` names the
+reference's XLA sorter); their ``launches`` are phase 10's.  Any failure
+raises and exits non-zero; so does a machine without CUDA.  Imports no
+JAX.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -369,6 +389,39 @@ def captured_rays(kernel, out):
         yield
     finally:
         setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def captured_state(out):
+    """Inside the block, the lane state that the persistent pass's step
+    number CAPTURE_STEPS[-1] (from 0) takes is copied into out["state"],
+    with the pass's work items in out["total"]."""
+    from mrt_torch.integrator import persistent
+
+    fn = persistent.LanePool.step
+    step, calls = CAPTURE_STEPS[-1], [0]
+
+    def spy(self, st, film):
+        if calls[0] == step:
+            out.update(state={k: v.clone() for k, v in st.items()},
+                       total=self.total)
+        calls[0] += 1
+        return fn(self, st, film)
+
+    persistent.LanePool.step = spy
+    try:
+        yield
+    finally:
+        persistent.LanePool.step = fn
+
+
+@contextlib.contextmanager
+def contexts(*managers):
+    """All the context managers at once."""
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
 
 
 def phase_b1(dev, captured):
@@ -605,14 +658,15 @@ def phase_golden(phase, name, dev, build=None, max_outside=None, **kw):
 
 
 def _wrappers():
-    from mrt_torch.ops import bvh, deposit, gather, spheres
+    from mrt_torch.ops import bvh, deposit, gather, sort, spheres
     from mrt_torch.tools import probe_stream
 
     return {"B1": spheres.nearest_t, "B2": deposit.deposit,
             "B3": gather.gather, "B4": deposit.deposit_pending,
             "B5": bvh.sphere_bvh_hit, "B6": bvh.tri_bvh_hit,
             "B7": bvh.tlas_hit, "P1": probe_stream.probe_a,
-            "P2": probe_stream.probe_b, "P3": probe_stream.probe_c}
+            "P2": probe_stream.probe_b, "P3": probe_stream.probe_c,
+            "S1": sort.sort_keys, "S2": sort.permute_lanes}
 
 
 def reset_launches():
@@ -670,7 +724,9 @@ def phase_main(phase, name, dev, kernels, route=None, film_out=None,
     spp 2, pool 2^17, with MRT_TLAS_KERNEL=`route` (None: unset), the
     scene's light table if `nee`, Russian roulette from `rr_depth`, launch
     counts set to 0 just before; each kernel in `kernels`, and neither B3,
-    B4, a BVH kernel nor one in `absent` outside it, must have launched.
+    B4, a BVH kernel, a sorter kernel (S1, S2: the auto rule sorts
+    sphere_grid, lucy and eve) nor one in `absent` outside it, must have
+    launched.
     The pass runs inside the context manager `during`.  Returns
     (launches, mean radiance); the film, the seconds, the steps and the
     DDA steps go into film_out if given."""
@@ -696,7 +752,8 @@ def phase_main(phase, name, dev, kernels, route=None, film_out=None,
             seconds = time.perf_counter() - t0
     launches = read_launches()
     check(all(launches[k] > 0 for k in kernels)
-          and all(launches[k] == 0 for k in ("B3", "B4", "B5", "B6", "B7")
+          and all(launches[k] == 0 for k in ("B3", "B4", "B5", "B6", "B7",
+                                             "S1", "S2")
                   + tuple(absent) if k not in kernels),
           f"{name}: the path's kernels {kernels} did not launch alone: "
           f"{launches}")
@@ -1035,7 +1092,7 @@ def phase_meshes(dev):
     """Lucy and playground main paths on both routes; each scene's two
     mean radiances within 1% of each other."""
     runs = {}
-    for name, extra in (("lucy", ("B1",)), ("playground", ())):
+    for name, extra in (("lucy", ("B1", "S1", "S2")), ("playground", ())):
         two, two_mean = phase_main(12, name, dev, ("B2", "B7") + extra)
         out = {}
         flat, flat_mean = phase_main(12, name, dev, ("B2", "B6") + extra,
@@ -1138,8 +1195,8 @@ def phase_eve(dev):
     reassociation of the film's atomic adds."""
     runs = {}
     for key, kernels, flags in (
-            ("plain", ("B1", "B2", "B7"), {}),
-            ("compact", ("B1", "B2", "B3", "B7"),
+            ("plain", ("B1", "B2", "B7", "S1", "S2"), {}),
+            ("compact", ("B1", "B2", "B3", "B7", "S1", "S2"),
              dict(MRT_BG_COMPACT="1", MRT_TEX_COMPACT="1"))):
         runs[key] = {}
         with environ(**flags):
@@ -2417,6 +2474,356 @@ def phase_sharded(dev, rtiow):
     return dict(one_process=a, two_ranks=b)
 
 
+# Phase 23: the passes in turns (scene, environment), and S1's FP32
+# operations a lane (csrc/sort.cu: |d|^2 5, the max 1, the root 1, a
+# direction cell 5 and an origin cell 4 an axis).
+SORT_PASSES = (("sphere_grid", {}), ("lucy", {}), ("eve", {}),
+               ("lucy", {"MRT_SORT_DYN": "1"}))
+TURNS = ("unsorted", "sorted", "sorted", "unsorted")
+OPS_SORT_KEY = 34
+
+
+def bits_equal(a, b):
+    """Equal shapes and bits (a NaN equals the same NaN)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def device_kernels(fn, calls=10):
+    """(device activities a call of fn, their names): `calls` calls after
+    a warm-up under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return sum(e.count for e in ev) / calls, sorted(e.key for e in ev)
+
+
+def film_differences(a, b):
+    """(pixels with another bounce count, pixels with another radiance
+    beyond f32 reassociation of the film's atomic adds (1e-5 of the
+    largest value), the largest radiance difference, that value)."""
+    depth = int((a.depth_sum != b.depth_sum).sum())
+    scale = a.sum.abs().max().item()
+    diff = (a.sum - b.sum).abs()
+    return (depth, int((diff > 1e-5 * scale).any(-1).sum()),
+            diff.max().item(), scale)
+
+
+def sort_passes(dev, captures):
+    """Phase 23's passes: each of SORT_PASSES at 1080p, depth 50, spp 2,
+    pool 2^17, unsorted, sorted by the auto rule, sorted, unsorted, in one
+    process; S1 and S2 once a sort.  Two turns of one mode agree in
+    bounce counts and in radiance within f32 reassociation.  Sorted
+    against unsorted: where every walk is a ray's own (sphere_grid: B5 in
+    each ray's octant, a one-instance TLAS) the same rule, with the same
+    steps and B-kernel launches; where B7 walks a TLAS in its warp's
+    octant (lucy, eve), a sort regroups the warps and C15 moves a few
+    winners, so at most 1% of pixels may differ (C2's bound for path
+    flips), each kernel still once a step.  The first unsorted pass of
+    each scene (without MRT_SORT_DYN) leaves its step-64 lane state and
+    the scene in captures[name]."""
+    from mrt_torch.runtime.film import Film
+    from mrt_torch.runtime.render import render_pass_persistent
+    from mrt_torch.scenes import get
+
+    out = {}
+    for name, flags in SORT_PASSES:
+        key = " ".join([name, *(f"{k}={v}" for k, v in flags.items())])
+        with environ(**flags):
+            scene, camera = get(name)().generate(device=dev)
+            check(scene.prefers_sorted_rays(),
+                  f"{name}: the auto rule does not sort on the card")
+            cadence = scene.sort_cadence()
+            warp_walk = scene.tlas is not None and scene.tlas.n_instances > 1
+            turns = []
+            for i, mode in enumerate(TURNS):
+                during = contextlib.nullcontext()
+                if i == 0 and not flags:
+                    captures[name] = dict(scene=scene)
+                    during = captured_state(captures[name])
+                film = Film.create(WIDTH, HEIGHT, device=dev)
+                torch.cuda.synchronize()
+                reset_launches()
+                with counting_steps() as steps, during:
+                    t0 = time.perf_counter()
+                    film = render_pass_persistent(
+                        scene, camera, film, 1, 0, width=WIDTH, height=HEIGHT,
+                        max_depth=50, samples=2, pool=RAYS,
+                        sort_rays=None if mode == "sorted" else False)
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                turns.append(dict(mode=mode, seconds=seconds,
+                                  steps=steps["steps"],
+                                  launches=read_launches(), film=film,
+                                  mean=film.mean().mean().item()))
+        first = {m: next(t for t in turns if t["mode"] == m)
+                 for m in ("unsorted", "sorted")}
+        for t in turns:
+            n = t["steps"]
+            b = {k: v for k, v in t["launches"].items() if k[0] == "B"}
+            per_step = {k: v / n for k, v in b.items()}
+            check(per_step == {k: v / first["unsorted"]["steps"] for k, v in
+                               first["unsorted"]["launches"].items()
+                               if k[0] == "B"},
+                  f"{key} {t['mode']}: B-kernel launches {b} in {n} steps "
+                  f"against {first['unsorted']['launches']} in "
+                  f"{first['unsorted']['steps']}")
+            sorts = n // cadence if t["mode"] == "sorted" else 0
+            check(t["launches"]["S1"] == t["launches"]["S2"] == sorts,
+                  f"{key} {t['mode']}: S1, S2 launched "
+                  f"{t['launches']['S1']}, {t['launches']['S2']} in {n} "
+                  f"steps, not {sorts}")
+            films_agree(f"{key} {t['mode']} turns", first[t["mode"]]["film"],
+                        t["film"])
+            check(t["steps"] == first[t["mode"]]["steps"],
+                  f"{key}: {t['mode']} turns ran {n} and "
+                  f"{first[t['mode']]['steps']} steps")
+        a, b = first["unsorted"], first["sorted"]
+        px_depth, px_radiance, diff, scale = film_differences(a["film"],
+                                                              b["film"])
+        npix = WIDTH * HEIGHT
+        if warp_walk:
+            check(px_depth + px_radiance <= 0.01 * npix,
+                  f"{key}: sorted and unsorted films differ on {px_depth} "
+                  f"pixels' bounce counts and {px_radiance} pixels' radiance")
+        else:
+            check(a["steps"] == b["steps"] and px_depth == px_radiance == 0,
+                  f"{key}: sorted and unsorted passes differ: steps "
+                  f"{a['steps']}, {b['steps']}; {px_depth} pixels' bounce "
+                  f"counts, {px_radiance} pixels' radiance")
+        secs = {m: [t["seconds"] for t in turns if t["mode"] == m]
+                for m in ("unsorted", "sorted")}
+        out[key] = dict(
+            cadence=cadence, steps=[t["steps"] for t in turns], seconds=secs,
+            means=[t["mean"] for t in turns],
+            launches_a_step={k: round(v / b["steps"], 3) for k, v in
+                             b["launches"].items() if v},
+            sorts=b["launches"]["S1"], warp_walk=warp_walk,
+            pixels_other_depth=px_depth, pixels_other_radiance=px_radiance,
+            max_abs=diff, depth_sums=[int(t["film"].depth_sum.sum())
+                                      for t in turns])
+        v = out[key]
+        log(23, f"passes in turns, {key} {WIDTH}x{HEIGHT} depth 50 spp 2 pool "
+                f"{RAYS}, cadence {cadence}: unsorted "
+                f"{secs['unsorted'][0]:.3f}/{secs['unsorted'][1]:.3f} s, "
+                f"sorted {secs['sorted'][0]:.3f}/{secs['sorted'][1]:.3f} s; "
+                f"steps {v['steps']}, {v['sorts']} sorts; sorted against "
+                f"unsorted: {px_depth} pixels with another bounce count, "
+                f"{px_radiance} with another radiance (of {npix}), max "
+                f"difference {diff:.3g} of {scale:.3g}; depth sums "
+                f"{v['depth_sums']}; mean radiance "
+                f"{[round(m, 6) for m in v['means']]}; sorted launches a step "
+                f"{v['launches_a_step']}")
+    return out
+
+
+def sorted_perm(scene, st, total, live=False):
+    """The permutation the sorter gives the lane state st: origin cells
+    over the scene's bounds, or with `live` over the active lanes'."""
+    from mrt_torch.ops import sort as S
+
+    item, o = st["item"], st["o"]
+    box = (S.live_box(item, o, total) if live
+           else S.origin_box(*scene.world_bounds()))
+    keys = S.sort_keys(item, o, st["d"], total, box)
+    return torch.sort(keys, stable=True).indices
+
+
+def sorted_ray_kernels(dev, captures, rtiow_rays):
+    """B1 (RTIOW), B5 (sphere_grid) and B7 (lucy, eve) on the lanes of
+    step 64 of an unsorted pass, as they come and permuted by the sorter,
+    in turns (as they come, sorted, sorted, as they come).  B1's and
+    B5's winners un-permuted are bit-equal; B7 walks its TLAS in its
+    warp's octant, so its winners follow compare_hits' rule (C15)."""
+    from mrt_torch.ops import bvh as K
+    from mrt_torch.ops import sort as S
+    from mrt_torch.ops import spheres as B1
+    from mrt_torch.scenes import get
+
+    inf = float("inf")
+    out = {}
+    for kernel, name in (("B1", "rtiow"), ("B5", "sphere_grid"),
+                         ("B7", "lucy"), ("B7", "eve")):
+        cap = captures[name]
+        st, total = cap["state"], cap["total"]
+        n = st["o"].shape[0]
+        if kernel == "B1":
+            scene = get("rtiow")().generate(device=dev)[0]
+            o, d, lo, hi = rtiow_rays[CAPTURE_STEPS[-1]]
+            check(torch.equal(o, st["o"]) and torch.equal(d, st["d"]),
+                  "phase 6's step-64 B1 rays are not its step-64 lanes")
+            sp = scene.spheres
+            fn = lambda o, d, lo, hi: B1.nearest_t(sp.center, sp.radius, o,
+                                                   d, lo, hi,
+                                                   groups=sp.groups)
+        elif kernel == "B5":
+            scene = cap["scene"]
+            tree, sph = scene.sphere_bvh, scene.spheres.krows
+            lo, hi = 1e-3, inf
+            fn = lambda o, d, lo, hi: K.sphere_bvh_hit(
+                tree.nodes, tree.meta, sph, o, d, lo, hi,
+                card=(tree.knodes, tree.order))
+        else:
+            scene = cap["scene"]
+            lo = torch.full((n,), 1e-3, device=dev)
+            hi = torch.full((n,), inf, device=dev)
+            fn = lambda o, d, lo, hi, tl=scene.tlas: K.tlas_hit(tl, o, d, lo,
+                                                                hi)
+        lanes = lambda x, p: x[p] if torch.is_tensor(x) else x
+        rays = {"as they come": (st["o"], st["d"], lo, hi)}
+        perms = {"sorted": sorted_perm(scene, st, total),
+                 "sorted, live box": sorted_perm(scene, st, total, live=True)}
+        for k, perm in perms.items():
+            srt = S.permute_lanes(perm, st)
+            rays[k] = (srt["o"], srt["d"], lanes(lo, perm), lanes(hi, perm))
+        got = {k: fn(*r) for k, r in rays.items()}
+        torch.cuda.synchronize()
+        err, agree, differ = 0.0, {}, {}
+        for k, perm in perms.items():
+            unperm = [x[perm] for x in got["as they come"]]
+            if kernel == "B7":
+                pair = lambda w: w[1].to(torch.int64) * (1 << 31) + w[2]
+                e, _, agree[k] = compare_hits(
+                    f"B7 {name} {k}", got[k][0], pair(got[k]), unperm[0],
+                    pair(unperm), uv=((got[k][3], unperm[3]),
+                                      (got[k][4], unperm[4])))
+                err = max(err, e)
+            else:
+                check(all(bits_equal(a, b) for a, b in zip(got[k], unperm)),
+                      f"{kernel} {name}: the {k} rays' winners differ")
+                agree[k] = 1.0
+            differ[k] = int((~torch.stack([
+                (a == b) | (a.isnan() & b.isnan())
+                if a.dtype.is_floating_point else a == b
+                for a, b in zip(got[k], unperm)]).all(0)).sum())
+        ms = {k: [] for k in rays}
+        for k in ("as they come", "sorted", "sorted, live box",
+                  "sorted, live box", "sorted", "as they come"):
+            ms[k].append(graph_ms(lambda r=rays[k]: fn(*r), 20))
+        active = int((st["item"] < total).sum())
+        out[f"{kernel} {name}"] = dict(ms=ms, lanes=n, active=active,
+                                       rays_differ=differ, agree=agree,
+                                       max_abs_err=err)
+        log(23, f"{kernel} on {name}'s step-{CAPTURE_STEPS[-1]} lanes of an "
+                f"unsorted pass ({n} lanes, {active} active), ms a call (CUDA "
+                f"graph): " + "; ".join(
+                    f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in ms.items())
+                + f"; winners un-permuted: rays that differ {differ}, "
+                f"agreement {agree}")
+    return out
+
+
+def sorter_kernels(dev, captures):
+    """S1 and S2 against their plain versions on sphere_grid's step-64
+    lanes (static and live-origin boxes; S2 with and without a pend
+    accumulator), bit for bit; their times, torch.sort's, the plain and
+    library times and the whole sorter's device kernels."""
+    from mrt_torch.integrator.persistent import make_sorter
+    from mrt_torch.ops import sort as S
+
+    cap = captures["sphere_grid"]
+    st, total, scene = cap["state"], cap["total"], cap["scene"]
+    item, o, d = st["item"], st["o"], st["d"]
+    n = item.shape[0]
+    static = S.origin_box(*scene.world_bounds())
+    for label, box in (("static", static),
+                       ("live", S.live_box(item, o, total))):
+        keys = S.sort_keys(item, o, d, total, box)
+        check(bits_equal(keys, S.sort_keys_plain(item, o, d, total, box)),
+              f"S1 ({label} box) differs from its plain version")
+    keys = S.sort_keys(item, o, d, total, static)
+    perm = torch.sort(keys, stable=True).indices
+    g = torch.Generator(device=dev).manual_seed(23)
+    with_acc = dict(st, acc=torch.rand((n, 4), device=dev, generator=g))
+    for label, lanes in (("without acc", st), ("with acc", with_acc)):
+        got = S.permute_lanes(perm, lanes)
+        want = S.permute_lanes_plain(perm, lanes)
+        check(got.keys() == want.keys()
+              and all(bits_equal(got[k], want[k]) for k in want),
+              f"S2 ({label}) differs from its plain version")
+    active = int((item < total).sum())
+    floor = floor_ms(dev)
+    s1 = dict(ms=graph_ms(lambda: S.sort_keys(item, o, d, total, static), 50),
+              ms_live_box=graph_ms(lambda: S.sort_keys(
+                  item, o, d, total, S.live_box(item, o, total)), 20),
+              plain_ms=graph_ms(lambda: S.sort_keys_plain(
+                  item, o, d, total, static), 5),
+              library_ms=None, max_abs_err=0.0, floor_ms=floor,
+              lanes=n, active=active,
+              **bound(active * 36 + (n - active) * 12 + 24,
+                      active * OPS_SORT_KEY))
+    sort_launches, sort_names = device_kernels(
+        lambda: torch.sort(keys, stable=True))
+    s1["torch_sort"] = dict(ms=graph_ms(lambda: torch.sort(keys, stable=True),
+                                        20),
+                            launches=sort_launches, kernels=sort_names,
+                            **bound(n * (4 + 4 + 8), 0))
+    cols = lambda lanes: [lanes[k] for k in S.COLUMNS + (
+        ("acc",) if "acc" in lanes else ())]
+    s2 = dict(max_abs_err=0.0, floor_ms=floor)
+    for label, lanes, row in (("", st, 64), ("_acc", with_acc, 80)):
+        s2["ms" + label] = graph_ms(lambda: S.permute_lanes(perm, lanes), 50)
+        s2["plain_ms" + label] = graph_ms(
+            lambda: S.permute_lanes_plain(perm, lanes), 5)
+        s2["library_ms" + label] = graph_ms(
+            lambda: [x.index_select(0, perm) for x in cols(lanes)], 20)
+        b = bound(n * (8 + 2 * row), 0)
+        s2["bound_ms" + label], s2["bound_by" + label] = (b["bound_ms"],
+                                                          b["bound_by"])
+    sorter = {}
+    for label, flags in (("static", {}), ("live", {"MRT_SORT_DYN": "1"})):
+        with environ(**flags):
+            fn = make_sorter(scene, total)
+        count, names = device_kernels(lambda: fn(st))
+        sorter[label] = dict(ms=graph_ms(lambda: fn(st), 20),
+                             kernels=count, names=names)
+    log(23, f"S1 sort key, {n} lanes of sphere_grid's step "
+            f"{CAPTURE_STEPS[-1]} ({active} active): bit-equal to its plain "
+            f"version with the scene's box and the live origins' box; "
+            f"{s1['ms']:.5f} ms (CUDA graph; with the live box's reductions "
+            f"{s1['ms_live_box']:.5f}), plain {s1['plain_ms']:.4f}, bound "
+            f"{s1['bound_ms']:.5f} ({s1['bound_by']}), floor {floor:.5f}; "
+            f"torch.sort {s1['torch_sort']['ms']:.5f} ms, "
+            f"{sort_launches:g} device launches a call {sort_names}")
+    log(23, f"S2 lane permutation: bit-equal to its plain version without "
+            f"and with the pend accumulator; {s2['ms']:.5f} / "
+            f"{s2['ms_acc']:.5f} ms, plain {s2['plain_ms']:.4f} / "
+            f"{s2['plain_ms_acc']:.4f}, index_select a column "
+            f"{s2['library_ms']:.4f} / {s2['library_ms_acc']:.4f}, bound "
+            f"{s2['bound_ms']:.5f} / {s2['bound_ms_acc']:.5f} (bytes)")
+    log(23, f"the whole sorter (make_sorter): "
+            + "; ".join(f"{k} box {v['ms']:.5f} ms, {v['kernels']:g} device "
+                        f"launches a sort" for k, v in sorter.items()))
+    return s1, s2, sorter
+
+
+def phase_sort(dev, rtiow_state, rtiow_rays):
+    """Phase 23: the lane sorter.  Returns the S1 and S2 entries of the
+    kernels line (without launches) and the phase's numbers."""
+    captures = {"rtiow": rtiow_state}
+    t0 = time.perf_counter()
+    passes = sort_passes(dev, captures)
+    t1 = time.perf_counter()
+    s1, s2, sorter = sorter_kernels(dev, captures)
+    t2 = time.perf_counter()
+    rays = sorted_ray_kernels(dev, captures, rtiow_rays)
+    seconds = dict(passes=t1 - t0, sorter=t2 - t1,
+                   sorted_rays=time.perf_counter() - t2)
+    log(23, f"phase seconds: {json.dumps(seconds)}")
+    return s1, s2, dict(passes=passes, sorter=sorter, sorted_rays=rays,
+                        seconds=seconds)
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "shard-worker":
         return shard_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
@@ -2427,6 +2834,7 @@ def main():
     from mrt_torch.ops import _build  # fails outside a checkout of the repo
 
     dev = torch.device("cuda", 0)
+    start = time.perf_counter()
     log(1, f"card: {card_line()}")
     t0 = time.perf_counter()
     _build.library()
@@ -2441,12 +2849,15 @@ def main():
     b2 = phase_b2(dev)
     phase_golden(5, "rtiow", dev, grid=5)
     rtiow_rays, grid_rays, rtiow_film = {}, {}, {}
+    rtiow_state = {}
     rtiow, _ = phase_main(6, "rtiow", dev, ("B1", "B2"), film_out=rtiow_film,
-                          during=captured_rays("B1", rtiow_rays))
+                          during=contexts(captured_rays("B1", rtiow_rays),
+                                          captured_state(rtiow_state)))
     b1 = phase_b1(dev, rtiow_rays)
     b7 = phase_b7(dev)
     phase_golden(9, "cornell", dev)
-    grid, _ = phase_main(10, "sphere_grid", dev, ("B2", "B5", "B7"),
+    grid, _ = phase_main(10, "sphere_grid", dev,
+                         ("B2", "B5", "B7", "S1", "S2"),
                          during=captured_rays("B5", grid_rays))
     b5 = phase_b5(dev, grid_rays)
     b6 = phase_b6(dev)
@@ -2462,6 +2873,7 @@ def main():
     grad = phase_grad(dev)
     cli = phase_cli(dev)
     sharded = phase_sharded(dev, rtiow_film)
+    s1, s2, sort = phase_sort(dev, rtiow_state, rtiow_rays)
 
     kernels = [
         dict(name="B1 sphere nearest hit", route="cuda",
@@ -2519,11 +2931,24 @@ def main():
         dict(name="P3 shared memory size probe", route="cuda",
              source="mrt_torch/csrc/probe_stream.cu",
              replaces="tools/probe_stream.py:147", **probes["P3"]),
+        dict(name="S1 lane sort key", route="cuda",
+             source="mrt_torch/csrc/sort.cu",
+             replaces="mrt/integrator/persistent.py:112",
+             launches=grid["S1"], launches_lucy=meshes["lucy"][0]["S1"],
+             launches_eve=eve["plain"]["launches"]["S1"], **s1),
+        dict(name="S2 lane permutation", route="cuda",
+             source="mrt_torch/csrc/sort.cu",
+             replaces="mrt/integrator/persistent.py:112",
+             launches=grid["S2"], launches_lucy=meshes["lucy"][0]["S2"],
+             launches_eve=eve["plain"]["launches"]["S2"], **s2),
     ]
     grad.pop("recover")
     log(20, f"gradient path: {json.dumps(grad)}")
     log(21, f"entry point: {json.dumps(cli)}")
     log(22, f"sharded paths: {json.dumps(sharded)}")
+    log(23, f"lane sorter: {json.dumps(sort)}")
+    log(24, f"run: {time.perf_counter() - start:.1f} s from the card's "
+            "line to here")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

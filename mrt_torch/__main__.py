@@ -7,9 +7,8 @@ one; ``--device cpu`` renders on the CPU).  ``--mesh-tile`` and
 ``torch.distributed`` ranks; their product must be the world size (one
 process, or the ranks a launcher starts:
 ``torchrun --nproc-per-node 4 -m mrt_torch --mesh-tile 2 --mesh-spp 2``,
-rank r on card r, rank 0 writing the PNG).  Two flags differ from mrt's:
-``--sort-rays`` raises (no lane sorter), and ``--profile-dir`` writes a
-``torch.profiler`` trace.
+rank r on card r, rank 0 writing the PNG).  One flag differs from
+mrt's: ``--profile-dir`` writes a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -57,7 +56,9 @@ def build_parser():
                    help="next-event estimation (direct light sampling)")
     p.add_argument("--sort-rays", dest="sort_rays", default=None,
                    action="store_true",
-                   help="lane coherence sorting (not ported: raises)")
+                   help="force lane coherence sorting (default: auto — "
+                        "on the card for large instanced and sphere-BVH "
+                        "scenes)")
     p.add_argument("--no-sort-rays", dest="sort_rays",
                    action="store_false")
     p.add_argument("--batched", dest="persistent", action="store_false",

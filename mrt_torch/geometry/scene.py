@@ -34,7 +34,7 @@ from ..core.autodiff import Replace
 from ..core.device import resolve
 from ..materials import shade
 from ..materials.background import CubeMap, SkySphere
-from ..ops import compact
+from ..ops import budget, compact
 from ..textures.atlas import RAW
 from . import bvh as bvh_mod
 from . import instance as inst_mod
@@ -132,6 +132,41 @@ class Scene(Replace, nn.Module):
         return (torch.amin(torch.stack(mins), dim=0),
                 torch.amax(torch.stack(maxs), dim=0))
 
+    # The reference's auto rule for the persistent pass's lane sorter
+    # (``mrt.geometry.scene``): a TLAS past the table budget or of
+    # SORT_MIN_INSTANCES instances, or SORT_MIN_SPHERES spheres under a
+    # BVH, sorts; every SORT_CADENCE_HEAVY_INSTANCES-instance or
+    # over-budget TLAS every step, any other scene every 4 steps.  Its
+    # thresholds are the reference's, so both packages sort the same
+    # scenes; the card's own cost of sorting is in PERF.md.
+    SORT_MIN_INSTANCES = 32
+    SORT_MIN_SPHERES = 4096
+    SORT_CADENCE_HEAVY_INSTANCES = 64
+
+    def prefers_sorted_rays(self):
+        """True where the auto rule sorts this scene's lanes: only on the
+        card (``sorts_on_device``), as the reference's rule only runs
+        with its TPU kernels."""
+        if not sorts_on_device(self):
+            return False
+        if self.tlas is not None:
+            if not budget.fits(budget.tlas_tables_bytes(self.tlas)):
+                return True
+            if self.tlas.transform.shape[0] >= self.SORT_MIN_INSTANCES:
+                return True
+        return (self.sphere_bvh is not None and self.spheres is not None
+                and self.spheres.count >= self.SORT_MIN_SPHERES)
+
+    def sort_cadence(self):
+        """Steps between lane sorts when sorting is on (1 = every)."""
+        if self.tlas is not None:
+            if not budget.fits(budget.tlas_tables_bytes(self.tlas)):
+                return 1
+            if (self.tlas.transform.shape[0]
+                    >= self.SORT_CADENCE_HEAVY_INSTANCES):
+                return 1
+        return 4
+
     def intersect(self, o, d, t_min=T_MIN, t_max=float("inf"),
                   sampler=None, shading_aux=True) -> Hits:
         """Closest hit of each ray (o, d: (N, 3)) against every primitive
@@ -219,6 +254,13 @@ class Scene(Replace, nn.Module):
         return compact.compact_apply(
             lambda dc: self.background.eval(dc, atlas=self.atlas), mask, d,
             k, pad_row=(1.0, 0.0, 0.0))
+
+
+def sorts_on_device(scene: Scene) -> bool:
+    """The auto rule's gate: True where the scene's tensors are on CUDA,
+    where the port's kernels run (the reference gates its rule on its
+    TPU kernels, ``spheres._use_pallas``).  Tests patch it."""
+    return scene.materials.mtype.is_cuda
 
 
 def attach_lights(scene: Scene) -> Scene:

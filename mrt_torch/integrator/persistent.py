@@ -24,6 +24,14 @@ kernel B4 (``ops.deposit.deposit_pending``).  The loop checks for
 termination every FLUSH_STEPS steps; steps that find the queue empty
 deposit nothing.
 
+With ``sort_rays`` = k > 0 the pool is sorted every k steps by the
+lanes' ray coherence key (``make_sorter``: kernel S1 the key,
+``torch.sort``, kernel S2 the permutation; ``ops.sort``), so that a
+warp's lanes hold rays that start in one region and point one way.  The
+sort moves whole lanes: every draw is keyed on (ray_id, bounce) and
+every deposit on the work item, so the estimator is unchanged and only
+the order of the film's float additions differs.
+
 Russian roulette (``rr_depth``) and next-event estimation (a scene with
 a light table) are the wavefront integrator's, per lane; the MIS pdf of
 a path's last continuation rides with the lane (``prev_pdf``, zero on a
@@ -39,6 +47,7 @@ import torch
 from ..materials import shade
 from ..math.rng import MASK, Sampler, mul32
 from ..ops.deposit import deposit, deposit_pending
+from ..ops.sort import live_box, origin_box, permute_lanes, sort_keys
 from .wavefront import (MAX_DEPTH, T_MIN, mis_emission, next_event,
                         roulette)
 
@@ -206,18 +215,46 @@ class LanePool:
                      | (st["next_work"] < self.total)).item())
 
 
+def sort_lanes(st, total, box=None):
+    """One sort of a pool's lane state `st`: every per-lane column (the
+    pend accumulator too) permuted so that the lanes run in order of
+    their coherence key, idle lanes (item >= total) last; next_work as it
+    is.  box: the origin cells (``ops.sort.origin_box``), None for the
+    active lanes' own origins.  On the card: S1, torch.sort and S2, and
+    no host sync."""
+    item, o = st["item"], st["o"]
+    if box is None:
+        box = live_box(item, o, total)
+    keys = sort_keys(item, o, st["d"], total, box)
+    return permute_lanes(torch.sort(keys, stable=True).indices, st)
+
+
+def make_sorter(scene, total):
+    """The reference's lane sorter (``_make_sorter``): a function of a
+    lane state, ``sort_lanes`` over the scene's bounds, or with
+    MRT_SORT_DYN=1 over the active lanes' origins at each sort."""
+    dynamic = os.environ.get("MRT_SORT_DYN", "0") == "1"
+    box = None if dynamic else origin_box(*scene.world_bounds())
+    return lambda st: sort_lanes(st, total, box)
+
+
 @torch.no_grad()
 def render_samples_persistent(scene, camera, width, height, seed,
                               sample_start, samples, max_depth=MAX_DEPTH,
                               pool=POOL, film_sum=None, depth_sum=None,
                               rr_depth=None, pend=None, pixel_offset=0,
-                              n_pixels=None, sample_stride=1):
+                              n_pixels=None, sample_stride=1,
+                              sort_rays=0):
     """Render `samples` spp of the frame with a pool of `pool` lanes.
     rr_depth: Russian roulette from that bounce on (None: off); pend:
     the pending-deposit film mode (None: ``pend_enabled``'s default).
     pixel_offset, n_pixels, sample_stride: render the shard of pixels
     [pixel_offset, pixel_offset + n_pixels) (None: the whole frame) at
     samples sample_start + k * sample_stride, k < samples.
+    sort_rays: the lane sorter's cadence, 0 (or False) off; k sorts the
+    lanes after every k steps (True: 1), as the reference's
+    ``_flush_block``: FLUSH_STEPS // k rounds of k steps between
+    termination checks, k clipped to [1, FLUSH_STEPS].
 
     Returns (film_sum (npix, 3) float32, depth_sum (npix,) int32) with
     npix = n_pixels or width * height; pass them back in to accumulate
@@ -235,7 +272,14 @@ def render_samples_persistent(scene, camera, width, height, seed,
     if depth_sum is not None:
         film[:, 3] = depth_sum.to(torch.float32)
     st = lanes.init_state(pool)
+    sorter, cadence = None, FLUSH_STEPS
+    if sort_rays:
+        sorter = make_sorter(scene, lanes.total)
+        cadence = max(1, min(int(sort_rays), FLUSH_STEPS))
     while lanes.busy(st):
-        for _ in range(FLUSH_STEPS):
-            st = lanes.step(st, film)
+        for _ in range(FLUSH_STEPS // cadence):
+            for _ in range(cadence):
+                st = lanes.step(st, film)
+            if sorter is not None:
+                st = sorter(st)
     return film[:, :3].contiguous(), torch.round(film[:, 3]).to(torch.int32)

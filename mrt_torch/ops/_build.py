@@ -39,6 +39,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: argument types; each returns a cudaError_t as int.
 SIGNATURES = {
     "mrt_nearest_t": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _F, _P, _F,
@@ -54,6 +55,8 @@ SIGNATURES = {
                        _P, _P, _P),
     "mrt_tri_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                     _P, _P),
+    "mrt_sort_keys": (_P, _P, _P, _P, _L, _I, _P, _P),
+    "mrt_permute_lanes": (_P, _I) + (_P,) * 17,
     "mrt_tlas": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                  _I, _P, _P, _P, _P, _P, _P, _I, _P),
 }

@@ -10,12 +10,16 @@ Renders one unprofiled pass to warm up, ``--passes`` more (their wall
 times, the median the pass time), then one pass under
 ``torch.profiler`` with a ``record_function`` range around each layer of
 the step (camera rays, intersection with its voxel walk, shading,
-background, next-event estimation, film deposit), and prints the device time of each layer (the kernels
+background, next-event estimation, film deposit) and around each lane
+sort (S1, torch.sort, S2; the auto rule sorts sphere_grid, lucy and
+eve), and prints the device time of each layer (the kernels
 launched inside its range), of each hand kernel and of the busiest
 kernels, the launches a step and the device's idle share (1 - kernel
 time / unprofiled pass time), the DDA steps a wavefront step on voxel
 scenes, then one JSON line with the same numbers.  --nee attaches the
-scene's light table, --rr-depth turns Russian roulette on, and --steps N
+scene's light table, --rr-depth turns Russian roulette on, --sort-rays
+K sorts the lanes every K steps (0: never; default: the auto rule), and
+--steps N
 measures only the first N steps of each pass (rounded up to a multiple
 of 8; for scenes whose profiled pass is too long, such as menger's voxel
 walk).  Needs a CUDA device; imports no JAX.
@@ -58,6 +62,7 @@ LAYERS = (
     ("L4 deposit", "mrt_torch.integrator.persistent", "deposit"),
     ("L4 deposit_pending", "mrt_torch.integrator.persistent",
      "deposit_pending"),
+    ("L5s lane sorter", "mrt_torch.integrator.persistent", "sort_lanes"),
 )
 TOP = 15  # device kernels listed by device time
 # Each hand kernel's device name, a regular expression: B2 and B4 are
@@ -68,7 +73,8 @@ KERNELS = {"B1": "nearest_t_kernel",
            "B3": "row_gather_kernel",
            "B4": r"deposit_kernel(<4, false, true>|ILi4ELb0ELb1E)",
            "B5": "sphere_bvh_kernel", "B6": "tri_bvh_kernel",
-           "B7": "tlas_kernel"}
+           "B7": "tlas_kernel", "S1": "sort_key_kernel",
+           "S2": "permute_lanes_kernel"}
 
 
 def _wrap(name, fn):
@@ -123,7 +129,8 @@ def one_pass(scene, camera, args):
         return render_pass_persistent(scene, camera, film, 1, 0,
                                       width=args.width, height=args.height,
                                       max_depth=args.depth, samples=args.spp,
-                                      pool=args.pool, rr_depth=args.rr_depth)
+                                      pool=args.pool, rr_depth=args.rr_depth,
+                                      sort_rays=args.sort_rays)
     finally:
         if args.steps is not None:
             persistent.LanePool.step = step
@@ -142,6 +149,9 @@ def main(argv=None):
     parser.add_argument("--passes", type=int, default=1,
                         help="unprofiled passes timed (their median is "
                              "the pass time)")
+    parser.add_argument("--sort-rays", type=int, default=None,
+                        help="the lane sorter's cadence, 0 off (default: "
+                             "the auto rule)")
     args = parser.parse_args(argv)
     # chip_smoke.py's main path.
     args.width, args.height, args.depth, args.spp, args.pool = (
@@ -213,6 +223,7 @@ def main(argv=None):
                               + _device_us(e, self_only=True) / 1e3)
                 calls[k] = calls.get(k, 0) + e.count
     out = dict(scene=args.scene, nee=args.nee, rr_depth=args.rr_depth,
+               sort_rays=args.sort_rays,
                steps_limit=args.steps,
                film_pend=os.environ.get("MRT_FILM_PEND", ""),
                tlas_route=os.environ.get("MRT_TLAS_KERNEL", ""),

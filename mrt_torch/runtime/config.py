@@ -51,7 +51,10 @@ class RenderConfig:
     nee: bool = False
     # Russian roulette start depth (None: off, as the reference)
     rr_depth: Optional[int] = None
-    # Lane coherence sorting: None or False (the sorter is not ported)
+    # Lane coherence sorting for the persistent integrator (origin and
+    # direction cells, Morton-ordered).  None = auto
+    # (Scene.prefers_sorted_rays, on the card only); True/False forces.
+    # Permutes lanes only: the estimator and every draw are unchanged.
     sort_rays: Optional[bool] = None
     # Live viewer: a local HTTP page with display-mode keys, PNG export
     # and quick-pass abort

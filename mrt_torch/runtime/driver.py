@@ -8,9 +8,9 @@ on ``device`` (None: the CUDA card; raises without one).
 Multi-device rendering (``mesh_tile``, ``mesh_spp > 1``) renders over
 a (tile, spp) mesh of ``torch.distributed`` ranks (``mrt_torch.parallel``);
 a launcher that sets WORLD_SIZE > 1 (torchrun) makes ``run`` join its
-process group, and only rank 0 writes files.  Two of mrt's options
-differ: ``sort_rays=True`` raises (no lane sorter), and ``profile_dir``
-records a ``torch.profiler`` trace in place of ``jax.profiler``'s.
+process group, and only rank 0 writes files.  One of mrt's options
+differs: ``profile_dir`` records a ``torch.profiler`` trace in place of
+``jax.profiler``'s.
 """
 
 from __future__ import annotations
@@ -32,14 +32,6 @@ from .io import save_png
 from .render import aov_pass, render
 
 
-def check_supported(config: RenderConfig):
-    """Raise on the option the port does not have."""
-    if config.sort_rays:
-        raise NotImplementedError(
-            "sort_rays=True: mrt_torch has no lane sorter; pass None or "
-            "False")
-
-
 def _denoiser_for(config):
     if (config.denoise
             or config.display_mode == DisplayMode.DENOISE.value):
@@ -58,7 +50,6 @@ def render_frame(scene, camera, config: RenderConfig, film=None,
                  progress=None):
     """Render one frame as the config says (on one device or over a
     mesh of ranks), on the camera's device."""
-    check_supported(config)
     needs_aov = (config.denoise
                  or config.display_mode in ("denoise", "albedo", "normal"))
     if config.mesh_tile is not None or config.mesh_spp > 1:
@@ -102,7 +93,6 @@ def _generate(sc, t, frame, inp, config, device):
 
 def run(config: RenderConfig, log=print, device=None):
     """Top-level entry: one frame, an animation, or the viewer."""
-    check_supported(config)
     device = init_from_launcher(device)
     sc = scenes.get(config.scene)(aspect_ratio=config.aspect_ratio)
 

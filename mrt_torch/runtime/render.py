@@ -24,16 +24,24 @@ def render_pass(scene, camera, film: Film, seed, sample_start, *, width,
 def render_pass_persistent(scene, camera, film: Film, seed, sample_start,
                            *, width, height,
                            max_depth=wavefront.MAX_DEPTH, samples=1,
-                           pool=POOL, rr_depth=None, pend=None):
+                           pool=POOL, rr_depth=None, pend=None,
+                           sort_rays=None):
     """Ray-regeneration render pass: lanes stay busy regardless of
     depth, the fast path for deep bounces.  rr_depth: Russian roulette
     from that bounce on (None: off); pend: the pending-deposit film mode
-    (None: MRT_FILM_PEND decides, off by default)."""
+    (None: MRT_FILM_PEND decides, off by default); sort_rays: the lane
+    sorter's cadence (steps between sorts; True is 1, False or 0 off),
+    None the reference's auto rule (``Scene.prefers_sorted_rays`` and
+    ``Scene.sort_cadence``: on the card only)."""
+    if sort_rays is None:
+        sort_rays = (scene.sort_cadence() if scene.prefers_sorted_rays()
+                     else 0)
     film_sum, depth_sum = render_samples_persistent(
         scene, camera, width, height, seed, sample_start, samples,
         max_depth=max_depth, pool=pool,
         film_sum=film.sum.reshape(-1, 3),
-        depth_sum=film.depth_sum.reshape(-1), rr_depth=rr_depth, pend=pend)
+        depth_sum=film.depth_sum.reshape(-1), rr_depth=rr_depth, pend=pend,
+        sort_rays=int(sort_rays))
     return film.replace(sum=film_sum.reshape(height, width, 3),
                         depth_sum=depth_sum.reshape(height, width),
                         samples=film.samples + samples)
@@ -60,15 +68,12 @@ def render(scene, camera, width, height, spp=64, seed=1,
       persistent: use the ray-regeneration integrator (same estimator,
         different float accumulation order).
       rr_depth: Russian roulette from that bounce on (None: off).
-      sort_rays: None or False; the reference's lane sorter is not
-        ported (its 1024-lane packets are a TPU cost), so True raises.
+      sort_rays: the persistent pass's lane sorter (None: the auto
+        rule; True, False or a cadence, ``render_pass_persistent``); the
+        batched integrator never sorts.
 
     Returns the accumulated Film, on the camera's device.
     """
-    if sort_rays:
-        raise NotImplementedError(
-            "sort_rays=True: mrt_torch has no lane sorter (its kernels "
-            "walk one ray a thread); pass None or False")
     if film is None:
         film = Film.create(width, height, device=camera.origin.device)
     if with_aov:
@@ -84,7 +89,7 @@ def render(scene, camera, width, height, spp=64, seed=1,
             film = render_pass_persistent(
                 scene, camera, film, seed, done, width=width, height=height,
                 max_depth=max_depth, samples=step, rr_depth=rr_depth,
-                pool=min(POOL, width * height * step))
+                pool=min(POOL, width * height * step), sort_rays=sort_rays)
         else:
             film = render_pass(scene, camera, film, seed, done, width=width,
                                height=height, max_depth=max_depth,

@@ -216,10 +216,9 @@ def serve(config, log=print, stop=None, device=None):
     passes instead of killing it."""
     if stop is None:
         stop = threading.Event()
-    from .driver import _denoiser_for, check_supported
+    from .driver import _denoiser_for
     from .render import aov_pass, render
 
-    check_supported(config)
     device = resolve(device)
     state = ViewerState()
     httpd = ThreadingHTTPServer((config.host, config.port),

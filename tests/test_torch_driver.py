@@ -319,7 +319,8 @@ def test_unported_options_and_a_missing_card_raise(tmp_path, monkeypatch):
     # The mesh options render over torch.distributed ranks now: on one
     # process a 1x1 mesh renders the unsharded film, and a mesh that does
     # not fit the world raises, as JAX's make_mesh does with too few
-    # devices.  The lane sorter and a missing card still raise.
+    # devices.  A missing card still raises.  (The lane sorter is ported:
+    # tests/test_torch_sort_entry.py renders with --sort-rays.)
     base = ["--width", "8", "--height", "4", "--spp", "2",
             "--samples-per-pass", "1", "--device", "cpu"]
     for flags in ([], ["--batched"]):
@@ -338,8 +339,6 @@ def test_unported_options_and_a_missing_card_raise(tmp_path, monkeypatch):
                          (["--mesh-spp", "2"], "0x2")):
         with pytest.raises(ValueError, match=f"mesh {shape} != 1 devices"):
             main(base + extra + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="sort"):
-        main(base + ["--sort-rays", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(base)

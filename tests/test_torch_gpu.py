@@ -40,7 +40,13 @@ equal those with the plain version's winners.  Divisions by a host
 number give the CPU's quotient on the card (ROADMAP C20): the wavefront's
 camera coordinates, ``Film.mean``, the lights' pdf; with the CPU's sin
 and cos substituted on the card (its own differ, ROADMAP C22) a 256x144
-RTIOW wavefront film is bit-equal to the CPU's.
+RTIOW wavefront film is bit-equal to the CPU's.  The lane sorter's S1
+and S2 equal their plain versions bit for bit on 2^17 lanes and on
+2^17 - 37 (idle lanes, zero, NaN and huge directions, NaN and infinite
+origins; S2 with and without the pend accumulator), also replayed in a
+CUDA graph with the sort between them; S2 refuses a misaligned
+accumulator; a sorted sphere_grid pass at 256x144 runs the steps and
+B-kernel launches of an unsorted one, with S1 and S2 once a sort.
 """
 
 import pytest
@@ -990,3 +996,132 @@ def test_c20_film_mean_and_light_pdf_equal_the_cpu(cuda, monkeypatch):
                                      salt=7), lobe.to(dev))
     assert len(pdfs) == 2 and bool(torch.isfinite(pdfs[0]).all())
     assert torch.equal(pdfs[0], pdfs[1])
+
+
+def _sort_lanes(cuda, n, seed):
+    """A seeded lane state of n lanes (some idle; zero, NaN and huge
+    directions, NaN and infinite origins) and its work items."""
+    g = torch.Generator().manual_seed(seed)
+    total = 100_000
+    item = torch.randint(0, total, (n,), generator=g)
+    item[torch.rand(n, generator=g) < 0.2] = total
+    o = torch.rand((n, 3), generator=g) * 36 - 18
+    d = torch.randn((n, 3), generator=g) * (torch.rand((n, 1), generator=g)
+                                            * 3 + 0.1)
+    d[:8] = 0.0
+    d[8:12, 0] = float("nan")
+    o[12:14, 1] = float("nan")
+    o[14:16, 2] = float("inf")
+    d[16:20] = torch.tensor([3e19, 1.0, 1.0])
+    st = dict(item=item, bounce=torch.randint(0, 8, (n,), generator=g), o=o,
+              d=d, throughput=torch.rand((n, 3), generator=g),
+              ray_id=torch.randint(0, 2 ** 32, (n,), generator=g),
+              prev_pdf=torch.rand((n,), generator=g),
+              acc=torch.rand((n, 4), generator=g))
+    st = {k: v.to(cuda) for k, v in st.items()}
+    st["next_work"] = torch.tensor(total, device=cuda)
+    return st, total
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("n", [1 << 17, (1 << 17) - 37])
+def test_sort_kernels_match_plain(cuda, n):
+    from mrt_torch.ops import sort as S
+
+    st, total = _sort_lanes(cuda, n, n)
+    item, o, d = st["item"], st["o"], st["d"]
+    boxes = (S.origin_box(torch.full((3,), -15.0, device=cuda),
+                          torch.full((3,), 15.0, device=cuda)),
+             S.live_box(item[16:], o[16:], total))
+    launches = S.sort_keys.launches, S.permute_lanes.launches
+    for box in boxes:
+        keys = S.sort_keys(item, o, d, total, box)
+        assert torch.equal(keys, S.sort_keys_plain(item, o, d, total, box))
+        assert (keys[item >= total] == S.IDLE_KEY).all()
+        assert (keys[item < total] < 2 ** 30).all()
+    perm = torch.sort(keys, stable=True).indices
+    for lanes in (dict(st), {k: v for k, v in st.items() if k != "acc"}):
+        got = S.permute_lanes(perm, lanes)
+        want = S.permute_lanes_plain(perm, lanes)
+        assert got.keys() == want.keys() == lanes.keys()
+        assert all(torch.equal(_bits(got[k]), _bits(want[k])) for k in want)
+        assert got["next_work"] is lanes["next_work"]
+    assert (S.sort_keys.launches, S.permute_lanes.launches) == (
+        launches[0] + 2, launches[1] + 2)
+    # S1, the sort and S2 replay in a CUDA graph.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        S.permute_lanes(perm, st)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        k = S.sort_keys(item, o, d, total, boxes[0])
+        out = S.permute_lanes(torch.sort(k, stable=True).indices, st)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = S.permute_lanes_plain(torch.sort(S.sort_keys_plain(
+        item, o, d, total, boxes[0]), stable=True).indices, st)
+    assert all(torch.equal(_bits(out[k]), _bits(want[k])) for k in want)
+
+
+def test_sort_wrappers_raise_instead_of_falling_back(cuda):
+    from mrt_torch.ops import sort as S
+
+    st, total = _sort_lanes(cuda, 1000, 3)
+    perm = torch.arange(1000, device=cuda)
+    flat = torch.zeros(1000 * 4 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        S.permute_lanes(perm, dict(st, acc=flat[1:].view(1000, 4)))
+    with pytest.raises(ValueError, match="box"):
+        S.sort_keys(st["item"], st["o"], st["d"], total,
+                    torch.zeros(6))
+    with pytest.raises(ValueError, match="on"):
+        S.permute_lanes(perm.cpu(), st)
+
+
+def test_sorted_pass_runs_the_same_steps(cuda, monkeypatch):
+    # sphere_grid at 256x144: unsorted, then as the auto rule sorts it
+    # (every 4 steps): the same steps and B-kernel launches, S1 and S2
+    # once a sort, equal bounce counts, radiance within f32
+    # reassociation of the film's atomic adds.
+    from mrt_torch.integrator import persistent
+    from mrt_torch.runtime.film import Film
+    from mrt_torch.runtime.render import render_pass_persistent
+    from mrt_torch.ops import sort as S
+    from mrt_torch.scenes import get
+
+    scene, camera = get("sphere_grid")().generate(device=cuda)
+    assert scene.prefers_sorted_rays() and scene.sort_cadence() == 4
+    step, steps = persistent.LanePool.step, [0]
+
+    def counted(self, *a):
+        steps[0] += 1
+        return step(self, *a)
+
+    monkeypatch.setattr(persistent.LanePool, "step", counted)
+    wrappers = dict(B1=B1.nearest_t, B2=B2.deposit, B5=bvh.sphere_bvh_hit,
+                    B7=bvh.tlas_hit, S1=S.sort_keys, S2=S.permute_lanes)
+    runs = []
+    for sort_rays in (False, None):
+        steps[0] = 0
+        for fn in wrappers.values():
+            fn.launches = 0
+        film = render_pass_persistent(
+            scene, camera, Film.create(256, 144, device=cuda), 1, 0,
+            width=256, height=144, max_depth=50, samples=2,
+            sort_rays=sort_rays)
+        runs.append((film, steps[0],
+                     {k: fn.launches for k, fn in wrappers.items()}))
+    (a, n, la), (b, m, lb) = runs
+    assert n == m and n > 0 and n % 8 == 0
+    assert {k: v for k, v in la.items() if k[0] == "B"} == {
+        k: v for k, v in lb.items() if k[0] == "B"}
+    assert la["S1"] == la["S2"] == 0 and lb["S1"] == lb["S2"] == n // 4
+    assert lb["B5"] > 0 and lb["B2"] > 0
+    assert torch.equal(a.depth_sum, b.depth_sum)
+    scale = a.sum.abs().max().item()
+    assert (a.sum - b.sum).abs().max().item() <= 1e-5 * scale
