@@ -680,25 +680,19 @@ def read_launches():
 
 @contextlib.contextmanager
 def counting_steps():
-    """Yields a dict whose "steps" counts LanePool.step calls and "dda"
-    the voxel walk's steps inside the block."""
-    from mrt_torch.geometry import voxels
-    from mrt_torch.integrator import persistent
+    """Yields a dict whose "steps" counts the persistent steps of the
+    passes run inside the block (their records) and "dda" the voxel
+    walk's steps (the tracer's ``dda_steps`` counter)."""
+    from mrt_torch.utils import profiling
 
     out = {"steps": 0}
-    step = persistent.LanePool.step
-
-    def counted(self, *a, **k):
-        out["steps"] += 1
-        return step(self, *a, **k)
-
-    persistent.LanePool.step = counted
-    voxels.counts.update(calls=0, steps=0)
+    t0, dda = time.time_ns(), profiling.counters.get("dda_steps", 0)
     try:
         yield out
     finally:
-        persistent.LanePool.step = step
-        out["dda"] = voxels.counts["steps"]
+        out["steps"] = sum(p["steps"] for p in profiling.snapshot()["pass"]
+                           if p["start_ns"] >= t0)
+        out["dda"] = profiling.counters.get("dda_steps", 0) - dda
 
 
 @contextlib.contextmanager

@@ -27,8 +27,12 @@ Layout:
                           à-trous filter)
     mrt_torch.parallel    (tile, spp) meshes over torch.distributed
                           ranks, sharded rendering
-    mrt_torch.utils       profiling: render stats, timers, torch.profiler
-                          traces
+    mrt_torch.utils       profiling: the tracer (counters, reads from the
+                          device by site and one record a pass, gradient
+                          step, scene build or library load, always on;
+                          spans inside tracing(), which --profile-dir
+                          writes beside its torch.profiler trace),
+                          render stats, timers
     mrt_torch.__main__    ``python -m mrt_torch``: mrt's CLI and --device
     mrt_torch.ops         kernel wrappers and their plain versions
     mrt_torch.csrc        CUDA sources, built with nvcc at first use

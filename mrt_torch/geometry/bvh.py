@@ -34,6 +34,7 @@ from torch import nn
 from ..core.autodiff import refuse_grad
 from ..ops import bvh as kernel
 from ..ops.bvh import LEAF_SIZE
+from ..utils import profiling
 from . import spheres as sphere_mod
 from . import triangles as tri_mod
 from .hit import Hits
@@ -280,6 +281,7 @@ def _sah_partition(prim, centroids, bounds_min, bounds_max):
     return best
 
 
+@profiling.part("BVH build")
 def build(centroids, bounds_min, bounds_max, leaf_size=LEAF_SIZE,
           split=None):
     """BVH over primitives, on the host.

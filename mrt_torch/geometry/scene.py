@@ -36,6 +36,7 @@ from ..materials import shade
 from ..materials.background import CubeMap, SkySphere
 from ..ops import budget, compact
 from ..textures.atlas import RAW
+from ..utils import profiling
 from . import bvh as bvh_mod
 from . import instance as inst_mod
 from . import spheres as sphere_mod
@@ -102,6 +103,12 @@ class Scene(Replace, nn.Module):
                 sph.krows is None and sph.g_rows is None):
             sph.build_kernel_table(in_bvh=new.sphere_bvh is not None)
         return new
+
+    def to(self, *args, **kwargs):
+        """nn.Module.to, timed as the ``table upload`` part of a scene
+        build (``utils.profiling``)."""
+        with profiling.part("table upload"):
+            return super().to(*args, **kwargs)
 
     def world_bounds(self):
         """(bmin, bmax) of all geometry: the root boxes of the BVHs, the

@@ -22,8 +22,8 @@ The walk is eager PyTorch, one step a loop iteration.  Liveness is
 checked every CHECK_EVERY steps (each check syncs with the device): a
 dead lane's update is masked, so the extra steps change nothing, and
 the step cap 6n + 3 levels + 8 is the reference's, so rays that reach
-it agree.  ``counts`` holds the calls and the steps run (host
-integers).
+it agree.  The tracer's counters ``dda_calls`` and ``dda_steps``
+(``utils.profiling``) count the calls and the steps run.
 """
 
 from __future__ import annotations
@@ -33,13 +33,12 @@ import torch
 from torch import nn
 
 from ..core.autodiff import refuse_grad
+from ..utils import profiling
 from .hit import INF, Hits
 
 _BIG = 3.4e38
 # DDA steps between liveness checks.
 CHECK_EVERY = 8
-# Calls of ``intersect`` and the DDA steps they ran.
-counts = {"calls": 0, "steps": 0}
 
 
 class VoxelGrid(nn.Module):
@@ -132,6 +131,7 @@ class VoxelGrid(nn.Module):
         return occupied, skip, in_grid
 
 
+@profiling.spanned("L2v voxel DDA")
 def intersect(grid: VoxelGrid, o, d, t_min, t_max) -> Hits:
     """Closest occupancy-flip boundary along each ray.  o, d: (N, 3), d
     may be unnormalised; t_min, t_max: scalars or (N,).  Raises
@@ -227,13 +227,14 @@ def intersect(grid: VoxelGrid, o, d, t_min, t_max) -> Hits:
     state = (near, c, enter_axis, inside, alive, hit_t, hit_axis, hit_front)
     max_steps = 6 * n + 3 * grid.levels + 8
     steps = 0
-    while steps < max_steps and bool(state[4].any()):
+    while steps < max_steps and bool(
+            profiling.to_host(state[4].any(), "voxel DDA check")):
         k = min(CHECK_EVERY, max_steps - steps)
         for _ in range(k):
             state = step(*state)
         steps += k
-    counts["calls"] += 1
-    counts["steps"] += steps
+    profiling.count("dda_calls")
+    profiling.count("dda_steps", steps)
     hit_t, hit_axis, hit_front = state[5:]
     hit = hit_t < INF  # a hit's t is finite (it is at most `far`)
     t = hit_t

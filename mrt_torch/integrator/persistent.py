@@ -48,6 +48,7 @@ from ..materials import shade
 from ..math.rng import MASK, Sampler, mul32
 from ..ops.deposit import deposit, deposit_pending
 from ..ops.sort import live_box, origin_box, permute_lanes, sort_keys
+from ..utils import profiling
 from .wavefront import (MAX_DEPTH, T_MIN, mis_emission, next_event,
                         roulette)
 
@@ -100,7 +101,10 @@ class LanePool:
         bmin, bmax = scene.world_bounds()
         self.neutral_o = bmax + torch.clamp(bmax - bmin, min=1.0)
         self.neutral_d = torch.full((3,), 0.57735027, device=self.device)
+        # The pass's record (``profiling.unit``), which ``busy`` fills.
+        self.record = None
 
+    @profiling.spanned("L1 make_rays")
     def make_rays(self, item):
         """Camera rays for work items (int64), with the exact RNG stream
         of wavefront.render_sample.  Returns (o, d, ray_id)."""
@@ -127,13 +131,14 @@ class LanePool:
             bounce=torch.zeros((pool,), dtype=torch.int64, device=self.device),
             o=o, d=d, throughput=torch.ones_like(o), ray_id=ray_id,
             prev_pdf=torch.zeros((pool,), device=self.device),
-            next_work=torch.tensor(pool, dtype=torch.int64,
-                                   device=self.device))
+            next_work=torch.full((), pool, dtype=torch.int64,
+                                 device=self.device))
         if self.pend:
             # Per-lane pending (radiance, bounce count) of the lane's path.
             st["acc"] = torch.zeros((pool, 4), device=self.device)
         return st
 
+    @profiling.spanned("step")
     def step(self, st, film):
         """One wavefront step: intersect, shade, deposit into `film`
         (npix, 4) in place, then regenerate dead lanes from the queue."""
@@ -145,14 +150,17 @@ class LanePool:
         q = torch.clamp(item, 0, total - 1) // self.samples
 
         vol_sampler = Sampler(seed, ray_id, salt=3 * b + 2)
-        hits = scene.intersect(o, d, t_min=T_MIN, sampler=vol_sampler)
+        with profiling.span("L2 intersect"):
+            hits = scene.intersect(o, d, t_min=T_MIN, sampler=vol_sampler)
         em_sampler = Sampler(seed, ray_id, salt=3 * b)
         sc_sampler = Sampler(seed, ray_id, salt=3 * b + 1)
-        emitted, atten, new_dir, scattered, lobe = shade.shade_hit(
-            scene, hits, d, em_sampler, sc_sampler)
+        with profiling.span("L3 shade_hit"):
+            emitted, atten, new_dir, scattered, lobe = shade.shade_hit(
+                scene, hits, d, em_sampler, sc_sampler)
         hit = hits.hit & active
         miss = ~hits.hit & active
-        background = scene.background_eval_masked(d, miss)
+        with profiling.span("L3 background"):
+            background = scene.background_eval_masked(d, miss)
         emitted = mis_emission(scene, hits, o, d, st["prev_pdf"], emitted)
         radiance_add = background + torch.where(hit[:, None], emitted, 0.0)
         radiance_add = torch.where(active[:, None],
@@ -181,10 +189,12 @@ class LanePool:
             # Only the lanes whose path ends now touch the film.
             acc = st["acc"] + contrib
             dying = active & ~cont
-            deposit_pending(film, slot, acc, dying)
+            with profiling.span("L4 deposit_pending"):
+                deposit_pending(film, slot, acc, dying)
             out["acc"] = torch.where(dying[:, None], 0.0, acc)
         else:
-            deposit(film, slot, contrib)
+            with profiling.span("L4 deposit"):
+                deposit(film, slot, contrib)
 
         # Regenerate dead (and idle) lanes: the k-th claiming lane takes
         # item next_work + k while the queue lasts.
@@ -209,12 +219,25 @@ class LanePool:
             prev_pdf=torch.where(cont, next_pdf, 0.0),
             next_work=next_work)
 
+    @profiling.spanned("termination check")
     def busy(self, st):
-        """True while any lane is active or the queue has work (syncs)."""
-        return bool(((st["item"] < self.total).any()
-                     | (st["next_work"] < self.total)).item())
+        """True while any lane is active or the queue has work: one read
+        of the active lanes' count and next_work (syncs).  The pass's
+        record, if any, takes the check, the active lanes and, at the
+        first check that finds the queue empty, the steps run so far."""
+        active, queued = profiling.to_host(
+            torch.stack(((st["item"] < self.total).sum(), st["next_work"])),
+            "termination check").tolist()
+        rec = self.record
+        if rec is not None:
+            rec["checks"] += 1
+            rec["active"] += active
+            if queued >= self.total and rec["drain_from"] is None:
+                rec["drain_from"] = rec["steps"]
+        return active > 0 or queued < self.total
 
 
+@profiling.spanned("L5s lane sorter")
 def sort_lanes(st, total, box=None):
     """One sort of a pool's lane state `st`: every per-lane column (the
     pend accumulator too) permuted so that the lanes run in order of
@@ -266,20 +289,31 @@ def render_samples_persistent(scene, camera, width, height, seed,
                      samples, max_depth, rr_depth, pend_enabled(pend),
                      pixel_offset, n_pixels, sample_stride)
     device = lanes.device
-    film = torch.zeros((lanes.npix, 4), dtype=torch.float32, device=device)
-    if film_sum is not None:
-        film[:, :3] = film_sum
-    if depth_sum is not None:
-        film[:, 3] = depth_sum.to(torch.float32)
-    st = lanes.init_state(pool)
     sorter, cadence = None, FLUSH_STEPS
     if sort_rays:
         sorter = make_sorter(scene, lanes.total)
         cadence = max(1, min(int(sort_rays), FLUSH_STEPS))
-    while lanes.busy(st):
-        for _ in range(FLUSH_STEPS // cadence):
-            for _ in range(cadence):
-                st = lanes.step(st, film)
-            if sorter is not None:
-                st = sorter(st)
-    return film[:, :3].contiguous(), torch.round(film[:, 3]).to(torch.int32)
+    with profiling.unit("pass", pool=pool, work_items=lanes.total, steps=0,
+                        sorts=0, checks=0, active=0,
+                        drain_from=None) as rec:
+        film = torch.zeros((lanes.npix, 4), dtype=torch.float32,
+                           device=device)
+        if film_sum is not None:
+            film[:, :3] = film_sum
+        if depth_sum is not None:
+            film[:, 3] = depth_sum.to(torch.float32)
+        st = lanes.init_state(pool)
+        lanes.record = rec
+        while lanes.busy(st):
+            for _ in range(FLUSH_STEPS // cadence):
+                for _ in range(cadence):
+                    st = lanes.step(st, film)
+                if sorter is not None:
+                    st = sorter(st)
+                    rec["sorts"] += 1
+            rec["steps"] += FLUSH_STEPS
+        # Steps run after the first check that found the queue empty.
+        rec["drain_steps"] = (0 if rec["drain_from"] is None
+                              else rec["steps"] - rec["drain_from"])
+        return (film[:, :3].contiguous(),
+                torch.round(film[:, 3]).to(torch.int32))

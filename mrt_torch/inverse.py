@@ -25,6 +25,7 @@ import torch
 from .integrator import wavefront
 from .math import vec
 from .math.rng import MASK, Sampler
+from .utils import profiling
 
 
 def render_image(scene, camera, width, height, spp=4, seed=0, max_depth=6):
@@ -102,21 +103,39 @@ def optimize(apply_fn, init_params, camera, width, height, target, *,
     the trajectory.
 
     Returns (params, losses): the final parameters (detached, in
-    init_params' structure) and each step's loss before its update."""
+    init_params' structure) and each step's loss before its update.
+
+    Each step is a ``grad_step`` unit of the tracer (``utils.profiling``)
+    up to its loss on the host: its reads from the device by site, the
+    ns of B1's group build (``parts``), Python's collections and, on
+    CUDA, the allocator's new device allocations (``device_allocs``)."""
     leaves = [x.detach().clone().requires_grad_(True)
               for x in _leaves(init_params)]
     params = _rebuild(init_params, leaves)
     opt = (optimizer(leaves) if optimizer is not None
            else torch.optim.Adam(leaves, lr=learning_rate))
     losses = []
+    device = camera.origin.device
+    allocs = profiling.device_allocs(device)
     for i in range(steps):
-        opt.zero_grad(set_to_none=True)
-        img = render_image(apply_fn(params), camera, width, height, spp=spp,
-                           seed=seed + i, max_depth=max_depth)
-        value = l2_loss(img, target)
-        value.backward()
-        opt.step()
-        losses.append(float(value.detach()))
+        with profiling.unit("grad_step", step=i) as rec:
+            opt.zero_grad(set_to_none=True)
+            with profiling.span("grad apply"):
+                scene = apply_fn(params)
+            with profiling.span("grad forward"):
+                img = render_image(scene, camera, width, height, spp=spp,
+                                   seed=seed + i, max_depth=max_depth)
+            with profiling.span("grad loss"):
+                value = l2_loss(img, target)
+            with profiling.span("grad backward"):
+                value.backward()
+            with profiling.span("grad adam"):
+                opt.step()
+            losses.append(float(profiling.to_host(value.detach(),
+                                                  "grad loss")))
+            if allocs is not None:
+                now = profiling.device_allocs(device)
+                rec["device_allocs"], allocs = now - allocs, now
         if callback is not None:
             callback(i, _rebuild(init_params, [x.detach() for x in leaves]),
                      losses[-1])

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..math.vec import clamp, cross, div, dot, length, sqrt
+from ..utils import profiling
 from . import table as T
 
 SPHERE = 0
@@ -148,6 +149,7 @@ def bsdf_pdf(lobe, n_unit, w):
                        torch.where(lobe == 2, 1.0 / (2.0 * TAU), 0.0))
 
 
+@profiling.spanned("L3n sample_direct")
 def sample_direct(scene, hits, sampler, lobe):
     """One-sample MIS-weighted NEE at NEE-capable vertices.
 

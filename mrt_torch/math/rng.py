@@ -23,9 +23,12 @@ _INV_2_24 = 1.0 / 16777216.0
 
 
 def u32(x, device=None):
-    """Any int or integer tensor -> int64 tensor of its uint32 value."""
+    """Any int or integer tensor -> int64 tensor of its uint32 value.  An
+    int is filled in on the device: copied from the host, it would
+    synchronise the host with the card."""
     if not torch.is_tensor(x):
-        return torch.tensor(int(x) & MASK, dtype=torch.int64, device=device)
+        return torch.full((), int(x) & MASK, dtype=torch.int64,
+                          device=device)
     return x.to(torch.int64) & MASK
 
 

@@ -32,6 +32,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
+
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
@@ -133,16 +135,18 @@ def library():
     global _lib, build_report
     with _lock:
         if _lib is None:
-            out = library_path()
-            if not out.exists():
-                build_report = _compile(out)
-            lib = ctypes.CDLL(str(out))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.mrt_error_string.argtypes = (ctypes.c_int,)
-            lib.mrt_error_string.restype = ctypes.c_char_p
+            with profiling.unit("library") as rec:
+                out = library_path()
+                rec["built"] = not out.exists()
+                if rec["built"]:
+                    build_report = _compile(out)
+                lib = ctypes.CDLL(str(out))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                lib.mrt_error_string.argtypes = (ctypes.c_int,)
+                lib.mrt_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
 

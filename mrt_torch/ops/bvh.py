@@ -71,6 +71,8 @@ The kernels' packed tables (B5, B6, B7; ``card_nodes``, ``card_tris``):
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 from ..math.vec import dot, sqrt
@@ -498,7 +500,11 @@ def tlas_plain(tl, o, d, t_min, t_max, counts=None, ordered=False):
 
 
 def _lanes(x, n, device):
-    """Scalar or (N,) t bound -> contiguous (N,) float32."""
+    """Scalar or (N,) t bound -> contiguous (N,) float32; a Python number
+    filled in on the device, with no copy from the host (which would
+    synchronise)."""
+    if isinstance(x, numbers.Real):
+        return torch.full((n,), float(x), dtype=torch.float32, device=device)
     x = torch.as_tensor(x, dtype=torch.float32, device=device)
     return x.expand(n).contiguous() if x.dim() == 0 else x
 

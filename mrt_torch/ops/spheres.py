@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..math.vec import dot, sqrt
+from ..utils import profiling
 from . import _build
 from .bvh import _lanes, _tally, bound_arg, warp_octant
 
@@ -75,6 +76,7 @@ def _spread(x):
     return (x | (x << 2)) & 0x09249249
 
 
+@profiling.part("B1 group build")
 def group_table(center, radius):
     """B1's kernel tables for spheres center (S, 3), radius (S,), built
     on the host, returned on center's device:
@@ -92,8 +94,8 @@ def group_table(center, radius):
     Groups are runs of GROUP spheres in the Morton order of their
     centres."""
     dev = center.device
-    c32 = center.detach().to("cpu", torch.float32)
-    r32 = radius.detach().to("cpu", torch.float32)
+    c32 = profiling.to_host(center.detach().float(), "B1 group build")
+    r32 = profiling.to_host(radius.detach().float(), "B1 group build")
     table = sphere_table(c32, r32).numpy()
     c = c32.numpy().astype(np.float64)
     r = np.abs(r32.numpy().astype(np.float64))
@@ -124,7 +126,15 @@ def group_table(center, radius):
     for o in range(8):
         sign = np.array([-1.0 if (o >> a) & 1 else 1.0 for a in range(3)])
         order[o] = np.argsort(mid @ sign, kind="stable")
-    as_t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def as_t(x):
+        # On the card, from pinned memory without a wait: a copy from
+        # pageable memory would synchronise the host with the card.
+        x = torch.from_numpy(np.ascontiguousarray(x))
+        if dev.type != "cuda":
+            return x
+        return x.pin_memory().to(dev, non_blocking=True)
+
     return (as_t(table[perm]), as_t(perm.astype(np.int32)), as_t(boxes),
             as_t(order), int(big.sum()))
 

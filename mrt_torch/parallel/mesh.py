@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.device import resolve
+from ..utils import profiling
 
 TILE_AXIS = "tile"
 SPP_AXIS = "spp"
@@ -41,6 +42,7 @@ class Mesh:
         self.tile_index, self.spp_index = divmod(rank, spp)
         self.groups = groups or {TILE_AXIS: None, SPP_AXIS: None}
 
+    @profiling.spanned("all_reduce")
     def all_reduce(self, x, axis=SPP_AXIS):
         """The sum of x over the ranks of this rank's `axis` (a new
         tensor)."""

@@ -8,18 +8,20 @@
 
 Renders one unprofiled pass to warm up, ``--passes`` more (their wall
 times, the median the pass time), then one pass under
-``torch.profiler`` with a ``record_function`` range around each layer of
-the step (camera rays, intersection with its voxel walk, shading,
-background, next-event estimation, film deposit) and around each lane
-sort (S1, torch.sort, S2; the auto rule sorts sphere_grid, lucy and
-eve), and prints the device time of each layer (the kernels
-launched inside its range), of each hand kernel and of the busiest
-kernels, the launches a step and the device's idle share (1 - kernel
-time / unprofiled pass time), the DDA steps a wavefront step on voxel
-scenes, then one JSON line with the same numbers.  --nee attaches the
-scene's light table, --rr-depth turns Russian roulette on, --sort-rays
-K sorts the lanes every K steps (0: never; default: the auto rule), and
---steps N
+``torch.profiler`` inside the tracer's ``tracing(ranges=True)``
+(``utils.profiling``), so that the program's own spans are the
+profiler's ranges: each layer of the step (camera rays, intersection
+with its voxel walk, shading, background, next-event estimation, film
+deposit) and each lane sort (S1, torch.sort, S2; the auto rule sorts
+sphere_grid, lucy and eve).  It prints the device time of each layer
+(the kernels launched inside its range), of each hand kernel and of the
+busiest kernels, the launches a step and the device's idle share (1 -
+kernel time / unprofiled pass time), the DDA steps a wavefront step on
+voxel scenes (the tracer's ``dda_steps`` counter; the steps are the
+pass record's), then one JSON line with the same numbers.  --nee
+attaches the scene's light table, --rr-depth turns Russian roulette on,
+--sort-rays K sorts the lanes every K steps (0: never; default: the
+auto rule), and --steps N
 measures only the first N steps of each pass (rounded up to a multiple
 of 8; for scenes whose profiled pass is too long, such as menger's voxel
 walk).  Needs a CUDA device; imports no JAX.
@@ -28,7 +30,6 @@ walk).  Needs a CUDA device; imports no JAX.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import re
@@ -51,7 +52,8 @@ def _device_us(event, self_only=False):
 
 
 LAYERS = (
-    # (range name, module path, attribute)
+    # (the program's span name, the module path and attribute it covers;
+    # tools/pass_turns.py times the attribute from outside)
     ("L1 make_rays", "mrt_torch.integrator.persistent", "LanePool.make_rays"),
     ("L2 intersect", "mrt_torch.geometry.scene", "Scene.intersect"),
     ("L2v voxel DDA", "mrt_torch.geometry.voxels", "intersect"),
@@ -77,53 +79,17 @@ KERNELS = {"B1": "nearest_t_kernel",
            "S2": "permute_lanes_kernel"}
 
 
-def _wrap(name, fn):
-    from torch.profiler import record_function
-
-    def wrapped(*args, **kwargs):
-        with record_function(name):
-            return fn(*args, **kwargs)
-    return wrapped
-
-
-@contextlib.contextmanager
-def instrumented():
-    """Install the layer ranges; restore the functions on exit."""
-    import importlib
-
-    saved = []
-    for name, module, attr in LAYERS:
-        owner = importlib.import_module(module)
-        *path, leaf = attr.split(".")
-        for part in path:
-            owner = getattr(owner, part)
-        saved.append((owner, leaf, getattr(owner, leaf)))
-        setattr(owner, leaf, _wrap(name, getattr(owner, leaf)))
-    try:
-        yield
-    finally:
-        for owner, leaf, fn in reversed(saved):
-            setattr(owner, leaf, fn)
-
-
 def one_pass(scene, camera, args):
-    """One pass; with args.steps, stopped once that many steps ran."""
+    """One pass; with args.steps, stopped at the first termination check
+    after that many steps ran (the pass record's count)."""
     from .integrator import persistent
     from .runtime.film import Film
     from .runtime.render import render_pass_persistent
 
     busy = persistent.LanePool.busy
     if args.steps is not None:
-        ran = [0]
-        step = persistent.LanePool.step
-
-        def counted(self, *a, **k):
-            ran[0] += 1
-            return step(self, *a, **k)
-
-        persistent.LanePool.step = counted
-        persistent.LanePool.busy = lambda self, st: (ran[0] < args.steps
-                                                     and busy(self, st))
+        persistent.LanePool.busy = lambda self, st: (
+            self.record["steps"] < args.steps and busy(self, st))
     film = Film.create(args.width, args.height, device=camera.origin.device)
     try:
         return render_pass_persistent(scene, camera, film, 1, 0,
@@ -132,9 +98,7 @@ def one_pass(scene, camera, args):
                                       pool=args.pool, rr_depth=args.rr_depth,
                                       sort_rays=args.sort_rays)
     finally:
-        if args.steps is not None:
-            persistent.LanePool.step = step
-            persistent.LanePool.busy = busy
+        persistent.LanePool.busy = busy
 
 
 def main(argv=None):
@@ -162,10 +126,9 @@ def main(argv=None):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from .geometry import voxels
     from .geometry.scene import attach_lights
-    from .integrator import persistent
     from .scenes import get
+    from .utils import profiling
 
     scene, camera = get(args.scene)().generate()
     if args.nee:
@@ -180,26 +143,19 @@ def main(argv=None):
         walls.append(time.perf_counter() - t0)
     wall = float(np.median(walls))
 
-    steps = [0]
-    step = persistent.LanePool.step
+    dda = profiling.counters.get("dda_steps", 0)
+    with profiling.tracing(ranges=True) as session, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_pass(scene, camera, args)
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    steps = profiling.snapshot()["pass"][-1]["steps"]
+    dda = profiling.counters.get("dda_steps", 0) - dda
 
-    def counted(self, *a, **k):
-        steps[0] += 1
-        return step(self, *a, **k)
-
-    persistent.LanePool.step = counted
-    voxels.counts.update(calls=0, steps=0)
-    try:
-        with instrumented(), profile(activities=[ProfilerActivity.CPU,
-                                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            one_pass(scene, camera, args)
-            torch.cuda.synchronize()
-            profiled_wall = time.perf_counter() - t0
-    finally:
-        persistent.LanePool.step = step
-
-    names = {name for name, _, _ in LAYERS}
+    layer_names = {name for name, _, _ in LAYERS}
+    names = layer_names | {s["name"] for s in session.spans}
     on_device = lambda e: str(e.device_type).endswith("CUDA")
     # Device-side events are the kernels and copies, and also each
     # range's span on the device timeline (gaps included), which is left
@@ -209,9 +165,9 @@ def main(argv=None):
               if on_device(e) and e.key not in names]
     kernel_us = sum(_device_us(e, self_only=True) for e in device)
     launches = sum(e.count for e in device)
-    layers = dict.fromkeys(sorted(names), 0.0)
+    layers = dict.fromkeys(sorted(layer_names), 0.0)
     for e in prof.events():
-        if e.name in names and not on_device(e):
+        if e.name in layer_names and not on_device(e):
             layers[e.name] += _device_us(e) / 1e3
     # Summed over each kernel's template instances (B2's and B3's column
     # counts, B7's regimes).
@@ -233,19 +189,19 @@ def main(argv=None):
                depth=args.depth, spp=args.spp, pool=args.pool,
                device=torch.cuda.get_device_name(0),
                pass_s=wall, passes_s=walls, profiled_pass_s=profiled_wall,
-               steps=steps[0],
+               steps=steps,
                device_kernel_ms=kernel_us / 1e3,
-               device_kernels_per_step=launches / max(steps[0], 1),
+               device_kernels_per_step=launches / max(steps, 1),
                # Kernel durations are not inflated by the profiler, the
                # host is: the unprofiled pass is the wall time to use.
                idle_share=1.0 - kernel_us / 1e6 / wall,
                layer_device_ms=layers, kernel_device_ms=kernels,
                kernel_calls=calls,
-               dda_steps_per_step=voxels.counts["steps"] / max(steps[0], 1))
+               dda_steps_per_step=dda / max(steps, 1))
     print(f"{args.scene} {args.width}x{args.height} depth {args.depth} spp "
           f"{args.spp} pool {args.pool}: pass {wall:.3f} s unprofiled ("
           + ", ".join(f"{w:.3f}" for w in walls) + "), "
-          f"{profiled_wall:.3f} s profiled, {steps[0]} steps, "
+          f"{profiled_wall:.3f} s profiled, {steps} steps, "
           f"{launches} device kernels, {kernel_us / 1e3:.1f} ms device time, "
           f"idle {out['idle_share']:.3f}, "
           f"{out['dda_steps_per_step']:.2f} DDA steps a step")

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..math import vec
+from ..utils import profiling
 
 # B3-spline 5-tap kernel of the à-trous pyramid.
 _KERNEL = np.asarray([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
@@ -40,6 +41,7 @@ def _sq_dist(a, b):
     return torch.sum((a - b) ** 2, dim=-1, keepdim=True)
 
 
+@profiling.spanned("denoiser")
 def denoise(rgb, albedo=None, normal=None, iterations=3, sigma_color=0.2,
             sigma_albedo=0.15, sigma_normal=0.25, firefly_k=4.0):
     """Edge-aware à-trous filter of (H, W, 3) tonemapped colour.

@@ -20,6 +20,7 @@ import torch
 
 from ..core.device import resolve
 from ..math import vec
+from ..utils import profiling
 
 
 class DisplayMode(enum.Enum):
@@ -110,7 +111,8 @@ class Film:
     def to_rgb_bytes(self, mode: DisplayMode = DisplayMode.DEFAULT,
                      denoiser=None):
         """uint8 RGB, rows bottom-up, truncating like ``(p * 255) as u8``."""
-        floats = self.to_float_rgb(mode, denoiser=denoiser).cpu().numpy()
+        floats = profiling.to_host(self.to_float_rgb(mode, denoiser=denoiser),
+                                   "film to PNG").numpy()
         return (floats * 255.0).astype(np.uint8)
 
     def save_state(self, path, seed=0):

@@ -21,6 +21,8 @@ import zlib
 
 import numpy as np
 
+from ..utils import profiling
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # Colour type -> samples a pixel; and the bit depths each allows.
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -36,6 +38,7 @@ def _chunk(kind, data):
             + struct.pack(">I", zlib.crc32(kind + data)))
 
 
+@profiling.spanned("png_encode")
 def png_encode(rgb_bottom_up):
     """(H, W, 3) uint8 rows bottom-up -> the bytes of an 8-bit RGB PNG,
     rows top-down; every row filtered by Up (one vector subtraction)."""
@@ -55,6 +58,7 @@ def png_encode(rgb_bottom_up):
             + _chunk(b"IEND", b""))
 
 
+@profiling.spanned("PNG write")
 def save_png(path, rgb_bytes):
     """Write (H, W, 3) uint8 bottom-up rows to a top-down PNG file,
     creating its directory."""

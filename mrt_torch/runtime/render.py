@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from ..integrator import aov, wavefront
 from ..integrator.persistent import POOL, render_samples_persistent
+from ..utils import profiling
 from .film import Film
 
 
@@ -21,6 +22,7 @@ def render_pass(scene, camera, film: Film, seed, sample_start, *, width,
     return film
 
 
+@profiling.spanned("render pass")
 def render_pass_persistent(scene, camera, film: Film, seed, sample_start,
                            *, width, height,
                            max_depth=wavefront.MAX_DEPTH, samples=1,
@@ -47,6 +49,7 @@ def render_pass_persistent(scene, camera, film: Film, seed, sample_start,
                         samples=film.samples + samples)
 
 
+@profiling.spanned("AOV pre-pass")
 def aov_pass(scene, camera, *, width, height, seed=0):
     """The albedo and normal guide pre-pass: (albedo, normal), each
     (H, W, 3)."""

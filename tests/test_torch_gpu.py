@@ -47,6 +47,9 @@ origins; S2 with and without the pend accumulator), also replayed in a
 CUDA graph with the sort between them; S2 refuses a misaligned
 accumulator; a sorted sphere_grid pass at 256x144 runs the steps and
 B-kernel launches of an unsorted one, with S1 and S2 once a sort.
+Every synchronisation the card reports in a persistent pass (RTIOW and
+sphere_grid) and in RTIOW's gradient steps is a read through the
+tracer's ``to_host``.
 """
 
 import pytest
@@ -1125,3 +1128,70 @@ def test_sorted_pass_runs_the_same_steps(cuda, monkeypatch):
     assert torch.equal(a.depth_sum, b.depth_sum)
     scale = a.sum.abs().max().item()
     assert (a.sum - b.sum).abs().max().item() <= 1e-5 * scale
+
+
+def _syncs_outside_to_host(fn):
+    """The synchronising operations the card reports while fn runs whose
+    stack holds no ``profiling.to_host``, as "file:line function"."""
+    import traceback
+    import warnings
+
+    found, armed = [], []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        # The switch to the debug mode is itself reported, once a process
+        # (seen on the card), before fn runs: only what fn does counts.
+        if not armed or "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        if any(fr.filename.endswith("profiling.py") and fr.name == "to_host"
+               for fr in stack):
+            return
+        prog = [fr for fr in stack if "mrt_torch" in fr.filename]
+        found.append(" <- ".join(f"{fr.filename}:{fr.lineno} {fr.name}"
+                                 for fr in prog[::-1][:3]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        armed.append(True)
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return found
+
+
+@pytest.mark.parametrize("name", ["rtiow", "sphere_grid"])
+def test_every_sync_of_a_pass_and_a_grad_step_is_a_to_host_read(cuda, name):
+    from mrt_torch import inverse
+    from mrt_torch.runtime.film import Film
+    from mrt_torch.runtime.render import render_pass_persistent
+    from mrt_torch.scenes import get
+
+    kw = dict(grid=3) if name == "rtiow" else dict(dim=6)
+    scene, camera = get(name)(aspect_ratio=2.0, **kw).generate(device=cuda)
+
+    def frame():
+        render_pass_persistent(scene, camera, Film.create(128, 64,
+                                                          device=cuda),
+                               1, 0, width=128, height=64, max_depth=8,
+                               samples=2, pool=4096)
+
+    frame()  # the library's build and first launches
+    assert _syncs_outside_to_host(frame) == []
+    if name != "rtiow":
+        return
+    target = inverse.render_image(scene, camera, 64, 32, spp=1,
+                                  max_depth=3).detach()
+
+    def apply(c):
+        return scene.replace(spheres=scene.spheres.replace(center=c))
+
+    def grad():
+        inverse.optimize(apply, scene.spheres.center + 0.01, camera, 64, 32,
+                         target, steps=2, spp=1, max_depth=3)
+
+    grad()
+    assert _syncs_outside_to_host(grad) == []

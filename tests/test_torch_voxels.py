@@ -33,6 +33,7 @@ from mrt.scenes import get as jget
 from mrt_torch.geometry import voxels as TV
 from mrt_torch.integrator import wavefront as TW
 from mrt_torch.scenes import get as tget
+from mrt_torch.utils import profiling
 from test_torch_textures import GOLDENS, _port_film, _rays, outside_c2
 
 torch.set_num_threads(2)
@@ -123,9 +124,10 @@ def test_intersect_step_cap():
     jg, tg = _grids("dense", 2, origin=(3.0e4, -3.0e4, 3.0e4), cell=0.002)
     rs = np.random.default_rng(5)
     o, d = _grid_rays(jg, rs, 256)
-    TV.counts.update(steps=0, calls=0)
+    before = profiling.counters.get("dda_steps", 0)
     _compare(jg, tg, o, d, np.float32(1e-3), np.float32(np.inf))
-    assert TV.counts["steps"] == 6 * jg.n + 3 * jg.levels + 8
+    steps = profiling.counters["dda_steps"] - before
+    assert steps == 6 * jg.n + 3 * jg.levels + 8
 
 
 def test_voxel_menger_scene_matches():
