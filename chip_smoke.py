@@ -108,7 +108,8 @@ Each phase prints one line:
      and 484 sphere centres as parameters, against a target with the
      albedos perturbed: forward and backward ms (CUDA events, wall
      clock), peak device bytes, B1's launches in the forward and in the
-     checkpoint's recompute (once a bounce each, no other kernel), all
+     checkpoint's recompute (once a bounce each, no other kernel but
+     R1's draws), all
      gradients finite, the recomputed roots bit-equal to B1's t; a second
      1080p pass records the inputs of its 12 searches, and
      nearest_t_plain on the same inputs on the card must give B1's t and
@@ -123,7 +124,8 @@ Each phase prints one line:
      ``--spp 8 --samples-per-pass 4 --denoise --display-mode denoise
      --checkpoint``, then resumed from that checkpoint to ``--spp 16``:
      the checkpoint and the film at 8 then 16 samples, B1 once a step and
-     16 times in the AOV pre-pass, B2 once a step and no other kernel, the
+     16 times in the AOV pre-pass, B2 once a step and no other kernel but
+     R1's draws, the
      PNG equal to the film's DENOISE bytes; the five display modes
      exported and decoded by ``load_png``; the denoiser at 1080p (ms, device
      kernels, peak bytes, its output finite in [0, 1]) and on the card
@@ -142,7 +144,8 @@ Each phase prints one line:
      group, mesh (1, 1): ``render_sharded(persistent=True)`` of RTIOW at
      1920x1080, depth 50, spp 2, pool 2^17, equal to phase 6's film
      (bounce counts exact, radiance within f32 reassociation), B1 and B2
-     once a step and no other kernel, the pass seconds beside phase 6's
+     once a step and no other kernel but R1's draws, the pass seconds
+     beside phase 6's
      and the all-reduce's; ``render_pass_sharded`` (wavefront) at 256x144,
      depth 8, spp 2, against the same pass on the CPU: bit-equal with the
      CPU's sin and cos substituted on the card (ROADMAP C20, C22), and the
@@ -168,7 +171,14 @@ Each phase prints one line:
      whole sorter's launches; B1 (RTIOW, phase 6's step 64), B5
      (sphere_grid), B7 (lucy, eve) on step 64's lanes of an unsorted
      pass as they come and sorted (both boxes), in turns: B1's and B5's
-     winners un-permuted bit-equal, B7's under compare_hits' rule.
+     winners un-permuted bit-equal, B7's under compare_hits' rule;
+ 24. the sampler's draw R1 (``ops.rng.pcg4d_draw``) against its plain
+     version bit for bit at 2^17 and 2,073,600 lanes (the frame pool and
+     the gradient path's 1080p lanes), with an int salt and a per-lane
+     salt, timed by CUDA-graph replay beside its bytes bound and the
+     plain draw; the host µs of one Sampler draw through R1 and through
+     the plain path; R1's launches in phases 6 and 10 (two a step and
+     one to fill the pool).
 
 Each main path runs with every launch count set to 0 just before it and
 read just after.  Then a JSON line with each kernel's numbers (B2, B3
@@ -176,7 +186,9 @@ and B4 also with ``floor_ms``, phase 4's launch floor; B1 and B2 also
 ``launches_sharded``, phase 22's), and as
 the last line ``{"ok": true, "device": {...}}``.  The JSON line's S1
 and S2 entries replace no Pallas kernel (``replaces`` names the
-reference's XLA sorter); their ``launches`` are phase 10's.  Any failure
+reference's XLA sorter); their ``launches`` are phase 10's.  R1's
+replaces none either (``replaces`` names the reference's XLA draw); its
+``launches`` are phase 6's.  Any failure
 raises and exits non-zero; so does a machine without CUDA.  Imports no
 JAX.
 
@@ -658,7 +670,7 @@ def phase_golden(phase, name, dev, build=None, max_outside=None, **kw):
 
 
 def _wrappers():
-    from mrt_torch.ops import bvh, deposit, gather, sort, spheres
+    from mrt_torch.ops import bvh, deposit, gather, rng, sort, spheres
     from mrt_torch.tools import probe_stream
 
     return {"B1": spheres.nearest_t, "B2": deposit.deposit,
@@ -666,7 +678,8 @@ def _wrappers():
             "B5": bvh.sphere_bvh_hit, "B6": bvh.tri_bvh_hit,
             "B7": bvh.tlas_hit, "P1": probe_stream.probe_a,
             "P2": probe_stream.probe_b, "P3": probe_stream.probe_c,
-            "S1": sort.sort_keys, "S2": sort.permute_lanes}
+            "S1": sort.sort_keys, "S2": sort.permute_lanes,
+            "R1": rng.pcg4d_draw}
 
 
 def reset_launches():
@@ -1642,10 +1655,11 @@ def phase_grad(dev):
     run = grad_pass(apply, params, camera, GRAD_W, GRAD_H, target_img)
     fwd, bwd = run["fwd_launches"], run["bwd_launches"]
     check(fwd["B1"] == 6 and bwd["B1"] == 6
+          and fwd["R1"] > 0 and bwd["R1"] > 0
           and all(v == 0 for run_ in (fwd, bwd) for k, v in run_.items()
-                  if k != "B1"),
+                  if k not in ("B1", "R1")),
           f"gradient pass: B1 should launch once a bounce in the forward "
-          f"and once in the recompute: {fwd}, {bwd}")
+          f"and once in the recompute, R1 draw in both: {fwd}, {bwd}")
     for name, g in zip(("albedo", "centre"), run["grads"]):
         check(g is not None and torch.isfinite(g).all().item()
               and (g != 0).any().item(),
@@ -1773,6 +1787,8 @@ def phase_grad(dev):
                 fwd_wall_ms=run["fwd_wall_ms"], bwd_ms=run["bwd_ms"],
                 bwd_wall_ms=run["bwd_wall_ms"], peak_bytes=run["peak_bytes"],
                 launches_forward=fwd["B1"], launches_recompute=bwd["B1"],
+                launches_r1_forward=fwd["R1"],
+                launches_r1_recompute=bwd["R1"],
                 apply_ms=apply_ms, crop_rel=rel,
                 gather_backward_ms=gather_ms)
 
@@ -1934,8 +1950,9 @@ def aov_scene(name, dev):
                "lucy": ("B1", "B7")}[name]
     for _, launches in runs:
         check(all(launches[k] == batches for k in kernels)
+              and launches["R1"] > 0
               and all(v == 0 for k, v in launches.items()
-                      if k not in kernels),
+                      if k not in kernels + ("R1",)),
               f"{name} AOV pre-pass: {launches}, not {batches} launches "
               f"of each of {kernels}")
     spots = {"B1": (B1, "nearest_t"), "B5": (K, "sphere_bvh_hit"),
@@ -2096,8 +2113,9 @@ def phase_cli(dev):
                               f"{Film.load_state(ckpt, device=dev)[0].samples}"
                               f" samples, the film {film.samples}, not {spp}")
         check(launches["B1"] == steps + batches and launches["B2"] == steps
+              and launches["R1"] > 0
               and all(v == 0 for k, v in launches.items()
-                      if k not in ("B1", "B2")),
+                      if k not in ("B1", "B2", "R1")),
               f"CLI run to spp {spp}: {steps} steps, launches {launches}; "
               f"B1 should launch once a step and {batches} times in the "
               "pre-pass, B2 once a step")
@@ -2352,8 +2370,9 @@ def phase_sharded(dev, rtiow):
         film, seconds, launches, steps, ar = shard_pass("rtiow", dev, WIDTH,
                                                         HEIGHT, mesh)
         check(launches["B1"] == launches["B2"] == steps > 0
+              and launches["R1"] > 0
               and not any(v for k, v in launches.items()
-                          if k not in ("B1", "B2")),
+                          if k not in ("B1", "B2", "R1")),
               f"sharded RTIOW: B1 and B2 not once a step ({steps} steps): "
               f"{launches}")
         check(film.samples == 2, f"samples {film.samples}")
@@ -2801,6 +2820,65 @@ def sorter_kernels(dev, captures):
     return s1, s2, sorter
 
 
+R1_LANES = (RAYS, WIDTH * HEIGHT)
+R1_SEED = 2 ** 31 + 17
+
+
+def phase_r1(dev, floor):
+    """Phase 24: the sampler's draw R1 against its plain version, bit for
+    bit, at R1_LANES lanes with an int and a per-lane salt; the kernel's
+    ms by CUDA-graph replay beside its bytes bound (8 bytes of ray id, 8
+    of a per-lane salt, 16 of draws a lane) and the plain draw's ms; the
+    host µs of one Sampler draw through R1 and through the plain path.
+    Returns R1's entry of the kernels line (without launches)."""
+    from mrt_torch.math import rng
+    from mrt_torch.ops import rng as R1
+
+    out = dict(max_abs_err=0.0, floor_ms=floor, library_ms=None)
+    g = torch.Generator(device=dev).manual_seed(24)
+    for n in R1_LANES:
+        ids = torch.randint(-(2 ** 40), 2 ** 40, (n,), device=dev,
+                            generator=g)
+        salts = {"": 0xC0FFEE,
+                 "_salted": 3 * torch.randint(0, 50, (n,), device=dev,
+                                              generator=g) + 1}
+        row = dict(lanes=n)
+        for label, salt in salts.items():
+            got = R1.pcg4d_draw(ids, R1_SEED, salt, 3)
+            check(bits_equal(got, R1.pcg4d_draw_plain(ids, R1_SEED, salt, 3)),
+                  f"R1 at {n} lanes (salt{label or ' int'}) differs from its "
+                  "plain version")
+            row["ms" + label] = graph_ms(
+                lambda: R1.pcg4d_draw(ids, R1_SEED, salt, 3), 50)
+            row["plain_ms" + label] = graph_ms(
+                lambda: R1.pcg4d_draw_plain(ids, R1_SEED, salt, 3), 5)
+            b = bound(n * (8 + 16 + (8 if label else 0)), 0)
+            row["bound_ms" + label] = b["bound_ms"]
+            row["bound_by" + label] = b["bound_by"]
+        out[f"lanes_{n}"] = row
+    ids = torch.randint(0, 2 ** 32, (RAYS,), device=dev, generator=g)
+    salt = 3 * torch.randint(0, 50, (RAYS,), device=dev, generator=g) + 1
+    draw = lambda: rng.Sampler(R1_SEED, ids, salt).next4()
+    out["wrapper_host_us"] = host_us(draw, 1000)
+    card = rng.draws_on_card
+    rng.draws_on_card = lambda ray_id: False
+    try:
+        out["plain_host_us"] = host_us(draw, 200)
+    finally:
+        rng.draws_on_card = card
+    for n in R1_LANES:
+        r = out[f"lanes_{n}"]
+        log(24, f"R1 PCG4D draw, {n} lanes: bit-equal to its plain version; "
+                f"{r['ms']:.5f} ms with an int salt, {r['ms_salted']:.5f} "
+                f"per-lane (CUDA graph), bound {r['bound_ms']:.5f} / "
+                f"{r['bound_ms_salted']:.5f} (bytes), floor {floor:.5f}; "
+                f"plain {r['plain_ms']:.4f} / {r['plain_ms_salted']:.4f}")
+    log(24, f"a Sampler's draw, host time a call at {RAYS} lanes: "
+            f"{out['wrapper_host_us']:.2f} µs through R1, "
+            f"{out['plain_host_us']:.2f} µs on the plain path")
+    return out
+
+
 def phase_sort(dev, rtiow_state, rtiow_rays):
     """Phase 23: the lane sorter.  Returns the S1 and S2 entries of the
     kernels line (without launches) and the phase's numbers."""
@@ -2868,6 +2946,7 @@ def main():
     cli = phase_cli(dev)
     sharded = phase_sharded(dev, rtiow_film)
     s1, s2, sort = phase_sort(dev, rtiow_state, rtiow_rays)
+    r1 = phase_r1(dev, b2["floor_ms"])
 
     kernels = [
         dict(name="B1 sphere nearest hit", route="cuda",
@@ -2935,13 +3014,20 @@ def main():
              replaces="mrt/integrator/persistent.py:112",
              launches=grid["S2"], launches_lucy=meshes["lucy"][0]["S2"],
              launches_eve=eve["plain"]["launches"]["S2"], **s2),
+        dict(name="R1 PCG4D draw", route="cuda",
+             source="mrt_torch/csrc/rng.cu",
+             replaces="mrt/math/rng.py:67",
+             launches=rtiow["R1"], launches_sphere_grid=grid["R1"],
+             launches_cli=cli["runs"][0]["launches"]["R1"],
+             launches_grad_forward=grad["launches_r1_forward"],
+             launches_grad_recompute=grad["launches_r1_recompute"], **r1),
     ]
     grad.pop("recover")
     log(20, f"gradient path: {json.dumps(grad)}")
     log(21, f"entry point: {json.dumps(cli)}")
     log(22, f"sharded paths: {json.dumps(sharded)}")
     log(23, f"lane sorter: {json.dumps(sort)}")
-    log(24, f"run: {time.perf_counter() - start:.1f} s from the card's "
+    log(25, f"run: {time.perf_counter() - start:.1f} s from the card's "
             "line to here")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

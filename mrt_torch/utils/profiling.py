@@ -242,7 +242,7 @@ def tracing(ranges=False):
 def kernel_launches():
     """Each hand kernel's launches so far, by name (the wrappers' own
     ``launches`` counters)."""
-    from ..ops import bvh, deposit, gather, sort, spheres
+    from ..ops import bvh, deposit, gather, rng, sort, spheres
 
     return {"B1": spheres.nearest_t.launches,
             "B2": deposit.deposit.launches,
@@ -252,7 +252,8 @@ def kernel_launches():
             "B6": bvh.tri_bvh_hit.launches,
             "B7": bvh.tlas_hit.launches,
             "S1": sort.sort_keys.launches,
-            "S2": sort.permute_lanes.launches}
+            "S2": sort.permute_lanes.launches,
+            "R1": rng.pcg4d_draw.launches}
 
 
 def snapshot():

@@ -49,7 +49,14 @@ accumulator; a sorted sphere_grid pass at 256x144 runs the steps and
 B-kernel launches of an unsorted one, with S1 and S2 once a sort.
 Every synchronisation the card reports in a persistent pass (RTIOW and
 sphere_grid) and in RTIOW's gradient steps is a read through the
-tracer's ``to_host``.
+tracer's ``to_host``.  The sampler's draw R1 equals its plain version
+bit for bit on edge ray ids, int and 0-d seeds, int, 0-d and per-lane
+salts and draw counters past 2^32, and a Sampler through it equals one
+forced onto the plain path around next1 and skip; it replays in a CUDA
+graph with a new seed and salt; its wrapper refuses CPU tensors, int32
+ids and mis-shaped salts; RTIOW and sphere_grid spp-1 passes through it
+equal the plain sampler's bit for bit, with two launches a step and one
+to fill the pool.
 """
 
 import pytest
@@ -1195,3 +1202,144 @@ def test_every_sync_of_a_pass_and_a_grad_step_is_a_to_host_read(cuda, name):
 
     grad()
     assert _syncs_outside_to_host(grad) == []
+
+
+# Ray ids at the edges of R1's 32-bit view: 0, 2^31, 2^32 - 1, negative
+# int64 and values of 2^32 and more (their low 32 bits count).
+R1_EDGE_IDS = [0, 2 ** 31, 2 ** 32 - 1, -1, -(2 ** 31) - 3, 2 ** 32,
+               2 ** 32 + 9, 2 ** 40 + 77, 2 ** 63 - 1, -(2 ** 63)]
+
+
+def _r1_case(cuda, n, seed_kind, salt_kind):
+    """(ray_id, seed, salt) on the card: n ids with the edge values first;
+    an int or 0-d seed; an int, 0-d or per-lane salt."""
+    g = torch.Generator().manual_seed(18)
+    ids = torch.randint(-(2 ** 62), 2 ** 62, (n,), generator=g)
+    ids[:len(R1_EDGE_IDS)] = torch.tensor(R1_EDGE_IDS)
+    seeds = {"int": 2 ** 31 + 17, "0-d": torch.tensor(-(2 ** 40) - 3)}
+    salts = {"int": 0xC0FFEE, "0-d": torch.tensor(2 ** 33 + 7),
+             "per-lane": 3 * torch.randint(0, 50, (n,), generator=g) + 1}
+    on = lambda x: x.to(cuda) if torch.is_tensor(x) else x
+    return ids.to(cuda), on(seeds[seed_kind]), on(salts[salt_kind])
+
+
+@pytest.mark.parametrize("draw", [0, 1, 5, 2 ** 32 + 5])
+@pytest.mark.parametrize("salt_kind", ["int", "0-d", "per-lane"])
+@pytest.mark.parametrize("seed_kind", ["int", "0-d"])
+def test_r1_kernel_matches_plain(cuda, seed_kind, salt_kind, draw):
+    # 5000 lanes: not a multiple of the block.
+    from mrt_torch.ops import rng as R1
+
+    ids, seed, salt = _r1_case(cuda, 5000, seed_kind, salt_kind)
+    before = R1.pcg4d_draw.launches
+    got = R1.pcg4d_draw(ids, seed, salt, draw)
+    want = R1.pcg4d_draw_plain(ids, seed, salt, draw)
+    torch.cuda.synchronize()
+    assert R1.pcg4d_draw.launches == before + 1
+    assert got.shape == (4, 5000) and got.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(want))
+    assert ((got >= 0) & (got < 1)).all()
+
+
+@pytest.mark.parametrize("salt_kind", ["int", "per-lane"])
+def test_r1_sampler_matches_the_plain_sampler(cuda, monkeypatch, salt_kind):
+    # A Sampler on the card (R1) against one forced onto the plain path,
+    # on 2^17 lanes: next4, next1 and skip between draws, one launch a
+    # draw and none at construction or skip.
+    from mrt_torch.math import rng
+    from mrt_torch.ops import rng as R1
+
+    ids, seed, salt = _r1_case(cuda, 1 << 17, "int", salt_kind)
+    before = R1.pcg4d_draw.launches
+    card = rng.Sampler(seed, ids, salt)
+    monkeypatch.setattr(rng, "draws_on_card", lambda ray_id: False)
+    plain = rng.Sampler(seed, ids, salt)
+    assert card.card and not plain.card
+    for sampler in (card, plain):
+        sampler.skip(3)
+    draws = [(plain.next4(), card.next4())]
+    for sampler in (card, plain):
+        sampler.skip(2 ** 32)
+    draws.append(((plain.next1(),), (card.next1(),)))
+    draws.append((plain.next4(), card.next4()))
+    torch.cuda.synchronize()
+    for want, got in draws:
+        assert all(torch.equal(_bits(w), _bits(g)) for w, g in zip(want, got))
+    assert R1.pcg4d_draw.launches == before + 3
+
+
+def test_r1_in_a_cuda_graph_with_a_new_seed(cuda):
+    # The seed and salt are read from device memory: a replay after they
+    # change draws the new stream.
+    from mrt_torch.ops import rng as R1
+
+    ids, seed, salt = _r1_case(cuda, 1 << 17, "0-d", "0-d")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        R1.pcg4d_draw(ids, seed, salt, 7)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = R1.pcg4d_draw(ids, seed, salt, 7)
+    for s, t in ((5, 9), (2 ** 31 + 17, 0xC0FFEE), (-1, 2 ** 32 + 1)):
+        seed.fill_(s)
+        salt.fill_(t)
+        graph.replay()
+        want = R1.pcg4d_draw_plain(ids, s, t, 7)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(want))
+
+
+def test_r1_wrapper_raises_instead_of_falling_back(cuda):
+    from mrt_torch.ops import rng as R1
+
+    ids, seed, salt = _r1_case(cuda, 1000, "0-d", "per-lane")
+    with pytest.raises(ValueError, match="no kernel"):
+        R1.pcg4d_draw(ids.cpu(), 1, 2, 0)
+    with pytest.raises(TypeError, match="int64"):
+        R1.pcg4d_draw(ids.to(torch.int32), 1, 2, 0)
+    with pytest.raises(ValueError, match="salt"):
+        R1.pcg4d_draw(ids, seed, salt[1:], 0)
+    with pytest.raises(ValueError, match="salt"):
+        R1.pcg4d_draw(ids, seed, salt.cpu(), 0)
+    with pytest.raises(TypeError, match="salt"):
+        R1.pcg4d_draw(ids, seed, salt.to(torch.int32), 0)
+    with pytest.raises(ValueError, match="seed"):
+        R1.pcg4d_draw(ids, seed.expand(2).contiguous(), 2, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        R1.pcg4d_draw(ids[::2], seed, 2, 0)
+
+
+@pytest.mark.parametrize("name", ["rtiow", "sphere_grid"])
+def test_r1_pass_equals_the_plain_sampler_pass(cuda, monkeypatch, name):
+    # A 256x144 spp-1 pass (one lane a pixel, so B2's adds to a row come
+    # in step order and the film is deterministic) with R1 and with the
+    # plain sampler forced: film and depth bit-equal; R1 once to fill the
+    # pool and twice a step (camera and scatter).
+    from mrt_torch.math import rng
+    from mrt_torch.ops import rng as R1
+    from mrt_torch.runtime.film import Film
+    from mrt_torch.runtime.render import render_pass_persistent
+    from mrt_torch.scenes import get
+    from mrt_torch.utils import profiling
+
+    scene, camera = get(name)().generate(device=cuda)
+
+    def one_pass():
+        return render_pass_persistent(
+            scene, camera, Film.create(256, 144, device=cuda), 1, 0,
+            width=256, height=144, max_depth=50, samples=1)
+
+    card = one_pass()
+    rec = profiling.snapshot()["pass"][-1]
+    assert rec["steps"] > 0
+    assert rec["draw_launches"] == 2 * rec["steps"] + 1
+    monkeypatch.setattr(rng, "draws_on_card", lambda ray_id: False)
+    before = R1.pcg4d_draw.launches
+    plain = one_pass()
+    assert R1.pcg4d_draw.launches == before
+    assert profiling.snapshot()["pass"][-1]["steps"] == rec["steps"]
+    assert torch.equal(_bits(card.sum), _bits(plain.sum))
+    assert torch.equal(card.depth_sum, plain.depth_sum)
+    assert card.depth_sum.sum() > 0

@@ -72,6 +72,108 @@ def test_sampler_per_lane_salt():
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
 
 
+# Ray ids at the edges of the kernel's 32-bit view: 0, 2^31, 2^32 - 1,
+# negative int64 and values of 2^32 and more (their low 32 bits count).
+EDGE_IDS = [0, 2 ** 31, 2 ** 32 - 1, -1, -(2 ** 31) - 3, 2 ** 32, 2 ** 32 + 9,
+            2 ** 40 + 77, 2 ** 63 - 1, -(2 ** 63)]
+
+
+def _edge_ids(n=512):
+    rs = np.random.default_rng(17)
+    ids = rs.integers(-(2 ** 62), 2 ** 62, n, dtype=np.int64)
+    ids[:len(EDGE_IDS)] = EDGE_IDS
+    return ids
+
+
+def _jax_draws(seed, ids, salt, draw):
+    """The reference's four draws at draw counter `draw` (mod 2^32)."""
+    u32 = lambda x: np.asarray(x, dtype=np.int64) & 0xFFFFFFFF
+    js = jrng.Sampler(u32(seed).astype(np.uint32),
+                      jnp.asarray(u32(ids).astype(np.uint32)),
+                      salt=jnp.asarray(u32(salt).astype(np.uint32)))
+    js.skip(draw & 0xFFFFFFFF)
+    return [np.asarray(x) for x in js.next4()]
+
+
+@pytest.mark.parametrize("draw", [0, 1, 5, 2 ** 32, 2 ** 32 + 5])
+@pytest.mark.parametrize("salt_kind", ["int", "0-d", "per-lane"])
+@pytest.mark.parametrize("seed_kind", ["int", "0-d"])
+def test_r1_plain_version_bit_exact(seed_kind, salt_kind, draw):
+    # ops.rng.pcg4d_draw_plain, the plain version of kernel R1, takes R1's
+    # arguments as they are: int64 ids, int or 0-d seeds, int, 0-d or
+    # per-lane salts, any draw counter.
+    from mrt_torch.ops import rng as R1
+
+    ids = _edge_ids()
+    seed = 2 ** 31 + 17 if seed_kind == "int" else torch.tensor(-(2 ** 40) - 3)
+    salts = {"int": 0xC0FFEE, "0-d": torch.tensor(2 ** 33 + 7),
+             "per-lane": 3 * torch.from_numpy(ids % 50) + 1}
+    salt = salts[salt_kind]
+    got = R1.pcg4d_draw_plain(torch.from_numpy(ids), seed, salt, draw)
+    want = _jax_draws(int(seed), ids,
+                      salt.numpy() if torch.is_tensor(salt) else salt, draw)
+    assert got.shape == (4, ids.size) and got.dtype == torch.float32
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g.numpy())
+
+
+@pytest.mark.parametrize("skips", [(0, 0), (3, 1), (2 ** 32 - 1, 2)])
+def test_sampler_next1_after_skip_bit_exact(skips):
+    # The CPU Sampler's draws, next1 and next4 around skips, against the
+    # reference; the counter past 2^32 wraps as the reference's uint32.
+    ids = _edge_ids()
+    js = jrng.Sampler(np.uint32(7), jnp.asarray(
+        (ids & 0xFFFFFFFF).astype(np.uint32)), salt=np.uint32(11))
+    ts = rng.Sampler(7, torch.from_numpy(ids), salt=11)
+    assert not ts.card
+    for n in skips:
+        js.skip(n)
+        ts.skip(n)
+        js._draw &= 0xFFFFFFFF  # its counter as the uint32 it becomes
+        np.testing.assert_array_equal(np.asarray(js.next1()),
+                                      ts.next1().numpy())
+        js._draw &= 0xFFFFFFFF
+        for w, g in zip(js.next4(), ts.next4()):
+            np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+def _r1_by_plain(monkeypatch):
+    """The card's path of Sampler on the CPU: draws_on_card true and R1's
+    place taken by its plain version, which counts as R1's launches."""
+    from mrt_torch.ops import rng as R1
+
+    def plain(ray_id, seed, salt, draw):
+        R1.pcg4d_draw.launches += 1
+        return R1.pcg4d_draw_plain(ray_id, seed, salt, draw)
+
+    monkeypatch.setattr(rng, "draws_on_card", lambda ray_id: True)
+    monkeypatch.setattr(rng, "pcg4d_draw", plain)
+    monkeypatch.setattr(R1.pcg4d_draw, "launches", 0)
+    return R1.pcg4d_draw
+
+
+@pytest.mark.parametrize("salt_kind", ["int", "per-lane"])
+def test_sampler_card_path_keeps_its_arguments(monkeypatch, salt_kind):
+    # On the card a Sampler keeps seed, ray_id and salt as given and draws
+    # once a next4 or next1, skips without a launch, and its draws equal
+    # the plain path's.
+    counted = _r1_by_plain(monkeypatch)
+    ids = torch.from_numpy(_edge_ids())
+    salt = 5 if salt_kind == "int" else 3 * (ids % 7) + 2
+    card = rng.Sampler(2 ** 33 + 1, ids, salt)
+    assert card.card and card.ray_id is ids and card.seed == 2 ** 33 + 1
+    monkeypatch.setattr(rng, "draws_on_card", lambda ray_id: False)
+    plain = rng.Sampler(2 ** 33 + 1, ids, salt)
+    for sampler in (card, plain):
+        sampler.skip(4)
+    for w, g in zip(plain.next4(), card.next4()):
+        assert torch.equal(w, g)
+    card.skip(2)
+    plain.skip(2)
+    assert torch.equal(plain.next1(), card.next1())
+    assert counted.launches == 2
+
+
 def _vecs(rs, n=4096):
     return rs.standard_normal((n, 3)).astype(np.float32)
 

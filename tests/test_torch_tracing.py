@@ -297,3 +297,51 @@ def test_the_benchmark_readers_read_the_records():
     assert got["scene_build_s.setup"] == snap["scene_build"][0][
         "wall_ns"] / 1e9
     assert all(v is not None and v >= 0 for v in got.values())
+
+
+@pytest.mark.parametrize("records, want", [
+    ((), None),                                          # no pass
+    ((dict(steps=8, draw_launches=17),), 17 / 8),
+    ((dict(steps=8),), None),                            # a program without R1
+    ((dict(steps=0, draw_launches=0),), None),
+    ((dict(steps=16, draw_launches=33), dict(steps=8, draw_launches=17,
+                                              profiled=True)), 33 / 16),
+])
+def test_the_draw_launch_reader(records, want):
+    # draw_launches_per_step.frame reads the newest unprofiled pass record.
+    reader = _reader("draw_launches_per_step.frame")
+    for fields in records:
+        fields = dict(fields)
+        profiled = fields.pop("profiled", False)
+        with profiling.unit("pass", **fields) as rec:
+            pass
+        rec["profiled"] = profiled
+    assert reader.read({}) == want
+
+
+@pytest.mark.parametrize("scene_name", ["rtiow", "sphere_grid"])
+def test_a_pass_record_counts_two_draws_a_step(monkeypatch, scene_name):
+    # With the card's path of Sampler taken on the CPU (R1's place held by
+    # its plain version, counting as R1), a pass draws once to fill the
+    # pool and twice a step (the camera and scatter), and its film and
+    # depth equal the plain sampler's bit for bit.
+    from mrt_torch.math import rng
+    from mrt_torch.ops import rng as R1
+
+    scene, camera = _scene(scene_name)
+    plain = _pass(scene, camera, sort_rays=4 * (scene_name != "rtiow"))
+    assert profiling.snapshot()["pass"][-1]["draw_launches"] == 0
+
+    def counted(ray_id, seed, salt, draw):
+        R1.pcg4d_draw.launches += 1
+        return R1.pcg4d_draw_plain(ray_id, seed, salt, draw)
+
+    monkeypatch.setattr(rng, "draws_on_card", lambda ray_id: True)
+    monkeypatch.setattr(rng, "pcg4d_draw", counted)
+    card = _pass(scene, camera, sort_rays=4 * (scene_name != "rtiow"))
+    rec = profiling.snapshot()["pass"][-1]
+    assert rec["draw_launches"] == 2 * rec["steps"] + 1
+    assert _reader("draw_launches_per_step.frame").read({}) == (
+        2 + 1 / rec["steps"])
+    assert torch.equal(plain.sum, card.sum)
+    assert torch.equal(plain.depth_sum, card.depth_sum)
