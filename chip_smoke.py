@@ -737,15 +737,12 @@ def phase_main(phase, name, dev, kernels, route=None, film_out=None,
     The pass runs inside the context manager `during`.  Returns
     (launches, mean radiance); the film, the seconds, the steps and the
     DDA steps go into film_out if given."""
-    from mrt_torch.geometry.scene import attach_lights
     from mrt_torch.runtime.film import Film
     from mrt_torch.runtime.render import render_pass_persistent
     from mrt_torch.scenes import get
 
     with tlas_route(route):
-        scene, camera = get(name)().generate(device=dev)
-        if nee:
-            scene = attach_lights(scene)
+        scene, camera = get(name)(nee=nee).generate(device=dev)
         film = Film.create(WIDTH, HEIGHT, device=dev)
         torch.cuda.synchronize()
         reset_launches()

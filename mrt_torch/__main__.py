@@ -53,7 +53,8 @@ def build_parser():
     p.add_argument("--rr-depth", type=int, default=None,
                    help="Russian roulette start bounce (default off)")
     p.add_argument("--nee", action="store_true",
-                   help="next-event estimation (direct light sampling)")
+                   help="next-event estimation (direct light sampling), "
+                        "asked of the scene's constructor (nee=True)")
     p.add_argument("--sort-rays", dest="sort_rays", default=None,
                    action="store_true",
                    help="force lane coherence sorting (default: auto — "

@@ -104,6 +104,10 @@ class LanePool:
         self.neutral_d = torch.full((3,), 0.57735027, device=self.device)
         # The pass's record (``profiling.unit``), which ``busy`` fills.
         self.record = None
+        # With a light table: the lanes that took a light sample, summed
+        # on the device over the pass's steps (read at each check).
+        self.nee_lanes = (None if scene.lights is None else torch.zeros(
+            (), dtype=torch.int64, device=self.device))
 
     @profiling.spanned("L1 make_rays")
     def make_rays(self, item):
@@ -171,6 +175,7 @@ class LanePool:
         if direct is not None:
             radiance_add = radiance_add + torch.where(
                 did_nee[:, None], throughput * atten * direct, 0.0)
+            self.nee_lanes.add_(did_nee.sum())
 
         scat = hit & scattered
         cont = scat & (b + 1 < self.max_depth)
@@ -223,16 +228,22 @@ class LanePool:
     @profiling.spanned("termination check")
     def busy(self, st):
         """True while any lane is active or the queue has work: one read
-        of the active lanes' count and next_work (syncs).  The pass's
-        record, if any, takes the check, the active lanes and, at the
+        of the active lanes' count and next_work (syncs), with the light
+        sample count where the scene has a light table.  The pass's
+        record, if any, takes the check, the active lanes, the light
+        samples so far (``nee_lanes``, with a light table) and, at the
         first check that finds the queue empty, the steps run so far."""
-        active, queued = profiling.to_host(
-            torch.stack(((st["item"] < self.total).sum(), st["next_work"])),
-            "termination check").tolist()
+        read = [(st["item"] < self.total).sum(), st["next_work"]]
+        if self.nee_lanes is not None:
+            read.append(self.nee_lanes)
+        active, queued, *nee = profiling.to_host(
+            torch.stack(read), "termination check").tolist()
         rec = self.record
         if rec is not None:
             rec["checks"] += 1
             rec["active"] += active
+            if nee:
+                rec["nee_lanes"] = nee[0]
             if queued >= self.total and rec["drain_from"] is None:
                 rec["drain_from"] = rec["steps"]
         return active > 0 or queued < self.total

@@ -1,9 +1,12 @@
 """Explicit light sampling: next-event estimation with multiple
 importance sampling (mirrors ``mrt.materials.lights``).
 
-Opt-in (``SceneBuilder.build(nee=True)`` or ``attach_lights``): a table
-of the scene's emissive triangles (world space, every instance's baked
-in) and spheres.  At every vertex that scattered through a cosine lobe
+Opt-in: a registered scene asks for it with its constructor's
+``nee=True`` keyword (``mrt_torch.scenes``; the CLI's ``--nee``), the
+one way to ask for it; below the scene zoo, ``attach_lights`` and
+``SceneBuilder.build`` with ``nee=True`` build it.  It is a table of the
+scene's emissive triangles (world space, every instance's baked in) and
+spheres.  At every vertex that scattered through a cosine lobe
 or the isotropic phase, one light is picked uniformly and sampled (a
 triangle by area with the geometry term, a sphere by its subtended
 cone), a shadow ray tests it, and the power heuristic (beta = 2) weighs

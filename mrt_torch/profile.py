@@ -105,7 +105,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--scene", default="sphere_grid")
     parser.add_argument("--nee", action="store_true",
-                        help="next-event estimation (attach_lights)")
+                        help="next-event estimation (the scene's nee=True)")
     parser.add_argument("--rr-depth", type=int, default=None,
                         help="Russian roulette from this bounce on")
     parser.add_argument("--steps", type=int, default=None,
@@ -126,13 +126,10 @@ def main(argv=None):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from .geometry.scene import attach_lights
     from .scenes import get
     from .utils import profiling
 
-    scene, camera = get(args.scene)().generate()
-    if args.nee:
-        scene = attach_lights(scene)
+    scene, camera = get(args.scene)(nee=args.nee).generate()
     one_pass(scene, camera, args)  # warm-up: kernel build, allocator
     torch.cuda.synchronize()
     walls = []

@@ -47,7 +47,8 @@ class RenderConfig:
     # Integrator: ray-regeneration persistent wavefront (fast path) vs
     # the batched loop (the same estimator)
     persistent: bool = True
-    # Next-event estimation: direct light sampling with MIS
+    # Next-event estimation: direct light sampling with MIS, passed to
+    # the scene's constructor (``nee=``), the one way to ask for it
     nee: bool = False
     # Russian roulette start depth (None: off, as the reference)
     rr_depth: Optional[int] = None

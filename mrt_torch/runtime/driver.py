@@ -83,18 +83,11 @@ def export(film: Film, path, config: RenderConfig):
     save_png(path, film.to_rgb_bytes(mode, denoiser=_denoiser_for(config)))
 
 
-def _generate(sc, t, frame, inp, config, device):
-    scene, camera = sc.generate(t, frame, inp, device=device)
-    if config.nee:
-        from ..geometry.scene import attach_lights
-        scene = attach_lights(scene)
-    return scene, camera
-
-
 def run(config: RenderConfig, log=print, device=None):
     """Top-level entry: one frame, an animation, or the viewer."""
     device = init_from_launcher(device)
-    sc = scenes.get(config.scene)(aspect_ratio=config.aspect_ratio)
+    sc = scenes.get(config.scene)(aspect_ratio=config.aspect_ratio,
+                                  nee=config.nee)
 
     replay = InputReplay(config.read_input) if config.read_input else None
     recorder = InputRecorder() if config.write_input else None
@@ -113,8 +106,8 @@ def run(config: RenderConfig, log=print, device=None):
             inp = replay.frame(frame) if replay else InputCollection()
             if recorder is not None:
                 recorder.record(inp)
-            scene, camera = _generate(sc, frame / total, frame, inp, config,
-                                      device)
+            scene, camera = sc.generate(frame / total, frame, inp,
+                                        device=device)
             film = render_frame(scene, camera, _frame_config(config))
             _sync(film)
             export(film, os.path.join(config.animation_dir,
@@ -130,7 +123,7 @@ def run(config: RenderConfig, log=print, device=None):
 
 def _single_frame(config, sc, replay, log, device):
     inp = replay.frame(0) if replay else InputCollection()
-    scene, camera = _generate(sc, 0.0, 0, inp, config, device)
+    scene, camera = sc.generate(0.0, 0, inp, device=device)
     film = None
     if config.checkpoint and os.path.exists(config.checkpoint):
         film, config.seed = Film.load_state(config.checkpoint, device=device)

@@ -226,7 +226,8 @@ def serve(config, log=print, stop=None, device=None):
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     log(f"viewer at http://{config.host}:{config.port}")
 
-    sc = scenes.get(config.scene)(aspect_ratio=config.aspect_ratio)
+    sc = scenes.get(config.scene)(aspect_ratio=config.aspect_ratio,
+                                  nee=config.nee)
     denoiser = _denoiser_for(config)
     albedo = normal = None
 
@@ -242,9 +243,6 @@ def serve(config, log=print, stop=None, device=None):
                           device)
 
     scene, camera = sc.generate(0.0, 0, InputCollection(), device=device)
-    if config.nee:
-        from ..geometry.scene import attach_lights
-        scene = attach_lights(scene)
 
     try:
         while not stop.is_set():
@@ -324,9 +322,6 @@ def _play_loop(config, state, sc, stop, log, tonemap, httpd, device):
                 recorder.record(inp)
             scene, camera = sc.generate(frame / total, frame, inp,
                                         device=device)
-            if config.nee:
-                from ..geometry.scene import attach_lights
-                scene = attach_lights(scene)
             film = render_frame(scene, camera, fcfg)
             _sync(film)
             with state.lock:

@@ -34,7 +34,8 @@ Spans: ``step``, ``L1 make_rays``, ``L2 intersect``, ``L2v voxel DDA``,
 ``L5s lane sorter`` in a persistent pass; ``grad apply`` (with
 ``B1 group build`` under it), ``grad forward``, ``grad loss``,
 ``grad backward`` and ``grad adam`` in a gradient step; ``scene build``
-(with ``BVH build``, ``B1 group build`` and ``table upload``),
+(with ``BVH build``, ``B1 group build``, ``table upload`` and, for a
+scene asked for next-event estimation, ``light table``),
 ``AOV pre-pass``, ``render pass``, ``denoiser``, ``png_encode`` and
 ``PNG write`` in an image; ``all_reduce`` across ranks.  The tracer
 assumes one thread.

@@ -40,7 +40,8 @@ def _fresh():
 
 
 def _scene(name="rtiow"):
-    kw = dict(grid=2) if name == "rtiow" else dict(dim=3)
+    kw = dict(rtiow=dict(grid=2), sphere_grid=dict(dim=3),
+              cornell=dict(nee=True))[name]
     return get(name)(aspect_ratio=W / H, **kw).generate(device="cpu")
 
 
@@ -145,7 +146,7 @@ def _counted(monkeypatch):
 
 @pytest.mark.parametrize("scene_name, sort_rays, pend", [
     ("rtiow", 0, False), ("rtiow", 0, True), ("sphere_grid", 4, False),
-    ("sphere_grid", 1, False)])
+    ("sphere_grid", 1, False), ("cornell", 0, False)])
 def test_pass_record_against_a_recount(monkeypatch, scene_name, sort_rays,
                                        pend):
     scene, camera = _scene(scene_name)
@@ -345,3 +346,79 @@ def test_a_pass_record_counts_two_draws_a_step(monkeypatch, scene_name):
         2 + 1 / rec["steps"])
     assert torch.equal(plain.sum, card.sum)
     assert torch.equal(plain.depth_sum, card.depth_sum)
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "rtiow"])
+def test_nee_lanes_against_a_recount_of_the_light_samples(monkeypatch,
+                                                          scene_name):
+    # With a light table the pass record counts the lanes that took a
+    # light sample over all its steps, read at the checks it already
+    # makes; without one the field is absent.
+    scene, camera = _scene(scene_name)
+    seen = []
+    real = persistent.next_event
+
+    def counted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if out[1] is not None:
+            seen.append(int(out[1].sum()))
+        return out
+
+    monkeypatch.setattr(persistent, "next_event", counted)
+    _pass(scene, camera)
+    rec = profiling.snapshot()["pass"][-1]
+    if scene_name == "cornell":
+        assert rec["nee_lanes"] == sum(seen) > 0
+        assert len(seen) == rec["steps"]
+    else:
+        assert "nee_lanes" not in rec and not seen
+    assert rec["syncs"] == {"termination check": rec["checks"]}
+
+
+def test_the_scene_build_record_holds_the_light_table():
+    get("cornell")(aspect_ratio=W / H).generate(device="cpu")
+    _scene("cornell")
+    plain, nee = profiling.snapshot()["scene_build"][-2:]
+    assert "lights" not in plain and "light table" not in plain["parts"]
+    assert nee["lights"] == 12 and nee["parts"]["light table"] > 0
+    assert nee["parts"]["light table"] <= nee["wall_ns"]
+
+
+@pytest.mark.parametrize("record, want", [
+    ({}, None),
+    (dict(range_calls={"L3n sample_direct": 40}, kernel_s=0.9,
+          ranges_ms={"L3n sample_direct": 12.5}), 12.5),
+    (dict(range_calls={"L2 intersect": 40}, kernel_s=0.9,
+          ranges_ms={"L3n sample_direct": 0.0}), None),   # no light sampled
+])
+def test_the_nee_ms_reader(record, want):
+    assert _reader("nee_ms.frame").read(record) == want
+
+
+@pytest.mark.parametrize("records, want", [
+    ((), None),                                          # no pass
+    ((dict(steps=8, pool=64, nee_lanes=128),), 128 / (8 * 64)),
+    ((dict(steps=8, pool=64),), None),                   # no light table
+    ((dict(steps=16, pool=64, nee_lanes=256),
+      dict(steps=8, pool=64, nee_lanes=9, profiled=True)), 256 / (16 * 64)),
+])
+def test_the_nee_lane_share_reader(records, want):
+    # nee_lane_share.frame reads the newest unprofiled pass record.
+    reader = _reader("nee_lane_share.frame")
+    for fields in records:
+        fields = dict(fields)
+        profiled = fields.pop("profiled", False)
+        with profiling.unit("pass", **fields) as rec:
+            pass
+        rec["profiled"] = profiled
+    assert reader.read({}) == want
+
+
+def test_the_nee_lane_share_of_a_pass():
+    scene, camera = _scene("cornell")
+    _pass(scene, camera)
+    rec = profiling.snapshot()["pass"][-1]
+    share = _reader("nee_lane_share.frame").read({})
+    assert share == rec["nee_lanes"] / (rec["steps"] * 48)
+    # A lane takes at most one light sample a step.
+    assert 0 < share < 1
