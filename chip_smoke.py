@@ -119,42 +119,40 @@ Each phase prints one line:
      same camera at 256x144 with B1's winners and with nearest_t_plain's
      on the card: winners bit-equal, gradients within 1e-5 of the
      largest;
- 21. the user's entry point (``mrt_torch.__main__``): ``main`` in-process
-     as ``python -m mrt_torch --scene rtiow`` at 1920x1080, depth 50,
-     ``--spp 8 --samples-per-pass 4 --denoise --display-mode denoise
-     --checkpoint``, then resumed from that checkpoint to ``--spp 16``:
-     the checkpoint and the film at 8 then 16 samples, B1 once a step and
-     16 times in the AOV pre-pass, B2 once a step and no other kernel but
-     R1's draws, the
-     PNG equal to the film's DENOISE bytes; the five display modes
-     exported and decoded by ``load_png``; the denoiser at 1080p (ms, device
-     kernels, peak bytes, its output finite in [0, 1]) and on the card
-     against the CPU on artifacts/denoise_buffers.npz (1e-5); png_encode at
-     1080p; the AOV pre-pass of rtiow, sphere_grid and lucy at 1080p (ms,
-     launches: 16 of each of its kernels), its first and last batches'
-     B1, B5 and B7 winners against the plain versions on the card (B1 and
-     B5 in their own order bit-equal, B5 and B7 >= 99.9% against the
-     escape order), the whole frame at 256x144 against the port's CPU run
-     (1e-5; the BVH walks may keep another winner on 0.1% of pixels, C15);
-     ``serve`` at 320x180 in a thread (/status, /frame.png decoded, keys 2
-     and e, the stop event); ``python -X importtime -m mrt_torch`` at
-     320x180, spp 2, without ``--device`` as a subprocess (on the card, no
-     PIL, JAX or mrt imported; without a visible card it refuses);
- 22. the sharded paths (``mrt_torch.parallel``): (a) a one-process NCCL
-     group, mesh (1, 1): ``render_sharded(persistent=True)`` of RTIOW at
-     1920x1080, depth 50, spp 2, pool 2^17, equal to phase 6's film
-     (bounce counts exact, radiance within f32 reassociation), B1 and B2
-     once a step and no other kernel but R1's draws, the pass seconds
-     beside phase 6's
-     and the all-reduce's; ``render_pass_sharded`` (wavefront) at 256x144,
-     depth 8, spp 2, against the same pass on the CPU: bit-equal with the
-     CPU's sin and cos substituted on the card (ROADMAP C20, C22), and the
-     pixels that differ without; (b) two ranks of a gloo group on the one
-     card, two subprocesses (``chip_smoke.py shard-worker``), meshes (2, 1)
-     and (1, 2): RTIOW at 1920x1080, depth 50, spp 2 against phase 6's
-     film and sphere_grid at 480x270, spp 2 (B5, B7, B2) against a
-     one-process pass, under the same rule.  Two ranks sharing one card
-     give no multi-GPU time;
+ 21. the user's entry point (``mrt_torch.__main__``): ``main`` in-process as
+     ``python -m mrt_torch --scene rtiow`` at 1920x1080, depth 50, ``--spp 8
+     --samples-per-pass 4 --denoise --display-mode denoise --checkpoint``,
+     then resumed from that checkpoint to ``--spp 16``: the checkpoint and the
+     film at 8 then 16 samples, B1 and M1 once a step and 16 times in the AOV
+     pre-pass, B2 once a step and no other kernel but R1's draws, the PNG
+     equal to the film's DENOISE bytes; the five display modes exported and
+     decoded by ``load_png``; the denoiser at 1080p (ms, device kernels, peak
+     bytes, its output finite in [0, 1]) and on the card against the CPU on
+     artifacts/denoise_buffers.npz (1e-5); png_encode at 1080p; the AOV
+     pre-pass of rtiow, sphere_grid and lucy at 1080p (ms, launches: 16 of
+     each of its kernels and of M1), its first and last batches' B1, B5 and B7
+     winners against the plain versions on the card (B1 and B5 in their own
+     order bit-equal, B5 and B7 >= 99.9% against the escape order), the whole
+     frame at 256x144 against the port's CPU run (1e-5; the BVH walks may keep
+     another winner on 0.1% of pixels, C15); ``serve`` at 320x180 in a thread
+     (/status, /frame.png decoded, keys 2 and e, the stop event); ``python -X
+     importtime -m mrt_torch`` at 320x180, spp 2, without ``--device`` as a
+     subprocess (on the card, no PIL, JAX or mrt imported; without a visible
+     card it refuses);
+ 22. the sharded paths (``mrt_torch.parallel``): (a) a one-process NCCL group,
+     mesh (1, 1): ``render_sharded(persistent=True)`` of RTIOW at 1920x1080,
+     depth 50, spp 2, pool 2^17, equal to phase 6's film (bounce counts exact,
+     radiance within f32 reassociation), B1, B2 and M1 once a step and no
+     other kernel but R1's draws, the pass seconds beside phase 6's and the
+     all-reduce's; ``render_pass_sharded`` (wavefront) at 256x144, depth 8,
+     spp 2, against the same pass on the CPU: bit-equal with the CPU's sin and
+     cos substituted on the card and M1's plain version in M1's place (ROADMAP
+     C20, C22), and the pixels that differ without; (b) two ranks of a gloo
+     group on the one card, two subprocesses (``chip_smoke.py shard-worker``),
+     meshes (2, 1) and (1, 2): RTIOW at 1920x1080, depth 50, spp 2 against
+     phase 6's film and sphere_grid at 480x270, spp 2 (B5, B7, B2) against a
+     one-process pass, under the same rule.  Two ranks sharing one card give
+     no multi-GPU time;
  23. the lane coherence sorter (``integrator.persistent.sort_lanes``:
      kernel S1, the key; torch.sort; kernel S2, the permutation; the auto
      rule now sorts phases 10, 12's lucy and 15): sphere_grid, lucy, eve
@@ -178,7 +176,16 @@ Each phase prints one line:
      salt, timed by CUDA-graph replay beside its bytes bound and the
      plain draw; the host µs of one Sampler draw through R1 and through
      the plain path; R1's launches in phases 6 and 10 (two a step and
-     one to fill the pool).
+     one to fill the pool);
+ 25. L3 shading's M1 (``ops.shade.shade_lanes``) against the eager
+     composition of ``materials.shade.shade_hit``, all five outputs bit
+     for bit, on the 2^17 lanes of steps 2 and 64 of phases 6 (RTIOW),
+     10 (sphere_grid) and 18 (cornell NEE, the first pass); timed by
+     CUDA-graph replay at 2^17 lanes (RTIOW's step 64) and at 2,073,600
+     (those lanes repeated), beside its bytes bound, the eager
+     composition and the launch floor; the host µs of a call of each;
+     M1 once a step in those three passes, R1's count unchanged, and
+     none in phase 20's gradient pass (autograd records there).
 
 Each main path runs with every launch count set to 0 just before it and
 read just after.  Then a JSON line with each kernel's numbers (B2, B3
@@ -188,7 +195,8 @@ the last line ``{"ok": true, "device": {...}}``.  The JSON line's S1
 and S2 entries replace no Pallas kernel (``replaces`` names the
 reference's XLA sorter); their ``launches`` are phase 10's.  R1's
 replaces none either (``replaces`` names the reference's XLA draw); its
-``launches`` are phase 6's.  Any failure
+``launches`` are phase 6's, and so are M1's (it replaces none either:
+``replaces`` names the reference's ``shade_hit``).  Any failure
 raises and exits non-zero; so does a machine without CUDA.  Imports no
 JAX.
 
@@ -425,6 +433,32 @@ def captured_state(out):
         yield
     finally:
         persistent.LanePool.step = fn
+
+
+@contextlib.contextmanager
+def captured_shading(out):
+    """Inside the block, the arguments that the main path's M1 launches
+    number CAPTURE_STEPS (from 0) pass (``materials.shade.shade_lanes``:
+    the table, the hits' columns, d_in and the four uniforms) are copied
+    into out[step]."""
+    from mrt_torch.materials import shade
+
+    fn, calls = shade.shade_lanes, [0]
+    copy = lambda a: (a.clone() if torch.is_tensor(a) else
+                      tuple(x.clone() for x in a) if isinstance(a, tuple)
+                      else a)
+
+    def spy(*args):
+        if calls[0] in CAPTURE_STEPS:
+            out[calls[0]] = tuple(copy(a) for a in args)
+        calls[0] += 1
+        return fn(*args)
+
+    shade.shade_lanes = spy
+    try:
+        yield
+    finally:
+        shade.shade_lanes = fn
 
 
 @contextlib.contextmanager
@@ -670,7 +704,7 @@ def phase_golden(phase, name, dev, build=None, max_outside=None, **kw):
 
 
 def _wrappers():
-    from mrt_torch.ops import bvh, deposit, gather, rng, sort, spheres
+    from mrt_torch.ops import bvh, deposit, gather, rng, shade, sort, spheres
     from mrt_torch.tools import probe_stream
 
     return {"B1": spheres.nearest_t, "B2": deposit.deposit,
@@ -679,7 +713,7 @@ def _wrappers():
             "B7": bvh.tlas_hit, "P1": probe_stream.probe_a,
             "P2": probe_stream.probe_b, "P3": probe_stream.probe_c,
             "S1": sort.sort_keys, "S2": sort.permute_lanes,
-            "R1": rng.pcg4d_draw}
+            "R1": rng.pcg4d_draw, "M1": shade.shade_lanes}
 
 
 def reset_launches():
@@ -1353,19 +1387,23 @@ def phase_light_goldens(dev):
                  max_outside=40)
 
 
-def phase_nee(dev):
+def phase_nee(dev, shading):
     """cornell with NEE on both film modes, without and with Russian
-    roulette."""
+    roulette; the first pass's M1 arguments at CAPTURE_STEPS go into
+    `shading`."""
     runs = {}
     for rr in (None, 3):
         for pend in (False, True):
             key = (rr, pend)
             runs[key] = {}
             kernels = ("B1", "B7") + (("B4",) if pend else ("B2",))
+            first = key == (None, False)
             with environ(MRT_FILM_PEND="1" if pend else "0"):
                 launches, mean = phase_main(
                     18, "cornell", dev, kernels, nee=True, rr_depth=rr,
-                    film_out=runs[key], absent=("B2",) if pend else ())
+                    film_out=runs[key], absent=("B2",) if pend else (),
+                    during=(captured_shading(shading) if first
+                            else contextlib.nullcontext()))
             runs[key].update(launches=launches, mean=mean)
         a, b = runs[(rr, False)]["film"], runs[(rr, True)]["film"]
         diff, scale = films_agree(f"cornell NEE rr_depth={rr}", a, b)
@@ -1786,6 +1824,8 @@ def phase_grad(dev):
                 launches_forward=fwd["B1"], launches_recompute=bwd["B1"],
                 launches_r1_forward=fwd["R1"],
                 launches_r1_recompute=bwd["R1"],
+                launches_m1_forward=fwd["M1"],
+                launches_m1_recompute=bwd["M1"],
                 apply_ms=apply_ms, crop_rel=rel,
                 gather_backward_ms=gather_ms)
 
@@ -1946,12 +1986,12 @@ def aov_scene(name, dev):
     kernels = {"rtiow": ("B1",), "sphere_grid": ("B5", "B7"),
                "lucy": ("B1", "B7")}[name]
     for _, launches in runs:
-        check(all(launches[k] == batches for k in kernels)
+        check(all(launches[k] == batches for k in kernels + ("M1",))
               and launches["R1"] > 0
               and all(v == 0 for k, v in launches.items()
-                      if k not in kernels + ("R1",)),
+                      if k not in kernels + ("R1", "M1")),
               f"{name} AOV pre-pass: {launches}, not {batches} launches "
-              f"of each of {kernels}")
+              f"of each of {kernels} and M1")
     spots = {"B1": (B1, "nearest_t"), "B5": (K, "sphere_bvh_hit"),
              "B7": (K, "tlas_hit")}
     calls = {k: {} for k in kernels}
@@ -2109,13 +2149,13 @@ def phase_cli(dev):
             0].samples == spp, f"the checkpoint holds "
                               f"{Film.load_state(ckpt, device=dev)[0].samples}"
                               f" samples, the film {film.samples}, not {spp}")
-        check(launches["B1"] == steps + batches and launches["B2"] == steps
-              and launches["R1"] > 0
+        check(launches["B1"] == launches["M1"] == steps + batches
+              and launches["B2"] == steps and launches["R1"] > 0
               and all(v == 0 for k, v in launches.items()
-                      if k not in ("B1", "B2", "R1")),
+                      if k not in ("B1", "B2", "R1", "M1")),
               f"CLI run to spp {spp}: {steps} steps, launches {launches}; "
-              f"B1 should launch once a step and {batches} times in the "
-              "pre-pass, B2 once a step")
+              f"B1 and M1 should launch once a step and {batches} times in "
+              "the pre-pass, B2 once a step")
         shown = film.to_rgb_bytes(DisplayMode.DENOISE, denoiser=denoiser)
         check(np.array_equal((IO.load_png(out)[..., :3] * 255.0).round()
                              .astype(np.uint8), shown[::-1]),
@@ -2274,14 +2314,21 @@ def timed_all_reduce(out):
 @contextlib.contextmanager
 def cpu_trig():
     """The CPU's float32 sin and cos on every device inside the block:
-    CUDA's differ from them by an ulp on some inputs (ROADMAP C22)."""
-    saved = torch.sin, torch.cos
+    CUDA's differ from them by an ulp on some inputs (ROADMAP C22).  L3
+    shading takes M1's plain version in M1's place, since the kernel's
+    sinf and cosf are the card's (phase 25 holds M1 to the plain version
+    bit for bit)."""
+    from mrt_torch.materials import shade
+    from mrt_torch.ops import shade as M1
+
+    saved = torch.sin, torch.cos, shade.shade_lanes
     torch.sin, torch.cos = (
-        (lambda x, fn=fn: fn(x.cpu()).to(x.device)) for fn in saved)
+        (lambda x, fn=fn: fn(x.cpu()).to(x.device)) for fn in saved[:2])
+    shade.shade_lanes = M1.shade_lanes_plain
     try:
         yield
     finally:
-        torch.sin, torch.cos = saved
+        torch.sin, torch.cos, shade.shade_lanes = saved
 
 
 def shard_pass(name, dev, width, height, mesh):
@@ -2366,12 +2413,12 @@ def phase_sharded(dev, rtiow):
         check(mesh.groups["spp"] is not None, "no process group on (1, 1)")
         film, seconds, launches, steps, ar = shard_pass("rtiow", dev, WIDTH,
                                                         HEIGHT, mesh)
-        check(launches["B1"] == launches["B2"] == steps > 0
+        check(launches["B1"] == launches["B2"] == launches["M1"] == steps > 0
               and launches["R1"] > 0
               and not any(v for k, v in launches.items()
-                          if k not in ("B1", "B2", "R1")),
-              f"sharded RTIOW: B1 and B2 not once a step ({steps} steps): "
-              f"{launches}")
+                          if k not in ("B1", "B2", "R1", "M1")),
+              f"sharded RTIOW: B1, B2 and M1 not once a step ({steps} "
+              f"steps): {launches}")
         check(film.samples == 2, f"samples {film.samples}")
         diff, scale = films_agree("sharded RTIOW (1, 1) against phase 6",
                                   film, rtiow["film"])
@@ -2876,6 +2923,79 @@ def phase_r1(dev, floor):
     return out
 
 
+# M1's FP32 operations a lane, counted by hand from csrc/shade.cu (sinf,
+# cosf and the double pow count one each), and its bytes a lane: the hit's
+# normal, face, row and flag, d_in and four uniforms read (46 B); the
+# emission, attenuation and direction, the scattered flag and the lobe
+# written (41 B).  The table rows (40 B a row) stay in L2: not counted.
+OPS_SHADE = 166
+BYTES_SHADE = 46 + 41
+M1_SCENES = ("rtiow", "sphere_grid", "cornell_nee")
+
+
+def _m1_lanes(args, n):
+    """M1's arguments with their lanes repeated to `n`."""
+    grow = lambda x: x.repeat(-(-n // x.shape[0]),
+                              *[1] * (x.dim() - 1))[:n].contiguous()
+    return (args[0], *(grow(a) if torch.is_tensor(a)
+                       else tuple(grow(x) for x in a) for a in args[1:]))
+
+
+def phase_m1(dev, floor, captures, passes):
+    """Phase 25: L3 shading's M1 against the eager composition, bit for
+    bit, on steps 2 and 64 of the RTIOW, sphere_grid and cornell NEE main
+    paths (phases 6, 10, 18: `captures`, {scene: {step: args}}); its ms
+    by CUDA-graph replay at 2^17 lanes (RTIOW's step 64) and at 2,073,600
+    (those lanes repeated) beside its bytes bound and the eager
+    composition's ms; the host µs of one call of each; M1 once a step in
+    those passes (`passes`, {scene: (launches, steps, draws a step)}), R1
+    as before.  Returns M1's entry of the kernels line (without
+    launches)."""
+    from mrt_torch.ops import shade as M1
+
+    for name in M1_SCENES:
+        check(sorted(captures[name]) == sorted(CAPTURE_STEPS),
+              f"M1 {name}: captured steps {sorted(captures[name])}")
+        for step, args in sorted(captures[name].items()):
+            got = M1.shade_lanes(*args)
+            want = M1.shade_lanes_plain(*args)
+            check(all(bits_equal(g, w) for g, w in zip(got, want)),
+                  f"M1 on {name}'s step {step} differs from the eager "
+                  "composition: " + ", ".join(
+                      f"{(g != w).reshape(g.shape[0], -1).any(1).sum().item()}"
+                      f" lanes" for g, w in zip(got, want)))
+    out = dict(max_abs_err=0.0, floor_ms=floor, library_ms=None)
+    base = captures["rtiow"][CAPTURE_STEPS[-1]]
+    for n in R1_LANES:
+        args = base if n == RAYS else _m1_lanes(base, n)
+        got, want = M1.shade_lanes(*args), M1.shade_lanes_plain(*args)
+        check(all(bits_equal(g, w) for g, w in zip(got, want)),
+              f"M1 at {n} lanes differs from the eager composition")
+        row = dict(lanes=n, ms=graph_ms(lambda: M1.shade_lanes(*args), 50),
+                   plain_ms=graph_ms(lambda: M1.shade_lanes_plain(*args), 5),
+                   **bound(n * BYTES_SHADE, n * OPS_SHADE))
+        out[f"lanes_{n}"] = row
+    out["wrapper_host_us"] = host_us(lambda: M1.shade_lanes(*base), 1000)
+    out["plain_host_us"] = host_us(lambda: M1.shade_lanes_plain(*base), 100)
+    for name, (launches, steps, draws) in passes.items():
+        check(launches["M1"] == steps and launches["R1"] == draws * steps + 1,
+              f"{name}: M1 {launches['M1']} launches (not once a step of "
+              f"{steps}) or R1 {launches['R1']} (not {draws} a step + 1)")
+    out["launches_a_step"] = {name: launches["M1"] / steps
+                              for name, (launches, steps, _) in passes.items()}
+    for n in R1_LANES:
+        r = out[f"lanes_{n}"]
+        log(25, f"M1 shading, {n} lanes: bit-equal to the eager "
+                f"composition; {r['ms']:.5f} ms (CUDA graph), bound "
+                f"{r['bound_ms']:.5f} ({r['bound_by']}), floor {floor:.5f}; "
+                f"eager {r['plain_ms']:.4f}")
+    log(25, f"M1 bit-equal on steps {CAPTURE_STEPS} of {M1_SCENES}; host "
+            f"time a call at {RAYS} lanes: {out['wrapper_host_us']:.2f} µs "
+            f"through M1, {out['plain_host_us']:.2f} µs eager; launches a "
+            f"step {out['launches_a_step']}")
+    return out
+
+
 def phase_sort(dev, rtiow_state, rtiow_rays):
     """Phase 23: the lane sorter.  Returns the S1 and S2 entries of the
     kernels line (without launches) and the phase's numbers."""
@@ -2919,15 +3039,22 @@ def main():
     phase_golden(5, "rtiow", dev, grid=5)
     rtiow_rays, grid_rays, rtiow_film = {}, {}, {}
     rtiow_state = {}
-    rtiow, _ = phase_main(6, "rtiow", dev, ("B1", "B2"), film_out=rtiow_film,
+    shading = {name: {} for name in M1_SCENES}
+    rtiow, _ = phase_main(6, "rtiow", dev, ("B1", "B2", "M1"),
+                          film_out=rtiow_film,
                           during=contexts(captured_rays("B1", rtiow_rays),
-                                          captured_state(rtiow_state)))
+                                          captured_state(rtiow_state),
+                                          captured_shading(shading["rtiow"])))
     b1 = phase_b1(dev, rtiow_rays)
     b7 = phase_b7(dev)
     phase_golden(9, "cornell", dev)
+    grid_film = {}
     grid, _ = phase_main(10, "sphere_grid", dev,
-                         ("B2", "B5", "B7", "S1", "S2"),
-                         during=captured_rays("B5", grid_rays))
+                         ("B2", "B5", "B7", "S1", "S2", "M1"),
+                         film_out=grid_film,
+                         during=contexts(
+                             captured_rays("B5", grid_rays),
+                             captured_shading(shading["sphere_grid"])))
     b5 = phase_b5(dev, grid_rays)
     b6 = phase_b6(dev)
     meshes = phase_meshes(dev)
@@ -2936,7 +3063,7 @@ def main():
     eve = phase_eve(dev)
     b4 = phase_b4(dev, b2["floor_ms"])
     phase_light_goldens(dev)
-    nee = phase_nee(dev)
+    nee = phase_nee(dev, shading["cornell_nee"])
     menger = phase_menger(dev)
     probes = phase_probes(dev)
     grad = phase_grad(dev)
@@ -2944,6 +3071,11 @@ def main():
     sharded = phase_sharded(dev, rtiow_film)
     s1, s2, sort = phase_sort(dev, rtiow_state, rtiow_rays)
     r1 = phase_r1(dev, b2["floor_ms"])
+    m1 = phase_m1(dev, b2["floor_ms"], shading, {
+        "rtiow": (rtiow, rtiow_film["steps"], 2),
+        "sphere_grid": (grid, grid_film["steps"], 2),
+        "cornell_nee": (nee[(None, False)]["launches"],
+                        nee[(None, False)]["steps"], 3)})
 
     kernels = [
         dict(name="B1 sphere nearest hit", route="cuda",
@@ -3018,6 +3150,15 @@ def main():
              launches_cli=cli["runs"][0]["launches"]["R1"],
              launches_grad_forward=grad["launches_r1_forward"],
              launches_grad_recompute=grad["launches_r1_recompute"], **r1),
+        dict(name="M1 L3 shading", route="cuda",
+             source="mrt_torch/csrc/shade.cu",
+             replaces="mrt/materials/shade.py:395",
+             launches=rtiow["M1"], launches_sphere_grid=grid["M1"],
+             launches_cornell_nee=nee[(None, False)]["launches"]["M1"],
+             launches_cli=cli["runs"][0]["launches"]["M1"],
+             launches_aov=cli["aov"]["rtiow"]["launches"]["M1"],
+             launches_grad_forward=grad["launches_m1_forward"],
+             launches_grad_recompute=grad["launches_m1_recompute"], **m1),
     ]
     grad.pop("recover")
     log(20, f"gradient path: {json.dumps(grad)}")

@@ -48,6 +48,7 @@ from ..materials import shade
 from ..math.rng import MASK, Sampler, mul32
 from ..ops.deposit import deposit, deposit_pending
 from ..ops.rng import pcg4d_draw
+from ..ops.shade import shade_lanes
 from ..ops.sort import live_box, origin_box, permute_lanes, sort_keys
 from ..utils import profiling
 from .wavefront import (MAX_DEPTH, T_MIN, mis_emission, next_event,
@@ -305,7 +306,7 @@ def render_samples_persistent(scene, camera, width, height, seed,
     if sort_rays:
         sorter = make_sorter(scene, lanes.total)
         cadence = max(1, min(int(sort_rays), FLUSH_STEPS))
-    draws = pcg4d_draw.launches
+    draws, shades = pcg4d_draw.launches, shade_lanes.launches
     with profiling.unit("pass", pool=pool, work_items=lanes.total, steps=0,
                         sorts=0, checks=0, active=0,
                         drain_from=None) as rec:
@@ -330,5 +331,7 @@ def render_samples_persistent(scene, camera, width, height, seed,
                               else rec["steps"] - rec["drain_from"])
         # Kernel R1's launches: the pass's draws on the card.
         rec["draw_launches"] = pcg4d_draw.launches - draws
+        # Kernel M1's launches: the steps shaded on the card.
+        rec["shade_launches"] = shade_lanes.launches - shades
         return (film[:, :3].contiguous(),
                 torch.round(film[:, 3]).to(torch.int32))

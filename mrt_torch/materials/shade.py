@@ -17,6 +17,10 @@ maps.
   Null          never scatters
   EVE           per hit Mix(roughness + dirt, Lambertian(colour),
                 Specular(1.8, colour)); emits glow mask * glow * 10
+
+On the card a table with no atlas and no Mix rows shades in one launch
+of kernel M1 (``ops.shade``), bit-equal to this composition, unless
+autograd records through shading (``shades_on_card``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 from ..math import sampling, vec
 from ..ops import compact
+from ..ops.shade import shade_lanes
 from . import table as T
 
 
@@ -290,17 +295,52 @@ def _scatter_from(scene, rows, mtype, params, hits, d_in, sampler,
     return atten, new_dir, scattered, lobe
 
 
+def on_card(d_in):
+    """Whether a wavefront's lanes are on the card (CUDA tensors); tests
+    patch it to take kernel M1's route on the CPU through its plain
+    version, as ``math.rng.draws_on_card``."""
+    return d_in.is_cuda
+
+
+def shades_on_card(scene, hits, d_in):
+    """Whether shade_hit takes kernel M1 (``ops.shade``): lanes on the
+    card, a table with no atlas and no Mix rows, and autograd not
+    recording through shading (grad mode off, or none of d_in, the hit
+    normals and the table's float columns requiring grad).  Everywhere
+    else the eager composition runs."""
+    if not on_card(d_in) or scene.atlas is not None or scene.has_mix:
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    m = scene.materials
+    return not any(x.requires_grad for x in (d_in, hits.normal, m.albedo,
+                                             m.fuzz, m.ior, m.emit))
+
+
 def shade_hit(scene, hits, d_in, em_sampler, sc_sampler):
     """Emission and scatter for a wavefront: (emitted (N,3),
     attenuation (N,3), new_direction (N,3), scattered (N,), lobe (N,)).
     Random streams are those of emitted() then scatter(); without Mix
     rows the row resolution is the identity and both share one row
-    lookup."""
+    lookup.  Where ``shades_on_card`` holds, kernel M1 computes the
+    eager composition's values, bit for bit, in one launch."""
     if scene.has_mix:
         e = emitted(scene, hits, em_sampler)
         return (e, *scatter(scene, hits, d_in, sc_sampler))
     em_sampler.skip(T.MAX_MIX_DEPTH)
     sc_sampler.skip(T.MAX_MIX_DEPTH)
+    if shades_on_card(scene, hits, d_in):
+        return shade_lanes(scene.materials, hits.normal.contiguous(),
+                           hits.front_face.contiguous(),
+                           hits.material.contiguous(),
+                           hits.hit.contiguous(), d_in.contiguous(),
+                           sc_sampler.next4())
+    return shade_rows(scene, hits, d_in, sc_sampler)
+
+
+def shade_rows(scene, hits, d_in, sc_sampler):
+    """shade_hit's eager composition on a table with no Mix rows, after
+    the row resolution's draws were skipped."""
     rows = hits.material
     m = scene.materials
     params = m.params.index_select(0, rows)

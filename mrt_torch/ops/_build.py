@@ -59,6 +59,7 @@ SIGNATURES = {
                     _P, _P),
     "mrt_sort_keys": (_P, _P, _P, _P, _L, _I, _P, _P),
     "mrt_pcg4d": (_P, _I, _P, _U, _P, _I, _U, _U, _P, _P),
+    "mrt_shade": (_P,) * 5 + (_I,) + (_P,) * 9 + (_I,) + (_P,) * 6,
     "mrt_permute_lanes": (_P, _I) + (_P,) * 17,
     "mrt_tlas": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                  _I, _P, _P, _P, _P, _P, _P, _I, _P),

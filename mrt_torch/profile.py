@@ -76,7 +76,8 @@ KERNELS = {"B1": "nearest_t_kernel",
            "B4": r"deposit_kernel(<4, false, true>|ILi4ELb0ELb1E)",
            "B5": "sphere_bvh_kernel", "B6": "tri_bvh_kernel",
            "B7": "tlas_kernel", "S1": "sort_key_kernel",
-           "S2": "permute_lanes_kernel", "R1": "pcg4d_kernel"}
+           "S2": "permute_lanes_kernel", "R1": "pcg4d_kernel",
+           "M1": "shade_kernel"}
 
 
 def one_pass(scene, camera, args):

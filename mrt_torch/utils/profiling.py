@@ -243,7 +243,7 @@ def tracing(ranges=False):
 def kernel_launches():
     """Each hand kernel's launches so far, by name (the wrappers' own
     ``launches`` counters)."""
-    from ..ops import bvh, deposit, gather, rng, sort, spheres
+    from ..ops import bvh, deposit, gather, rng, shade, sort, spheres
 
     return {"B1": spheres.nearest_t.launches,
             "B2": deposit.deposit.launches,
@@ -254,7 +254,8 @@ def kernel_launches():
             "B7": bvh.tlas_hit.launches,
             "S1": sort.sort_keys.launches,
             "S2": sort.permute_lanes.launches,
-            "R1": rng.pcg4d_draw.launches}
+            "R1": rng.pcg4d_draw.launches,
+            "M1": shade.shade_lanes.launches}
 
 
 def snapshot():

@@ -39,8 +39,9 @@ in the forward and in the checkpoint's recompute, and its gradients
 equal those with the plain version's winners.  Divisions by a host
 number give the CPU's quotient on the card (ROADMAP C20): the wavefront's
 camera coordinates, ``Film.mean``, the lights' pdf; with the CPU's sin
-and cos substituted on the card (its own differ, ROADMAP C22) a 256x144
-RTIOW wavefront film is bit-equal to the CPU's.  The lane sorter's S1
+and cos substituted on the card (its own differ, ROADMAP C22) and M1's
+plain version in M1's place a 256x144 RTIOW wavefront film is bit-equal
+to the CPU's.  The lane sorter's S1
 and S2 equal their plain versions bit for bit on 2^17 lanes and on
 2^17 - 37 (idle lanes, zero, NaN and huge directions, NaN and infinite
 origins; S2 with and without the pend accumulator), also replayed in a
@@ -56,7 +57,13 @@ forced onto the plain path around next1 and skip; it replays in a CUDA
 graph with a new seed and salt; its wrapper refuses CPU tensors, int32
 ids and mis-shaped salts; RTIOW and sphere_grid spp-1 passes through it
 equal the plain sampler's bit for bit, with two launches a step and one
-to fill the pool.
+to fill the pool.  L3 shading's M1 equals the eager composition on all
+five outputs, bit for bit: on a synthetic wavefront that reaches every
+class and edge (tests/torch_shade_cases.py), each case on its own lanes,
+and on the 2^17 lanes of steps 2 and 64 of RTIOW, sphere_grid and
+cornell NEE passes at 1080p; an spp-2 RTIOW pass through it deposits
+what the eager pass deposits, step by step, with one M1 launch a step;
+its wrapper refuses CPU tensors, a wrong dtype and a strided input.
 """
 
 import pytest
@@ -907,11 +914,18 @@ def test_gradient_pass_b1_winners_match_plain(cuda, monkeypatch):
 
 def cpu_trig(monkeypatch):
     """The CPU's float32 sin and cos on every device: CUDA's differ from
-    them by an ulp on some inputs (ROADMAP C22)."""
+    them by an ulp on some inputs (ROADMAP C22).  L3 shading takes M1's
+    plain version in M1's place: the kernel's sinf and cosf are the
+    card's, and M1 equals the plain version on the card bit for bit
+    (the M1 tests below)."""
+    from mrt_torch.materials import shade
+    from mrt_torch.ops import shade as M1
+
     for name in ("sin", "cos"):
         fn = getattr(torch, name)
         monkeypatch.setattr(torch, name,
                             lambda x, fn=fn: fn(x.cpu()).to(x.device))
+    monkeypatch.setattr(shade, "shade_lanes", M1.shade_lanes_plain)
 
 
 def test_c20_wavefront_film_equals_the_cpu(cuda, monkeypatch):
@@ -1343,3 +1357,146 @@ def test_r1_pass_equals_the_plain_sampler_pass(cuda, monkeypatch, name):
     assert torch.equal(_bits(card.sum), _bits(plain.sum))
     assert torch.equal(card.depth_sum, plain.depth_sum)
     assert card.depth_sum.sum() > 0
+
+
+# Kernel M1, L3 shading (ops/shade.py), against the eager composition.
+M1_OUTPUTS = ("emitted", "attenuation", "new_direction", "scattered", "lobe")
+
+
+def _m1_equal(got, want, what):
+    for name, g, w in zip(M1_OUTPUTS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        assert torch.equal(_bits(g), _bits(w)), (what, name)
+
+
+@pytest.mark.parametrize("drop", [0, 37])
+def test_m1_matches_eager_on_every_class_and_edge(cuda, drop):
+    # The synthetic wavefront of tests/torch_shade_cases.py, each case on
+    # its own lanes (drop: lanes cut from the end, so the count is not a
+    # multiple of the block).
+    import torch_shade_cases as cases
+    from mrt_torch.ops import shade as M1
+
+    tab, args, parts = cases.wavefront(cuda)
+    n = args[0].shape[0] - drop
+    cut = lambda a: a[:n] if torch.is_tensor(a) else tuple(x[:n] for x in a)
+    args = tuple(cut(a) for a in args)
+    before = M1.shade_lanes.launches
+    got = M1.shade_lanes(tab, *args)
+    want = M1.shade_lanes_plain(tab, *args)
+    torch.cuda.synchronize()
+    assert M1.shade_lanes.launches == before + 1
+    for case, part in parts.items():
+        part = slice(part.start, min(part.stop, n))
+        _m1_equal([g[part] for g in got], [w[part] for w in want], case)
+        if part.stop - part.start == cases.LANES:
+            cases.check_edge(case, tab, args, want, part)
+    _m1_equal(got, want, "all lanes")
+
+
+def _m1_recorded_steps(cuda, monkeypatch, name):
+    """{step: M1's arguments} at steps 2 and 64 of a 1080p pass of
+    `name` (2^17 lanes, spp 1, stopped after the check past step 64)."""
+    from mrt_torch.integrator import persistent
+    from mrt_torch.materials import shade
+    from mrt_torch.runtime.film import Film
+    from mrt_torch.runtime.render import render_pass_persistent
+    from mrt_torch.scenes import get
+
+    nee = name == "cornell_nee"
+    scene, camera = get("cornell" if nee else name)(nee=nee).generate(
+        device=cuda)
+    real, calls, out = shade.shade_lanes, [0], {}
+
+    def spy(*args):
+        if calls[0] in (2, 64):
+            out[calls[0]] = tuple(
+                a.clone() if torch.is_tensor(a)
+                else tuple(x.clone() for x in a) if isinstance(a, tuple)
+                else a for a in args)
+        calls[0] += 1
+        return real(*args)
+
+    busy = persistent.LanePool.busy
+    monkeypatch.setattr(shade, "shade_lanes", spy)
+    monkeypatch.setattr(persistent.LanePool, "busy", lambda self, st: (
+        self.record["steps"] < 65 and busy(self, st)))
+    render_pass_persistent(scene, camera, Film.create(1920, 1080, device=cuda),
+                           1, 0, width=1920, height=1080, max_depth=50,
+                           samples=1, pool=1 << 17)
+    assert sorted(out) == [2, 64]
+    return out
+
+
+@pytest.mark.parametrize("name", ["rtiow", "sphere_grid", "cornell_nee"])
+def test_m1_matches_eager_on_recorded_steps(cuda, monkeypatch, name):
+    from mrt_torch.ops import shade as M1
+
+    for step, args in _m1_recorded_steps(cuda, monkeypatch, name).items():
+        assert args[1].shape == (1 << 17, 3)
+        got = M1.shade_lanes(*args)
+        want = M1.shade_lanes_plain(*args)
+        torch.cuda.synchronize()
+        _m1_equal(got, want, f"{name} step {step}")
+
+
+def test_m1_spp2_rtiow_pass_equals_the_eager_pass(cuda, monkeypatch):
+    # A 256x144 spp-2 RTIOW pass through M1 and with the eager composition
+    # forced: every step's deposit (slots and values) bit-equal, so the
+    # films differ only by the order of B2's atomic adds (bounce counts
+    # exact); one M1 launch a step and R1's draws unchanged.
+    from mrt_torch.integrator import persistent
+    from mrt_torch.materials import shade
+    from mrt_torch.runtime.film import Film
+    from mrt_torch.runtime.render import render_pass_persistent
+    from mrt_torch.scenes import get
+    from mrt_torch.utils import profiling
+
+    scene, camera = get("rtiow")().generate(device=cuda)
+    deposit = persistent.deposit
+
+    def one_pass():
+        seen = []
+
+        def spy(film, slot, contrib):
+            seen.append((slot.clone(), contrib.clone()))
+            return deposit(film, slot, contrib)
+
+        monkeypatch.setattr(persistent, "deposit", spy)
+        film = render_pass_persistent(
+            scene, camera, Film.create(256, 144, device=cuda), 1, 0,
+            width=256, height=144, max_depth=50, samples=2)
+        return film, seen, dict(profiling.snapshot()["pass"][-1])
+
+    m1, m1_deposits, m1_rec = one_pass()
+    monkeypatch.setattr(shade, "shades_on_card", lambda *args: False)
+    eager, eager_deposits, eager_rec = one_pass()
+    assert m1_rec["steps"] == eager_rec["steps"] == len(m1_deposits) > 0
+    assert m1_rec["shade_launches"] == m1_rec["steps"]
+    assert eager_rec["shade_launches"] == 0
+    assert m1_rec["draw_launches"] == eager_rec["draw_launches"] == (
+        2 * m1_rec["steps"] + 1)
+    for k, ((s1, c1), (s2, c2)) in enumerate(zip(m1_deposits,
+                                                 eager_deposits)):
+        assert torch.equal(s1, s2) and torch.equal(_bits(c1), _bits(c2)), k
+    assert torch.equal(m1.depth_sum, eager.depth_sum)
+    assert m1.depth_sum.sum() > 0
+    torch.testing.assert_close(m1.sum, eager.sum, rtol=1e-6, atol=1e-6)
+
+
+def test_m1_wrapper_raises_instead_of_falling_back(cuda):
+    import torch_shade_cases as cases
+    from mrt_torch.ops import shade as M1
+
+    tab, (normal, front, rows, hit, d_in, u), _ = cases.wavefront(cuda)
+    with pytest.raises(ValueError, match="no kernel"):
+        M1.shade_lanes(cases.table("cpu"), normal.cpu(), front.cpu(),
+                       rows.cpu(), hit.cpu(), d_in.cpu(),
+                       tuple(x.cpu() for x in u))
+    with pytest.raises(ValueError, match="normal"):
+        M1.shade_lanes(tab, normal.cpu(), front, rows, hit, d_in, u)
+    with pytest.raises(TypeError, match="material"):
+        M1.shade_lanes(tab, normal, front, rows.long(), hit, d_in, u)
+    with pytest.raises(ValueError, match="d_in is not contiguous"):
+        M1.shade_lanes(tab, normal, front, rows, hit,
+                       torch.cat([d_in, d_in], dim=1)[:, 3:], u)

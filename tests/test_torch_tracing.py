@@ -320,6 +320,28 @@ def test_the_draw_launch_reader(records, want):
     assert reader.read({}) == want
 
 
+@pytest.mark.parametrize("records, want", [
+    ((), None),                                          # no pass
+    ((dict(steps=8, shade_launches=8),), 1.0),
+    ((dict(steps=8),), None),                            # a program without M1
+    ((dict(steps=8, shade_launches=0),), 0.0),           # the eager route
+    ((dict(steps=0, shade_launches=0),), None),
+    ((dict(steps=16, shade_launches=16), dict(steps=8, shade_launches=0,
+                                              profiled=True)), 1.0),
+])
+def test_the_shade_launch_reader(records, want):
+    # shade_launches_per_step.frame reads the newest unprofiled pass
+    # record.
+    reader = _reader("shade_launches_per_step.frame")
+    for fields in records:
+        fields = dict(fields)
+        profiled = fields.pop("profiled", False)
+        with profiling.unit("pass", **fields) as rec:
+            pass
+        rec["profiled"] = profiled
+    assert reader.read({}) == want
+
+
 @pytest.mark.parametrize("scene_name", ["rtiow", "sphere_grid"])
 def test_a_pass_record_counts_two_draws_a_step(monkeypatch, scene_name):
     # With the card's path of Sampler taken on the CPU (R1's place held by
