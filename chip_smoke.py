@@ -174,9 +174,9 @@ Each phase prints one line:
      version bit for bit at 2^17 and 2,073,600 lanes (the frame pool and
      the gradient path's 1080p lanes), with an int salt and a per-lane
      salt, timed by CUDA-graph replay beside its bytes bound and the
-     plain draw; the host µs of one Sampler draw through R1 and through
-     the plain path; R1's launches in phases 6 and 10 (two a step and
-     one to fill the pool);
+     plain draw; the host µs of one Sampler draw through R1 and of one
+     call of its plain version; R1's launches in phases 6 and 10 (two a
+     step and one to fill the pool);
  25. L3 shading's M1 (``ops.shade.shade_lanes``) against the eager
      composition of ``materials.shade.shade_hit``, all five outputs bit
      for bit, on the 2^17 lanes of steps 2 and 64 of phases 6 (RTIOW),
@@ -703,26 +703,19 @@ def phase_golden(phase, name, dev, build=None, max_outside=None, **kw):
         + f" (of 576; allowed: {rule})")
 
 
-def _wrappers():
-    from mrt_torch.ops import bvh, deposit, gather, rng, shade, sort, spheres
-    from mrt_torch.tools import probe_stream
-
-    return {"B1": spheres.nearest_t, "B2": deposit.deposit,
-            "B3": gather.gather, "B4": deposit.deposit_pending,
-            "B5": bvh.sphere_bvh_hit, "B6": bvh.tri_bvh_hit,
-            "B7": bvh.tlas_hit, "P1": probe_stream.probe_a,
-            "P2": probe_stream.probe_b, "P3": probe_stream.probe_c,
-            "S1": sort.sort_keys, "S2": sort.permute_lanes,
-            "R1": rng.pcg4d_draw, "M1": shade.shade_lanes}
-
-
 def reset_launches():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    """Set the tracer's launch count of every hand kernel to 0."""
+    from mrt_torch.utils import profiling
+
+    counts = profiling.launch_counts
+    counts.update(dict.fromkeys(counts, 0))
 
 
 def read_launches():
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    """The tracer's launches of each hand kernel, by id."""
+    from mrt_torch.utils import profiling
+
+    return profiling.kernel_launches()
 
 
 @contextlib.contextmanager
@@ -1878,13 +1871,10 @@ def first_and_last_calls(module, name, out):
         out["calls"] = out.get("calls", 0) + 1
         return fn(*args, **kwargs)
 
-    # The wrapper counts its launches on the module's attribute: the spy.
-    spy.launches = fn.launches
     setattr(module, name, spy)
     try:
         yield
     finally:
-        fn.launches = spy.launches
         setattr(module, name, fn)
 
 
@@ -2873,7 +2863,8 @@ def phase_r1(dev, floor):
     bit, at R1_LANES lanes with an int and a per-lane salt; the kernel's
     ms by CUDA-graph replay beside its bytes bound (8 bytes of ray id, 8
     of a per-lane salt, 16 of draws a lane) and the plain draw's ms; the
-    host µs of one Sampler draw through R1 and through the plain path.
+    host µs of one Sampler draw through R1 and of one call of its plain
+    version.
     Returns R1's entry of the kernels line (without launches)."""
     from mrt_torch.math import rng
     from mrt_torch.ops import rng as R1
@@ -2904,12 +2895,8 @@ def phase_r1(dev, floor):
     salt = 3 * torch.randint(0, 50, (RAYS,), device=dev, generator=g) + 1
     draw = lambda: rng.Sampler(R1_SEED, ids, salt).next4()
     out["wrapper_host_us"] = host_us(draw, 1000)
-    card = rng.draws_on_card
-    rng.draws_on_card = lambda ray_id: False
-    try:
-        out["plain_host_us"] = host_us(draw, 200)
-    finally:
-        rng.draws_on_card = card
+    out["plain_host_us"] = host_us(
+        lambda: R1.pcg4d_draw_plain(ids, R1_SEED, salt, 0), 200)
     for n in R1_LANES:
         r = out[f"lanes_{n}"]
         log(24, f"R1 PCG4D draw, {n} lanes: bit-equal to its plain version; "
@@ -2919,7 +2906,7 @@ def phase_r1(dev, floor):
                 f"plain {r['plain_ms']:.4f} / {r['plain_ms_salted']:.4f}")
     log(24, f"a Sampler's draw, host time a call at {RAYS} lanes: "
             f"{out['wrapper_host_us']:.2f} µs through R1, "
-            f"{out['plain_host_us']:.2f} µs on the plain path")
+            f"{out['plain_host_us']:.2f} µs for its plain version")
     return out
 
 

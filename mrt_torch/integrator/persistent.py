@@ -47,8 +47,6 @@ import torch
 from ..materials import shade
 from ..math.rng import MASK, Sampler, mul32
 from ..ops.deposit import deposit, deposit_pending
-from ..ops.rng import pcg4d_draw
-from ..ops.shade import shade_lanes
 from ..ops.sort import live_box, origin_box, permute_lanes, sort_keys
 from ..utils import profiling
 from .wavefront import (MAX_DEPTH, T_MIN, mis_emission, next_event,
@@ -57,23 +55,17 @@ from .wavefront import (MAX_DEPTH, T_MIN, mis_emission, next_event,
 POOL = 1 << 17
 # Steps between termination checks (each check syncs with the device).
 FLUSH_STEPS = 8
-# The pend film mode's default when neither the caller nor MRT_FILM_PEND
-# chooses, as in the reference.
-PEND_AUTO_ON = False
 
 
 def pend_enabled(pend=None):
     """Resolve the pending-deposit film mode: True or False as given;
-    None reads MRT_FILM_PEND ("1" on, "0" off) and else PEND_AUTO_ON.
-    The reference also gates the mode on its TPU kernel's layout (pool %
-    1024, film rows * 4 % 128); kernel B4 takes any shape, so the port
-    has no such gate."""
+    None reads MRT_FILM_PEND ("1" on, off otherwise, as the reference's
+    default).  The reference also gates the mode on its TPU kernel's
+    layout (pool % 1024, film rows * 4 % 128); kernel B4 takes any
+    shape, so the port has no such gate."""
     if pend is not None:
         return bool(pend)
-    flag = os.environ.get("MRT_FILM_PEND")
-    if flag in ("0", "1"):
-        return flag == "1"
-    return PEND_AUTO_ON
+    return os.environ.get("MRT_FILM_PEND") == "1"
 
 
 class LanePool:
@@ -306,7 +298,8 @@ def render_samples_persistent(scene, camera, width, height, seed,
     if sort_rays:
         sorter = make_sorter(scene, lanes.total)
         cadence = max(1, min(int(sort_rays), FLUSH_STEPS))
-    draws, shades = pcg4d_draw.launches, shade_lanes.launches
+    launches = profiling.launch_counts
+    draws, shades = launches["R1"], launches["M1"]
     with profiling.unit("pass", pool=pool, work_items=lanes.total, steps=0,
                         sorts=0, checks=0, active=0,
                         drain_from=None) as rec:
@@ -330,8 +323,8 @@ def render_samples_persistent(scene, camera, width, height, seed,
         rec["drain_steps"] = (0 if rec["drain_from"] is None
                               else rec["steps"] - rec["drain_from"])
         # Kernel R1's launches: the pass's draws on the card.
-        rec["draw_launches"] = pcg4d_draw.launches - draws
+        rec["draw_launches"] = launches["R1"] - draws
         # Kernel M1's launches: the steps shaded on the card.
-        rec["shade_launches"] = shade_lanes.launches - shades
+        rec["shade_launches"] = launches["M1"] - shades
         return (film[:, :3].contiguous(),
                 torch.round(film[:, 3]).to(torch.int32))

@@ -18,9 +18,10 @@ maps.
   EVE           per hit Mix(roughness + dirt, Lambertian(colour),
                 Specular(1.8, colour)); emits glow mask * glow * 10
 
-On the card a table with no atlas and no Mix rows shades in one launch
-of kernel M1 (``ops.shade``), bit-equal to this composition, unless
-autograd records through shading (``shades_on_card``).
+A table with no atlas and no Mix rows shades through kernel M1's
+wrapper (``ops.shade``), unless autograd records through shading
+(``shades_on_card``): on the card in one launch, bit-equal to this
+composition, and on the CPU through that composition itself.
 """
 
 from __future__ import annotations
@@ -295,20 +296,13 @@ def _scatter_from(scene, rows, mtype, params, hits, d_in, sampler,
     return atten, new_dir, scattered, lobe
 
 
-def on_card(d_in):
-    """Whether a wavefront's lanes are on the card (CUDA tensors); tests
-    patch it to take kernel M1's route on the CPU through its plain
-    version, as ``math.rng.draws_on_card``."""
-    return d_in.is_cuda
-
-
 def shades_on_card(scene, hits, d_in):
-    """Whether shade_hit takes kernel M1 (``ops.shade``): lanes on the
-    card, a table with no atlas and no Mix rows, and autograd not
-    recording through shading (grad mode off, or none of d_in, the hit
-    normals and the table's float columns requiring grad).  Everywhere
-    else the eager composition runs."""
-    if not on_card(d_in) or scene.atlas is not None or scene.has_mix:
+    """Whether shade_hit takes kernel M1's wrapper (``ops.shade``): a
+    table with no atlas and no Mix rows, and autograd not recording
+    through shading (grad mode off, or none of d_in, the hit normals and
+    the table's float columns requiring grad).  Everywhere else the
+    eager composition runs."""
+    if scene.atlas is not None or scene.has_mix:
         return False
     if not torch.is_grad_enabled():
         return True
@@ -322,8 +316,9 @@ def shade_hit(scene, hits, d_in, em_sampler, sc_sampler):
     attenuation (N,3), new_direction (N,3), scattered (N,), lobe (N,)).
     Random streams are those of emitted() then scatter(); without Mix
     rows the row resolution is the identity and both share one row
-    lookup.  Where ``shades_on_card`` holds, kernel M1 computes the
-    eager composition's values, bit for bit, in one launch."""
+    lookup.  Where ``shades_on_card`` holds, kernel M1's wrapper computes
+    the eager composition's values, bit for bit: in one launch on the
+    card."""
     if scene.has_mix:
         e = emitted(scene, hits, em_sampler)
         return (e, *scatter(scene, hits, d_in, sc_sampler))

@@ -9,9 +9,10 @@ PCG4D (Jarzynski & Olano, "Hash Functions for GPU Rendering", JCGT
 right shift on every device, so values are carried as int64 holding
 uint32 bit patterns in [0, 2^32).  Products are formed from 16-bit
 halves so no intermediate leaves int64 range, and every result is
-masked back to 32 bits.  On CUDA tensors a ``Sampler`` draws through
-kernel R1 (``ops/rng.py``), which computes the same hash in native
-uint32: one launch a draw in place of that emulation's ~137.
+masked back to 32 bits.  A ``Sampler`` draws through R1's wrapper
+(``ops/rng.py``): on CPU tensors its plain version, this emulation; on
+CUDA tensors the kernel, which computes the same hash in native uint32,
+one launch a draw in place of the emulation's ~137.
 """
 
 from __future__ import annotations
@@ -72,50 +73,25 @@ def to_unit_float(u):
     return (u >> 8).to(torch.float32) * _INV_2_24
 
 
-def draws_on_card(ray_id):
-    """Whether a Sampler over `ray_id` draws through kernel R1: on CUDA
-    tensors (tests patch it to hold R1 against the plain path there)."""
-    return ray_id.is_cuda
-
-
 class Sampler:
     """Per-ray random stream indexed by (seed, ray_id, salt, draw).
 
-    ``ray_id`` is an integer tensor; ``seed`` and ``salt`` are ints or
-    integer tensors broadcasting against it.  The draw counter lives on
-    the host, so each call site gets its own stream.  On the card
-    (``draws_on_card``) the three are kept as given, an int64 ray_id, an
-    int or 0-d seed and an int, 0-d or ray_id-shaped salt, and each draw
-    is one launch of R1, which takes their low 32 bits itself.
+    ``ray_id`` is a contiguous int64 tensor; ``seed`` an int or a 0-d
+    int64 tensor; ``salt`` an int, or an int64 tensor of shape () or
+    ray_id's.  The three are kept as given: each draw is one call of
+    ``ops.rng.pcg4d_draw``, which takes their low 32 bits.  The draw
+    counter lives on the host, so each call site gets its own stream.
     """
 
     def __init__(self, seed, ray_id, salt=0):
         self._draw = 0
-        self.card = draws_on_card(ray_id)
-        if self.card:
-            self.ray_id, self.seed, self.salt = ray_id, seed, salt
-            return
-        self.ray_id = u32(ray_id)
-        device = self.ray_id.device
-        self.seed = u32(seed, device)
-        self.salt = u32(salt, device)
+        self.ray_id, self.seed, self.salt = ray_id, seed, salt
 
     def next4(self):
         """Four independent uniform [0, 1) float32 tensors, ray_id-shaped."""
         draw = self._draw & MASK
         self._draw += 1
-        if self.card:
-            return pcg4d_draw(self.ray_id, self.seed, self.salt,
-                              draw).unbind(0)
-        ids = self.ray_id
-        x, y, z, w = pcg4d(
-            ids,
-            ((self.salt + ((0x9E3779B9 * draw) & MASK)) & MASK).expand_as(ids),
-            self.seed.expand_as(ids),
-            (((self.seed << 8) & MASK) ^ draw).expand_as(ids),
-        )
-        return (to_unit_float(x), to_unit_float(y),
-                to_unit_float(z), to_unit_float(w))
+        return pcg4d_draw(self.ray_id, self.seed, self.salt, draw).unbind(0)
 
     def next1(self):
         a, _, _, _ = self.next4()

@@ -1,5 +1,12 @@
-"""Build the CUDA kernels of ``mrt_torch/csrc`` at first use and bind
-them with ctypes.
+"""Build the CUDA kernels of ``mrt_torch/csrc`` at first use, bind
+them with ctypes, launch them and count their launches.
+
+``KERNELS`` declares every hand kernel once, by id: its C entry, the
+entry's argument types and the kernel's device name.  ``launch`` calls
+an entry and counts the launch under the kernel's id in
+``utils.profiling.launch_counts``, which the tracer's snapshot and the
+pass record read; ``profile.py`` names the kernels in a trace by the
+table's patterns.
 
 Each ``csrc/*.cu`` file compiles with its own nvcc process, all started
 together, and the objects link into one shared library with a plain C
@@ -21,6 +28,7 @@ alignment.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -42,28 +50,51 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _U = ctypes.c_longlong, ctypes.c_uint
-# C entry points: argument types; each returns a cudaError_t as int.
-SIGNATURES = {
-    "mrt_nearest_t": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _F, _P, _F,
-                      _I, _P, _P, _I, _P),
-    "mrt_deposit": (_P, _I, _I, _P, _P, _P, _I, _I, _P),
-    "mrt_deposit_pending": (_P, _I, _P, _P, _P, _I, _P),
-    "mrt_probe_a": (_P, _P, _P, _P, _P),
-    "mrt_probe_b": (_P, _I, _I, _P, _P, _P, _P),
-    "mrt_probe_c": (_P, _P, _I, _P, _P),
-    "mrt_probe_attributes": (_P, _P, _P),
-    "mrt_gather": (_P, _I, _I, _P, _P, _I, _P, _P),
-    "mrt_sphere_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _F, _P, _F, _I, _P,
-                       _P, _P, _P),
-    "mrt_tri_bvh": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                    _P, _P),
-    "mrt_sort_keys": (_P, _P, _P, _P, _L, _I, _P, _P),
-    "mrt_pcg4d": (_P, _I, _P, _U, _P, _I, _U, _U, _P, _P),
-    "mrt_shade": (_P,) * 5 + (_I,) + (_P,) * 9 + (_I,) + (_P,) * 6,
-    "mrt_permute_lanes": (_P, _I) + (_P,) * 17,
-    "mrt_tlas": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                 _I, _P, _P, _P, _P, _P, _P, _I, _P),
+Kernel = collections.namedtuple("Kernel", "entry argtypes pattern")
+# The hand kernels by id: each one's C entry, which returns a cudaError_t
+# as int, the entry's argument types (the stream last), and the kernel's
+# device name as a regular expression.  B2 and B4 are instances of one
+# template, deposit_kernel<C, drop, pend>, told apart by pend (demangled
+# as the profiler shows it, or mangled).  Adding a kernel takes a
+# ``csrc`` file, a row here and a wrapper that calls ``launch``.
+KERNELS = {
+    "B1": Kernel("mrt_nearest_t", (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                   _F, _P, _F, _I, _P, _P, _I, _P),
+                 "nearest_t_kernel"),
+    "B2": Kernel("mrt_deposit", (_P, _I, _I, _P, _P, _P, _I, _I, _P),
+                 r"deposit_kernel(<\d+, \w+, false>|ILi\d+ELb[01]ELb0E)"),
+    "B3": Kernel("mrt_gather", (_P, _I, _I, _P, _P, _I, _P, _P),
+                 "row_gather_kernel"),
+    "B4": Kernel("mrt_deposit_pending", (_P, _I, _P, _P, _P, _I, _P),
+                 r"deposit_kernel(<4, false, true>|ILi4ELb0ELb1E)"),
+    "B5": Kernel("mrt_sphere_bvh", (_P, _P, _I, _P, _I, _P, _P, _P, _F, _P,
+                                    _F, _I, _P, _P, _P, _P),
+                 "sphere_bvh_kernel"),
+    "B6": Kernel("mrt_tri_bvh", (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P,
+                                 _P, _P, _P, _P, _P),
+                 "tri_bvh_kernel"),
+    "B7": Kernel("mrt_tlas", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                              _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                              _P),
+                 "tlas_kernel"),
+    "S1": Kernel("mrt_sort_keys", (_P, _P, _P, _P, _L, _I, _P, _P),
+                 "sort_key_kernel"),
+    "S2": Kernel("mrt_permute_lanes", (_P, _I) + (_P,) * 17,
+                 "permute_lanes_kernel"),
+    "R1": Kernel("mrt_pcg4d", (_P, _I, _P, _U, _P, _I, _U, _U, _P, _P),
+                 "pcg4d_kernel"),
+    "M1": Kernel("mrt_shade", (_P,) * 5 + (_I,) + (_P,) * 9 + (_I,)
+                 + (_P,) * 6, "shade_kernel"),
+    "P1": Kernel("mrt_probe_a", (_P, _P, _P, _P, _P), "probe_a_kernel"),
+    "P2": Kernel("mrt_probe_b", (_P, _I, _I, _P, _P, _P, _P),
+                 "probe_b_kernel"),
+    "P3": Kernel("mrt_probe_c", (_P, _P, _I, _P, _P), "probe_c_kernel"),
 }
+# Every C entry: (its kernel's id, its argument types); a helper, which
+# launches no kernel, has no id.
+ENTRIES = {k.entry: (kid, k.argtypes) for kid, k in KERNELS.items()}
+ENTRIES["mrt_probe_attributes"] = (None, (_P, _P, _P))
+profiling.launch_counts.update(dict.fromkeys(KERNELS, 0))
 
 _lib = None
 _lock = threading.Lock()
@@ -143,7 +174,7 @@ def library():
                 if rec["built"]:
                     build_report = _compile(out)
                 lib = ctypes.CDLL(str(out))
-                for name, argtypes in SIGNATURES.items():
+                for name, (_, argtypes) in ENTRIES.items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
@@ -240,25 +271,29 @@ def check_aligned(fn, cols, **tensors):
 
 _entries = {}
 _raw_stream = None
+_launches = profiling.launch_counts
 
 
 def _entry(name):
-    """The C entry `name`, with the stream getter, looked up once."""
+    """(the C entry `name`, its kernel's id), with the stream getter,
+    looked up once."""
     global _raw_stream
     if _raw_stream is None:
         # The current stream's handle as an int, without building a
         # torch.cuda.Stream (torch's private getter where it has one).
         _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
             or (lambda index: torch.cuda.current_stream(index).cuda_stream)
-    fn = _entries[name] = getattr(library(), name)
-    return fn
+    kid, _ = ENTRIES[name]
+    entry = _entries[name] = (getattr(library(), name), kid)
+    return entry
 
 
 def launch(name, device, *args):
     """Call C entry `name` on `device`'s current stream; raise on a
-    CUDA error.  Tensor arguments pass as their data pointers, None as a
-    null pointer."""
-    fn = _entries.get(name) or _entry(name)
+    CUDA error, else count the launch under its kernel's id in
+    ``profiling.launch_counts``.  Tensor arguments pass as their data
+    pointers, None as a null pointer."""
+    fn, kid = _entries.get(name) or _entry(name)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
              for a in args]
     index = torch.cuda.current_device()
@@ -270,3 +305,5 @@ def launch(name, device, *args):
     if err != 0:
         msg = library().mrt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+    if kid is not None:
+        _launches[kid] += 1

@@ -5,9 +5,7 @@ and B7 (two-level TLAS closest hit), with their plain PyTorch versions.
 ``tlas_hit`` are the wrappers: on CPU tensors they run the plain
 versions ``sphere_bvh_plain`` / ``tri_bvh_plain`` /
 ``tri_bvh_parts_plain`` / ``tlas_plain``; on CUDA tensors they launch
-``csrc/bvh.cu`` or raise.  Each kernel keeps a ``launches`` count on its
-first wrapper: B6's, ``tri_bvh_hit.launches``, counts the launches of
-``tri_bvh_parts_hit`` too.
+``csrc/bvh.cu`` or raise.  ``tri_bvh_parts_hit`` launches B6 too.
 
 B5 replaces ``mrt/ops/pallas_bvh.py::_kernel`` (wrapper
 ``intersect_bvh_spheres``).  B6 replaces ``pallas_bvh.py::_tri_kernel``
@@ -589,11 +587,7 @@ def sphere_bvh_hit(nodes, meta, sph, o, d, t_min, t_max, card=None):
     _build.launch("mrt_sphere_bvh", o.device, knodes, order, m, sph,
                   sph.shape[0], o, d, *bound_arg(t_min), *bound_arg(t_max),
                   n, t, index, counter)
-    sphere_bvh_hit.launches += 1
     return t, index
-
-
-sphere_bvh_hit.launches = 0
 
 
 def _tri_card(fn, device, card, m):
@@ -620,7 +614,6 @@ def _tri_launch(knodes, order, krows, o, d, t_min, t_max):
     _build.launch("mrt_tri_bvh", dev, knodes, order, knodes.shape[0], krows,
                   krows.shape[0], o, d, t_min, t_max, n, t, tri, u, v,
                   counter)
-    tri_bvh_hit.launches += 1
     return t, tri, u, v
 
 
@@ -645,9 +638,6 @@ def tri_bvh_hit(nodes, meta, tris, o, d, t_min, t_max, card=None):
     return _tri_launch(knodes, order, krows, o, d, t_min, t_max)
 
 
-tri_bvh_hit.launches = 0
-
-
 def tri_bvh_parts_hit(parts, o, d, t_min, t_max):
     """Closest hit over all flat parts of a TLAS in one B6 launch.
 
@@ -656,7 +646,7 @@ def tri_bvh_parts_hit(parts, o, d, t_min, t_max):
     the parts' rows in part order; ``krows`` those rows packed).  The
     kernel carries its best t from part to part, so a near hit culls the
     far parts.  Returns (t, global row (N,) int32, u, v) as
-    ``tri_bvh_parts_plain``; counted in ``tri_bvh_hit.launches``."""
+    ``tri_bvh_parts_plain``."""
     n, t_min, t_max = _rays("tri_bvh_parts_hit", o, d, t_min, t_max)
     if o.device.type == "cpu":
         return tri_bvh_parts_plain(parts, o, d, t_min, t_max)
@@ -753,8 +743,4 @@ def tlas_hit(tl, o, d, t_min, t_max):
     _build.launch("mrt_tlas", o.device, *tables.values(), mt, ni, mb,
                   tl.tris.shape[0], o, d, t_min, t_max, n, t, inst, tri, u,
                   v, counter, int(shared))
-    tlas_hit.launches += 1
     return t, inst, tri, u, v
-
-
-tlas_hit.launches = 0

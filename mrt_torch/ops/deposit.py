@@ -11,8 +11,6 @@ in the same way (it replaces ``mrt/ops/pallas_deposit.py::deposit_add``;
 its kernel is B2's at 4 columns, the die flags as the mask).  A row of
 4 floats moves as one 16-byte vector (of 2, as 8 bytes), so on the card
 both wrappers raise on a film or values not aligned to it.
-``deposit.launches`` and ``deposit_pending.launches`` count kernel
-launches.
 
 Every version adds into its destination in place and returns it.  Lanes
 whose index lies outside [0, n_rows), or that are unset in B2's optional
@@ -82,11 +80,7 @@ def deposit(film, idx, vals, drop_nonfinite=False, mask=None):
     _build.check_aligned("deposit", cols, film=film, vals=vals)
     _build.launch("mrt_deposit", device, film, n_rows, cols, idx, mask, vals,
                   idx.shape[0], int(drop_nonfinite))
-    deposit.launches += 1
     return film
-
-
-deposit.launches = 0
 
 
 def deposit_pending_plain(dest, slot, val, die):
@@ -121,8 +115,4 @@ def deposit_pending(dest, slot, val, die):
     _build.check_aligned("deposit_pending", 4, dest=dest, val=val)
     _build.launch("mrt_deposit_pending", device, dest, dest.shape[0],
                   slot, val, die, slot.shape[0])
-    deposit_pending.launches += 1
     return dest
-
-
-deposit_pending.launches = 0

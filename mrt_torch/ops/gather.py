@@ -4,9 +4,8 @@ A lane is valid where ``0 <= idx[p] < K`` and, if a ``mask`` is given,
 ``mask[p]`` is set.  ``gather`` is the wrapper: on CPU tensors it runs the
 plain PyTorch version ``gather_plain``; on CUDA tensors it launches the
 CUDA kernel ``csrc/gather.cu`` (which replaces the TPU kernel
-``mrt/ops/pallas_onehot.py::onehot_gather``) or raises.
-``gather.launches`` counts kernel launches.  Both copy values, so they
-agree bit for bit.
+``mrt/ops/pallas_onehot.py::onehot_gather``) or raises.  Both copy
+values, so they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -63,8 +62,4 @@ def gather(table, idx, mask=None):
     out = torch.empty((lanes, cols), dtype=torch.float32, device=device)
     _build.launch("mrt_gather", device, table, rows, cols, idx, mask, lanes,
                   out)
-    gather.launches += 1
     return out
-
-
-gather.launches = 0

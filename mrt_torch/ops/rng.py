@@ -3,10 +3,10 @@ floats of one ``Sampler.next4`` in one launch.
 
 ``pcg4d_draw(ray_id, seed, salt, draw)`` returns a (4, *ray_id.shape)
 float32 tensor whose rows are the draws of ``math.rng.Sampler(seed,
-ray_id, salt)`` at draw counter `draw`, bit for bit.  It takes CUDA
-tensors only and raises on anything else: the CPU draws through the
-plain path of ``math/rng.py``, which ``pcg4d_draw_plain`` runs with the
-kernel's arguments.  ``pcg4d_draw.launches`` counts its launches.
+ray_id, salt)`` at draw counter `draw`, bit for bit.  On CPU tensors it
+runs its plain version ``pcg4d_draw_plain``, the int64 emulation of
+``math/rng.py``; on CUDA tensors it launches the kernel; it raises on
+any other device.
 
 ray_id: a contiguous int64 tensor; seed: an int or a 0-d int64 tensor;
 salt: an int, or an int64 tensor of shape () or ray_id's; draw: an int.
@@ -25,9 +25,8 @@ MASK = 0xFFFFFFFF
 
 
 def pcg4d_draw_plain(ray_id, seed, salt, draw):
-    """Plain PyTorch version of R1, on any device: the plain sampler's
-    arithmetic (``math.rng.pcg4d`` on int64 carriers), its four rows
-    stacked."""
+    """Plain PyTorch version of R1, on any device: ``math.rng.pcg4d``
+    on int64 carriers, its four rows stacked."""
     from ..math.rng import pcg4d, to_unit_float, u32
 
     ids = u32(ray_id)
@@ -56,10 +55,11 @@ def _value(fn, name, x, device, shape=()):
 
 
 def pcg4d_draw(ray_id, seed, salt, draw):
-    """R1: (4, *ray_id.shape) float32, the four draws of every lane."""
+    """R1: (4, *ray_id.shape) float32, the four draws of every lane.
+    Raises on an argument it does not take (TypeError on a dtype,
+    ValueError on a shape, device or layout), then on a device with no
+    kernel."""
     device = ray_id.device
-    if device.type != "cuda":
-        raise ValueError(f"pcg4d_draw: no kernel for device {device}")
     if ray_id.dtype != torch.int64:
         raise TypeError(f"pcg4d_draw: ray_id is {ray_id.dtype}, not "
                         "torch.int64")
@@ -67,12 +67,12 @@ def pcg4d_draw(ray_id, seed, salt, draw):
         raise ValueError("pcg4d_draw: ray_id is not contiguous")
     seed_t, seed_v = _value("pcg4d_draw", "seed", seed, device)
     salt_t, salt_v = _value("pcg4d_draw", "salt", salt, device, ray_id.shape)
+    if device.type == "cpu":
+        return pcg4d_draw_plain(ray_id, seed, salt, draw)
+    if device.type != "cuda":
+        raise ValueError(f"pcg4d_draw: no kernel for device {device}")
     out = torch.empty((4, *ray_id.shape), dtype=torch.float32, device=device)
     _build.launch("mrt_pcg4d", device, ray_id, ray_id.numel(), seed_t, seed_v,
                   salt_t, int(salt_t is not None and salt_t.dim() > 0),
                   salt_v, int(draw) & MASK, out)
-    pcg4d_draw.launches += 1
     return out
-
-
-pcg4d_draw.launches = 0

@@ -6,10 +6,11 @@ one launch.
 returns what ``materials.shade.shade_hit`` returns for such a table,
 (emitted (N,3), attenuation (N,3), new_direction (N,3), scattered (N,)
 bool, lobe (N,) int32), bit for bit, given the four uniforms `u` of the
-scatter sampler's ``next4``.  It takes CUDA tensors only and raises on anything
-else, with no fallback: ``shade_hit`` runs its eager composition where
-M1 does not apply, and ``shade_lanes_plain`` runs that composition with
-the kernel's arguments.  ``shade_lanes.launches`` counts its launches.
+scatter sampler's ``next4``.  On CPU tensors it runs its plain version
+``shade_lanes_plain``, that eager composition with the kernel's
+arguments; on CUDA tensors it launches the kernel; it raises on any
+other device.  ``shade_hit`` runs its eager composition where M1 does
+not apply.
 
 table: a ``MaterialTable`` whose columns ``mtype`` (M,) int32, ``albedo``
 (M, 4), ``fuzz`` and ``ior`` (M,), ``emit`` (M, 3) float32 are read as
@@ -67,6 +68,9 @@ def shade_lanes(table, normal, front_face, material, hit, d_in, u):
                 and x.get_device() == index and x.is_contiguous()):
             _refuse(name, x, dtype, shape, d_in.device)
     device = d_in.device
+    if device.type == "cpu":
+        return shade_lanes_plain(table, normal, front_face, material, hit,
+                                 d_in, u)
     if device.type != "cuda":
         raise ValueError(f"shade_lanes: no kernel for device {device}")
     emitted, atten, new_dir = torch.empty((3, n, 3), dtype=f32,
@@ -76,11 +80,7 @@ def shade_lanes(table, normal, front_face, material, hit, d_in, u):
     _build.launch("mrt_shade", device, table.mtype, table.albedo, table.fuzz,
                   table.ior, table.emit, rows, normal, front_face, material,
                   hit, d_in, *u, n, emitted, atten, new_dir, scattered, lobe)
-    shade_lanes.launches += 1
     return emitted, atten, new_dir, scattered, lobe
-
-
-shade_lanes.launches = 0
 
 
 class _Drawn:

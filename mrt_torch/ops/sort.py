@@ -15,8 +15,8 @@ whole sorter in XLA: no Pallas kernel is replaced.
 ``sort_keys`` and ``permute_lanes`` are the wrappers: on CPU tensors
 they run their plain PyTorch versions ``sort_keys_plain`` and
 ``permute_lanes_plain``; on CUDA tensors they launch their kernels or
-raise.  Each counts its launches in ``.launches``.  The kernels round
-like their plain versions, so both agree bit for bit.
+raise.  The kernels round like their plain versions, so both agree bit
+for bit.
 
 Keys are int32: an active key is below 2^30 and the idle key is
 2^31 - 1, so their order is the reference's uint32 order with an idle
@@ -136,11 +136,7 @@ def sort_keys(item, o, d, total, box):
     keys = torch.empty((lanes,), dtype=torch.int32, device=device)
     _build.launch("mrt_sort_keys", device, item, o, d, box, int(total), lanes,
                   keys)
-    sort_keys.launches += 1
     return keys
-
-
-sort_keys.launches = 0
 
 
 def permute_lanes_plain(perm, st):
@@ -183,8 +179,4 @@ def permute_lanes(perm, st):
     _build.launch("mrt_permute_lanes", device, perm, perm.shape[0],
                   *(st[n] for n in COLUMNS), acc_in,
                   *(out[n] for n in COLUMNS), acc_out)
-    permute_lanes.launches += 1
     return out
-
-
-permute_lanes.launches = 0

@@ -3,8 +3,7 @@
 ``nearest_t`` is the wrapper: on CPU tensors it runs the plain PyTorch
 version ``nearest_t_plain``; on CUDA tensors it launches the CUDA kernel
 ``csrc/spheres.cu`` (which replaces the TPU kernels of
-``mrt/ops/pallas_spheres.py``) or raises.  ``nearest_t.launches`` counts
-kernel launches.
+``mrt/ops/pallas_spheres.py``) or raises.
 
 Semantics, shared by every version (those of the reference scan
 ``mrt.geometry.spheres.nearest_t``): for each ray the smallest root in
@@ -359,8 +358,4 @@ def nearest_t(center, radius, o, d, t_min, t_max, groups=None):
     _build.launch("mrt_nearest_t", o.device, rows, index, boxes, order,
                   rows.shape[0], boxes.shape[0], n_big, o, d,
                   *bound_arg(t_min), *bound_arg(t_max), n, t, i, int(shared))
-    nearest_t.launches += 1
     return t, i
-
-
-nearest_t.launches = 0

@@ -67,17 +67,6 @@ LAYERS = (
     ("L5s lane sorter", "mrt_torch.integrator.persistent", "sort_lanes"),
 )
 TOP = 15  # device kernels listed by device time
-# Each hand kernel's device name, a regular expression: B2 and B4 are
-# instances of one template, deposit_kernel<C, drop, pend>, told apart by
-# pend (demangled as the profiler shows it, or mangled).
-KERNELS = {"B1": "nearest_t_kernel",
-           "B2": r"deposit_kernel(<\d+, \w+, false>|ILi\d+ELb[01]ELb0E)",
-           "B3": "row_gather_kernel",
-           "B4": r"deposit_kernel(<4, false, true>|ILi4ELb0ELb1E)",
-           "B5": "sphere_bvh_kernel", "B6": "tri_bvh_kernel",
-           "B7": "tlas_kernel", "S1": "sort_key_kernel",
-           "S2": "permute_lanes_kernel", "R1": "pcg4d_kernel",
-           "M1": "shade_kernel"}
 
 
 def one_pass(scene, camera, args):
@@ -127,6 +116,7 @@ def main(argv=None):
 
     from torch.profiler import ProfilerActivity, profile
 
+    from .ops._build import KERNELS
     from .scenes import get
     from .utils import profiling
 
@@ -171,8 +161,8 @@ def main(argv=None):
     # counts, B7's regimes).
     kernels, calls = {}, {}
     for e in device:
-        for k, v in KERNELS.items():
-            if re.search(v, e.key):
+        for k, kernel in KERNELS.items():
+            if re.search(kernel.pattern, e.key):
                 kernels[k] = (kernels.get(k, 0.0)
                               + _device_us(e, self_only=True) / 1e3)
                 calls[k] = calls.get(k, 0) + e.count

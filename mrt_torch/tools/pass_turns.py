@@ -68,7 +68,7 @@ def _layers():
 
 
 def _timed(name, fn, acc):
-    @functools.wraps(fn)  # keeps the wrappers' launch counters
+    @functools.wraps(fn)
     def wrapped(*args, **kwargs):
         t0 = time.perf_counter()
         try:

@@ -16,7 +16,7 @@ returns 3x, or reports the refusal past the card's opt-in limit (the
 kernel's shared-memory attribute is raised once a device and process,
 to that limit, so a call is one launch).  The
 kernels are ``csrc/probe_stream.cu``; each wrapper runs its plain
-PyTorch version on CPU tensors and counts its launches (``launches``).
+PyTorch version on CPU tensors.
 
 ``main`` checks every probe against its plain version and prints one
 line a probe and a JSON line; it needs a CUDA device.
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import _build
+from ..utils import profiling
 
 PAGE = 256
 # Chain length of P2 (four pages).
@@ -88,7 +89,6 @@ def probe_a(f, i):
     out = torch.empty((1,), dtype=torch.float32, device=f.device)
     cycles = torch.empty((4,), dtype=torch.int64, device=f.device)
     _build.launch("mrt_probe_a", f.device, f, i, out, cycles)
-    probe_a.launches += 1
     return out, cycles
 
 
@@ -158,7 +158,6 @@ def probe_b(chain_t, variant="paged"):
     cycles = torch.empty((1,), dtype=torch.int64, device=chain_t.device)
     _build.launch("mrt_probe_b", chain_t.device, chain_t, chain_t.shape[0],
                   VARIANTS.index(variant), visited, fills, cycles)
-    probe_b.launches += 1
     return visited, cycles, fills
 
 
@@ -179,12 +178,9 @@ def probe_c(x, kb):
     _build.launch("mrt_probe_c", x.device, x.contiguous(), out, kb * 1024,
                   codes)
     if codes.any():
+        profiling.launch_counts["P3"] -= 1  # refused: no kernel ran
         return None, tuple(codes.tolist())
-    probe_c.launches += 1
     return out, None
-
-
-probe_a.launches = probe_b.launches = probe_c.launches = 0
 
 
 def attributes(device):

@@ -3,18 +3,19 @@
 
 The tracer has two tiers.
 
-Coarse, always on.  Counters (``count``); the device-to-host reads of
-the frame, gradient and image paths, all through ``to_host``, counted
-with the nanoseconds the host was blocked in them, by site; and one
-record a unit of work (``unit``): a persistent pass, a gradient step, a
-scene build, the kernels' library load.  A record holds the unit's wall
-ns, the reads made inside it by site (``syncs``, ``sync_ns``), Python's
-garbage collections and their ns, the ns of its timed parts (``part``,
-by name), whether a ``torch.profiler`` session was recording
-(``profiled``), and the fields its code adds.  The newest ``KEEP``
-records of each kind are kept; ``snapshot()`` returns them with the
-counters and each hand kernel's launch count.  The coarse tier costs a
-few clock reads and dict updates a unit or a termination check: no
+Coarse, always on.  Counters (``count``); each hand kernel's launches by
+id (``launch_counts``, which ``ops._build.launch`` adds to); the
+device-to-host reads of the frame, gradient and image paths, all through
+``to_host``, counted with the nanoseconds the host was blocked in them,
+by site; and one record a unit of work (``unit``): a persistent pass, a
+gradient step, a scene build, the kernels' library load.  A record holds
+the unit's wall ns, the reads made inside it by site (``syncs``,
+``sync_ns``), Python's garbage collections and their ns, the ns of its
+timed parts (``part``, by name), whether a ``torch.profiler`` session
+was recording (``profiled``), and the fields its code adds.  The newest
+``KEEP`` records of each kind are kept; ``snapshot()`` returns them with
+the counters and each hand kernel's launch count.  The coarse tier costs
+a few clock reads and dict updates a unit or a termination check: no
 launch and no sync.
 
 Fine, only inside ``tracing()``: spans, each a name, start and end ns
@@ -60,6 +61,9 @@ KEEP = 512
 KINDS = ("pass", "grad_step", "scene_build", "library")
 
 counters = {}
+# Each hand kernel's launches so far, by id: ``ops._build`` enters the
+# ids of its kernel table and counts every launch here.
+launch_counts = {}
 _syncs = {}                      # site -> [reads, ns blocked]
 _records = {kind: collections.deque(maxlen=KEEP) for kind in KINDS}
 _open = []                       # the units in progress, innermost last
@@ -241,21 +245,8 @@ def tracing(ranges=False):
 
 
 def kernel_launches():
-    """Each hand kernel's launches so far, by name (the wrappers' own
-    ``launches`` counters)."""
-    from ..ops import bvh, deposit, gather, rng, shade, sort, spheres
-
-    return {"B1": spheres.nearest_t.launches,
-            "B2": deposit.deposit.launches,
-            "B3": gather.gather.launches,
-            "B4": deposit.deposit_pending.launches,
-            "B5": bvh.sphere_bvh_hit.launches,
-            "B6": bvh.tri_bvh_hit.launches,
-            "B7": bvh.tlas_hit.launches,
-            "S1": sort.sort_keys.launches,
-            "S2": sort.permute_lanes.launches,
-            "R1": rng.pcg4d_draw.launches,
-            "M1": shade.shade_lanes.launches}
+    """Each hand kernel's launches so far, by id."""
+    return dict(launch_counts)
 
 
 def snapshot():

@@ -53,17 +53,19 @@ sphere_grid) and in RTIOW's gradient steps is a read through the
 tracer's ``to_host``.  The sampler's draw R1 equals its plain version
 bit for bit on edge ray ids, int and 0-d seeds, int, 0-d and per-lane
 salts and draw counters past 2^32, and a Sampler through it equals one
-forced onto the plain path around next1 and skip; it replays in a CUDA
-graph with a new seed and salt; its wrapper refuses CPU tensors, int32
-ids and mis-shaped salts; RTIOW and sphere_grid spp-1 passes through it
-equal the plain sampler's bit for bit, with two launches a step and one
-to fill the pool.  L3 shading's M1 equals the eager composition on all
+through its plain version around next1 and skip; it replays in a CUDA
+graph with a new seed and salt; its wrapper is its plain version on CPU
+tensors and refuses mixed devices, int32 ids and mis-shaped salts; RTIOW
+and sphere_grid spp-1 passes through it equal those through its plain
+version bit for bit, with two launches a step and one to fill the
+pool.  L3 shading's M1 equals the eager composition on all
 five outputs, bit for bit: on a synthetic wavefront that reaches every
 class and edge (tests/torch_shade_cases.py), each case on its own lanes,
 and on the 2^17 lanes of steps 2 and 64 of RTIOW, sphere_grid and
 cornell NEE passes at 1080p; an spp-2 RTIOW pass through it deposits
 what the eager pass deposits, step by step, with one M1 launch a step;
-its wrapper refuses CPU tensors, a wrong dtype and a strided input.
+its wrapper is its plain version on CPU tensors and refuses mixed
+devices, a wrong dtype and a strided input.
 """
 
 import pytest
@@ -73,6 +75,7 @@ from mrt_torch.ops import bvh, compact
 from mrt_torch.ops import deposit as B2
 from mrt_torch.ops import gather as B3
 from mrt_torch.ops import spheres as B1
+from mrt_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -107,14 +110,14 @@ def test_b1_kernel_matches_plain(cuda, s):
     groups = B1.group_table(args[0], args[1])
     assert groups[4] == 1  # the radius-1000 sphere is not grouped
     for bounds in (args[4:], (1e-3, float("inf"))):
-        before = B1.nearest_t.launches
+        before = profiling.launch_counts["B1"]
         t_k, i_k = B1.nearest_t(*args[:4], *bounds, groups=groups)
         lanes = [torch.as_tensor(b, device=cuda).expand(n).contiguous()
                  for b in bounds]
         t_p, i_p = B1.nearest_t_plain(*args[:4], *lanes)
         t_g, i_g = B1.nearest_t_grouped_plain(groups, *args[2:4], *lanes)
         torch.cuda.synchronize()
-        assert B1.nearest_t.launches == before + 1
+        assert profiling.launch_counts["B1"] == before + 1
         assert torch.equal(i_k, i_p) and torch.equal(i_g, i_p)
         assert torch.equal(t_k, t_p) and torch.equal(t_g, t_p)
         assert torch.isfinite(t_k).any() and torch.isinf(t_k[:4]).all()
@@ -212,11 +215,11 @@ def test_b5_kernel_matches_plain(cuda):
                torch.rand((n,), generator=g) * 30 + 1, float("inf")):
         hi = hi.to(cuda) if torch.is_tensor(hi) else hi
         lanes = torch.as_tensor(hi, device=cuda).expand(n).contiguous()
-        before = bvh.sphere_bvh_hit.launches
+        before = profiling.launch_counts["B5"]
         t_k, i_k = bvh.sphere_bvh_hit(*args, 1e-3, hi, card=card)
         t_p, i_p = bvh.sphere_bvh_plain(*args, lo, lanes, order=tree.order)
         torch.cuda.synchronize()
-        assert bvh.sphere_bvh_hit.launches == before + 1
+        assert profiling.launch_counts["B5"] == before + 1
         assert torch.equal(i_k, i_p)
         assert torch.equal(t_k, t_p)
         assert torch.isfinite(t_k).any() and torch.isinf(t_k[:72]).all()
@@ -294,11 +297,11 @@ def test_b7_kernel_matches_plain(cuda, n_inst):
     t_min = torch.rand((n,), generator=g) * 0.5
     o, d, t_min = o.to(cuda), d.to(cuda), t_min.to(cuda)
     t_max = torch.full((n,), float("inf"), device=cuda)
-    before = bvh.tlas_hit.launches
+    before = profiling.launch_counts["B7"]
     k = bvh.tlas_hit(tl, o, d, t_min, t_max)
     p = bvh.tlas_plain(tl, o, d, t_min, t_max, ordered=True)
     torch.cuda.synchronize()
-    assert bvh.tlas_hit.launches == before + 1
+    assert profiling.launch_counts["B7"] == before + 1
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert torch.isfinite(k[0]).any() and (k[1][:64] == -1).all()
@@ -398,11 +401,11 @@ def test_b6_kernel_matches_plain(cuda):
     for hi in (torch.full((n,), float("inf")),
                torch.rand((n,), generator=g) * 3 + 0.5):
         hi = hi.to(cuda)
-        before = bvh.tri_bvh_hit.launches
+        before = profiling.launch_counts["B6"]
         k = bvh.tri_bvh_hit(*args, lo, hi, card=card)
         p = bvh.tri_bvh_plain(*args, lo, hi, order=tree.order)
         torch.cuda.synchronize()
-        assert bvh.tri_bvh_hit.launches == before + 1
+        assert profiling.launch_counts["B6"] == before + 1
         for a, b in zip(k, p):
             assert torch.equal(a, b)
         assert torch.isfinite(k[0]).any() and torch.isinf(k[0][:72]).all()
@@ -429,9 +432,9 @@ def test_b6_kernel_matches_plain_on_lucy_parts(cuda, monkeypatch):
             assert torch.equal(a, b)
     # All 16 parts in one launch: the forest's octant walk, and the
     # reference's fold of one walk a part.
-    before = bvh.tri_bvh_hit.launches
+    before = profiling.launch_counts["B6"]
     k = bvh.tri_bvh_parts_hit(parts, o, d, lo, hi)
-    assert bvh.tri_bvh_hit.launches == before + 1
+    assert profiling.launch_counts["B6"] == before + 1
     f = parts.forest
     rows = torch.cat([part.rows for part in parts])
     walk = bvh.tri_bvh_plain(f.nodes, f.meta, rows, o, d, lo, hi,
@@ -440,9 +443,9 @@ def test_b6_kernel_matches_plain_on_lucy_parts(cuda, monkeypatch):
     for a, b, c in zip(k, walk, fold):
         assert torch.equal(a, b) and torch.equal(a, c)
     # The scene's dispatch takes the flat parts: one launch for all.
-    before = bvh.tri_bvh_hit.launches
+    before = profiling.launch_counts["B6"]
     hits = scene.intersect(o, d)
-    assert bvh.tri_bvh_hit.launches == before + 1
+    assert profiling.launch_counts["B6"] == before + 1
     assert hits.hit.float().mean() > 0.9
 
 
@@ -523,11 +526,11 @@ def test_b3_kernel_matches_plain(cuda, cols):
     mask = torch.rand((p,), generator=g) < 0.7
     table, idx, mask = table.to(cuda), idx.to(cuda), mask.to(cuda)
     for m in (None, mask):
-        before = B3.gather.launches
+        before = profiling.launch_counts["B3"]
         got = B3.gather(table, idx, mask=m)
         want = B3.gather_plain(table, idx, mask=m)
         torch.cuda.synchronize()
-        assert B3.gather.launches == before + 1
+        assert profiling.launch_counts["B3"] == before + 1
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
         assert (got[:3] == 0).all() and (got[5:8] == 0).all()
     assert torch.equal(got.cpu(), B3.gather_plain(table.cpu(), idx.cpu(),
@@ -577,13 +580,13 @@ def _b2_case(cuda, cols, unique, seed):
 def test_b2_kernel_with_mask_matches_plain(cuda, cols, unique):
     rows, idx, vals, mask = _b2_case(cuda, cols, unique, 20 + cols)
     for drop in (False, True):
-        before = B2.deposit.launches
+        before = profiling.launch_counts["B2"]
         k = B2.deposit(torch.zeros((rows, cols), device=cuda), idx, vals,
                        drop, mask=mask)
         q = B2.deposit_plain(torch.zeros((rows, cols), device=cuda), idx,
                              vals, drop, mask=mask)
         torch.cuda.synchronize()
-        assert B2.deposit.launches == before + 1
+        assert profiling.launch_counts["B2"] == before + 1
         assert torch.equal(k.view(torch.int32), q.view(torch.int32))
         assert torch.isfinite(k).all() and k.abs().sum() > 0
 
@@ -658,11 +661,12 @@ def test_compact_apply_through_kernels(cuda):
     x = torch.randn((p, 3), generator=g)
     mask = torch.rand((p,), generator=g) < 0.3
     fn = lambda v: v[:, 0:2] * v[:, 1:3] + 3.0
-    b2, b3 = B2.deposit.launches, B3.gather.launches
+    b2, b3 = profiling.launch_counts["B2"], profiling.launch_counts["B3"]
     got = compact.compact_apply(fn, mask.to(cuda), x.to(cuda), k,
                                 pad_row=(1.0, 0.0, 0.0))
     torch.cuda.synchronize()
-    assert B2.deposit.launches == b2 + 10 and B3.gather.launches == b3 + 10
+    assert profiling.launch_counts["B2"] == b2 + 10
+    assert profiling.launch_counts["B3"] == b3 + 10
     want = compact.compact_apply(fn, mask, x, k, pad_row=(1.0, 0.0, 0.0))
     assert torch.equal(got.cpu(), want)
     assert torch.equal(want, torch.where(mask[:, None], fn(x), 0.0))
@@ -678,12 +682,12 @@ def test_b4_kernel_matches_plain(cuda):
     val[::7] = 0.0  # all-zero lanes add nothing
     die = torch.rand((p,), generator=g) < 0.35
     slot, val, die = slot.to(cuda), val.to(cuda), die.to(cuda)
-    before = B2.deposit_pending.launches
+    before = profiling.launch_counts["B4"]
     k = B2.deposit_pending(torch.ones((rows, 4), device=cuda), slot, val, die)
     q = B2.deposit_pending_plain(torch.ones((rows, 4), device=cuda), slot,
                                  val, die)
     torch.cuda.synchronize()
-    assert B2.deposit_pending.launches == before + 1
+    assert profiling.launch_counts["B4"] == before + 1
     assert torch.equal(k, q) and not torch.equal(k, torch.ones_like(k))
     with pytest.raises(TypeError):
         B2.deposit_pending(torch.ones((rows, 4), device=cuda), slot, val,
@@ -715,11 +719,11 @@ def test_b4_kernel_cases_match_plain(cuda, p, rate):
     rows = 5000
     slot, val, die = _b4_case(cuda, p, rows, rate, 50 + p % 97)
     film = torch.full((rows, 4), 0.5, device=cuda)
-    before = B2.deposit_pending.launches
+    before = profiling.launch_counts["B4"]
     k = B2.deposit_pending(film.clone(), slot, val, die)
     q = B2.deposit_pending_plain(film.clone(), slot, val, die)
     torch.cuda.synchronize()
-    assert B2.deposit_pending.launches == before + 1
+    assert profiling.launch_counts["B4"] == before + 1
     assert torch.equal(k.view(torch.int32), q.view(torch.int32))
     assert torch.equal(k, film) == (rate == 0.0)
 
@@ -760,19 +764,19 @@ def test_b4_kernel_all_lanes_onto_one_row(cuda):
 def test_b4_wrapper_raises_on_misaligned_rows(cuda):
     slot, val, die = _b4_case(cuda, 64, 8, 0.5, 63)
     dest = torch.zeros((8, 4), device=cuda)
-    before = B2.deposit_pending.launches
+    before = profiling.launch_counts["B4"]
     with pytest.raises(ValueError, match="val is not 16-byte aligned"):
         B2.deposit_pending(dest, slot, _misaligned(val), die)
     with pytest.raises(ValueError, match="dest is not 16-byte aligned"):
         B2.deposit_pending(_misaligned(dest), slot, val, die)
-    assert B2.deposit_pending.launches == before
+    assert profiling.launch_counts["B4"] == before
 
 
 @pytest.mark.parametrize("variant", ["paged", "l2", "shared"])
 def test_p2_each_variant_visits_every_entry(cuda, variant):
     from mrt_torch.tools import probe_stream as P
 
-    before = P.probe_b.launches
+    before = profiling.launch_counts["P2"]
     for seed in range(3):
         chain = torch.from_numpy(P.chain(seed=seed)).to(cuda)
         visited, cycles, fills = P.probe_b(chain, variant)
@@ -782,26 +786,26 @@ def test_p2_each_variant_visits_every_entry(cuda, variant):
         # The kernel's own count of its cache's fills (tags, victim).
         want = P.paged_misses(chain) if variant == "paged" else 0
         assert fills.item() == want
-    assert P.probe_b.launches == before + 3
+    assert profiling.launch_counts["P2"] == before + 3
 
 
 def test_p2_wrapper_raises_on_a_misaligned_chain(cuda):
     from mrt_torch.tools import probe_stream as P
 
     chain = torch.from_numpy(P.chain()).to(cuda)
-    before = P.probe_b.launches
+    before = profiling.launch_counts["P2"]
     with pytest.raises(ValueError, match="16-byte aligned"):
         P.probe_b(_misaligned(chain))
     with pytest.raises(ValueError, match="whole pages"):
         P.probe_b(chain[:1000])
-    assert P.probe_b.launches == before
+    assert profiling.launch_counts["P2"] == before
 
 
 def test_p1_pages_in_flight_match_closed_form(cuda):
     from mrt_torch.tools import probe_stream as P
 
     f, i = P.tables(cuda)
-    before = P.probe_a.launches
+    before = profiling.launch_counts["P1"]
     for _ in range(5):
         got, cycles = P.probe_a(f, i)
         torch.cuda.synchronize()
@@ -809,21 +813,21 @@ def test_p1_pages_in_flight_match_closed_form(cuda):
         # Each page's arrival from one start, all four in flight.
         arrivals = cycles.tolist()
         assert arrivals[0] > 0 and arrivals == sorted(arrivals)
-    assert P.probe_a.launches == before + 5
+    assert profiling.launch_counts["P1"] == before + 5
 
 
 def test_p1_wrapper_raises_on_a_misaligned_table(cuda):
     from mrt_torch.tools import probe_stream as P
 
     f, i = P.tables(cuda)
-    before = P.probe_a.launches
+    before = profiling.launch_counts["P1"]
     with pytest.raises(ValueError, match="f is not contiguous and 16-byte"):
         P.probe_a(_misaligned(f), i)
     with pytest.raises(ValueError, match="i is not contiguous and 16-byte"):
         P.probe_a(f, _misaligned(i))
     with pytest.raises(ValueError, match="f is not contiguous"):
         P.probe_a(f.t().contiguous().t(), i)
-    assert P.probe_a.launches == before
+    assert profiling.launch_counts["P1"] == before
 
 
 @pytest.mark.parametrize("order", [(228, 227, 48), (48, 227, 228)])
@@ -833,14 +837,14 @@ def test_p3_sizes_in_either_order(cuda, order):
     from mrt_torch.tools import probe_stream as P
 
     x = torch.full((1,), 1.5, device=cuda)
-    before = P.probe_c.launches
+    before = profiling.launch_counts["P3"]
     for kb in order:
         out, codes = P.probe_c(x, kb)
         if kb == 228:
             assert out is None and codes[1] != 0
         else:
             assert codes is None and out.item() == 4.5
-    assert P.probe_c.launches == before + 2
+    assert profiling.launch_counts["P3"] == before + 2
 
 
 def test_p3_in_a_cuda_graph(cuda):
@@ -894,9 +898,10 @@ def test_gradient_pass_b1_winners_match_plain(cuda, monkeypatch):
         loss.backward()
         return loss.item(), a.grad, c.grad
 
-    B1.nearest_t.launches = 0
+    before = profiling.launch_counts["B1"]
     lk, *gk = grads()
-    assert B1.nearest_t.launches == 8  # 4 bounces, forward and recompute
+    # 4 bounces, forward and recompute.
+    assert profiling.launch_counts["B1"] == before + 8
     plain = lambda center, radius, o, d, lo, hi, groups=None: (
         B1.nearest_t_plain(center.detach(), radius, o.detach(), d.detach(),
                            torch.as_tensor(lo, device=cuda).expand(
@@ -1060,7 +1065,7 @@ def test_sort_kernels_match_plain(cuda, n):
     boxes = (S.origin_box(torch.full((3,), -15.0, device=cuda),
                           torch.full((3,), 15.0, device=cuda)),
              S.live_box(item[16:], o[16:], total))
-    launches = S.sort_keys.launches, S.permute_lanes.launches
+    launches = profiling.launch_counts["S1"], profiling.launch_counts["S2"]
     for box in boxes:
         keys = S.sort_keys(item, o, d, total, box)
         assert torch.equal(keys, S.sort_keys_plain(item, o, d, total, box))
@@ -1073,7 +1078,7 @@ def test_sort_kernels_match_plain(cuda, n):
         assert got.keys() == want.keys() == lanes.keys()
         assert all(torch.equal(_bits(got[k]), _bits(want[k])) for k in want)
         assert got["next_work"] is lanes["next_work"]
-    assert (S.sort_keys.launches, S.permute_lanes.launches) == (
+    assert (profiling.launch_counts["S1"], profiling.launch_counts["S2"]) == (
         launches[0] + 2, launches[1] + 2)
     # S1, the sort and S2 replay in a CUDA graph.
     side = torch.cuda.Stream()
@@ -1127,19 +1132,17 @@ def test_sorted_pass_runs_the_same_steps(cuda, monkeypatch):
         return step(self, *a)
 
     monkeypatch.setattr(persistent.LanePool, "step", counted)
-    wrappers = dict(B1=B1.nearest_t, B2=B2.deposit, B5=bvh.sphere_bvh_hit,
-                    B7=bvh.tlas_hit, S1=S.sort_keys, S2=S.permute_lanes)
+    ids = ("B1", "B2", "B5", "B7", "S1", "S2")
     runs = []
     for sort_rays in (False, None):
         steps[0] = 0
-        for fn in wrappers.values():
-            fn.launches = 0
+        before = {k: profiling.launch_counts[k] for k in ids}
         film = render_pass_persistent(
             scene, camera, Film.create(256, 144, device=cuda), 1, 0,
             width=256, height=144, max_depth=50, samples=2,
             sort_rays=sort_rays)
-        runs.append((film, steps[0],
-                     {k: fn.launches for k, fn in wrappers.items()}))
+        runs.append((film, steps[0], {k: profiling.launch_counts[k] - before[k]
+                                      for k in ids}))
     (a, n, la), (b, m, lb) = runs
     assert n == m and n > 0 and n % 8 == 0
     assert {k: v for k, v in la.items() if k[0] == "B"} == {
@@ -1245,11 +1248,11 @@ def test_r1_kernel_matches_plain(cuda, seed_kind, salt_kind, draw):
     from mrt_torch.ops import rng as R1
 
     ids, seed, salt = _r1_case(cuda, 5000, seed_kind, salt_kind)
-    before = R1.pcg4d_draw.launches
+    before = profiling.launch_counts["R1"]
     got = R1.pcg4d_draw(ids, seed, salt, draw)
     want = R1.pcg4d_draw_plain(ids, seed, salt, draw)
     torch.cuda.synchronize()
-    assert R1.pcg4d_draw.launches == before + 1
+    assert profiling.launch_counts["R1"] == before + 1
     assert got.shape == (4, 5000) and got.dtype == torch.float32
     assert torch.equal(_bits(got), _bits(want))
     assert ((got >= 0) & (got < 1)).all()
@@ -1257,29 +1260,30 @@ def test_r1_kernel_matches_plain(cuda, seed_kind, salt_kind, draw):
 
 @pytest.mark.parametrize("salt_kind", ["int", "per-lane"])
 def test_r1_sampler_matches_the_plain_sampler(cuda, monkeypatch, salt_kind):
-    # A Sampler on the card (R1) against one forced onto the plain path,
-    # on 2^17 lanes: next4, next1 and skip between draws, one launch a
-    # draw and none at construction or skip.
+    # A Sampler on the card (R1) against one with R1's plain version in
+    # the wrapper's place, on 2^17 lanes: next4, next1 and skip between
+    # draws, one launch a draw and none at construction or skip.
     from mrt_torch.math import rng
     from mrt_torch.ops import rng as R1
 
     ids, seed, salt = _r1_case(cuda, 1 << 17, "int", salt_kind)
-    before = R1.pcg4d_draw.launches
-    card = rng.Sampler(seed, ids, salt)
-    monkeypatch.setattr(rng, "draws_on_card", lambda ray_id: False)
-    plain = rng.Sampler(seed, ids, salt)
-    assert card.card and not plain.card
-    for sampler in (card, plain):
+
+    def draws():
+        sampler = rng.Sampler(seed, ids, salt)
         sampler.skip(3)
-    draws = [(plain.next4(), card.next4())]
-    for sampler in (card, plain):
+        out = [sampler.next4()]
         sampler.skip(2 ** 32)
-    draws.append(((plain.next1(),), (card.next1(),)))
-    draws.append((plain.next4(), card.next4()))
+        return out + [(sampler.next1(),), sampler.next4()]
+
+    before = profiling.launch_counts["R1"]
+    card = draws()
+    assert profiling.launch_counts["R1"] == before + 3
+    monkeypatch.setattr(rng, "pcg4d_draw", R1.pcg4d_draw_plain)
+    plain = draws()
     torch.cuda.synchronize()
-    for want, got in draws:
+    for want, got in zip(plain, card):
         assert all(torch.equal(_bits(w), _bits(g)) for w, g in zip(want, got))
-    assert R1.pcg4d_draw.launches == before + 3
+    assert profiling.launch_counts["R1"] == before + 3
 
 
 def test_r1_in_a_cuda_graph_with_a_new_seed(cuda):
@@ -1308,9 +1312,16 @@ def test_r1_in_a_cuda_graph_with_a_new_seed(cuda):
 def test_r1_wrapper_raises_instead_of_falling_back(cuda):
     from mrt_torch.ops import rng as R1
 
+    # On CPU tensors the wrapper is its plain version; on the card it
+    # launches or raises, with no fallback, also on mixed devices.
     ids, seed, salt = _r1_case(cuda, 1000, "0-d", "per-lane")
-    with pytest.raises(ValueError, match="no kernel"):
-        R1.pcg4d_draw(ids.cpu(), 1, 2, 0)
+    cpu = (ids.cpu(), seed.cpu(), salt.cpu())
+    before = profiling.launch_counts["R1"]
+    assert torch.equal(_bits(R1.pcg4d_draw(*cpu, 5)),
+                       _bits(R1.pcg4d_draw_plain(*cpu, 5)))
+    assert profiling.launch_counts["R1"] == before
+    with pytest.raises(ValueError, match="seed"):
+        R1.pcg4d_draw(ids.cpu(), seed, 2, 0)
     with pytest.raises(TypeError, match="int64"):
         R1.pcg4d_draw(ids.to(torch.int32), 1, 2, 0)
     with pytest.raises(ValueError, match="salt"):
@@ -1329,14 +1340,13 @@ def test_r1_wrapper_raises_instead_of_falling_back(cuda):
 def test_r1_pass_equals_the_plain_sampler_pass(cuda, monkeypatch, name):
     # A 256x144 spp-1 pass (one lane a pixel, so B2's adds to a row come
     # in step order and the film is deterministic) with R1 and with the
-    # plain sampler forced: film and depth bit-equal; R1 once to fill the
-    # pool and twice a step (camera and scatter).
+    # plain version in R1's place: film and depth bit-equal; R1 once to
+    # fill the pool and twice a step (camera and scatter).
     from mrt_torch.math import rng
     from mrt_torch.ops import rng as R1
     from mrt_torch.runtime.film import Film
     from mrt_torch.runtime.render import render_pass_persistent
     from mrt_torch.scenes import get
-    from mrt_torch.utils import profiling
 
     scene, camera = get(name)().generate(device=cuda)
 
@@ -1349,10 +1359,10 @@ def test_r1_pass_equals_the_plain_sampler_pass(cuda, monkeypatch, name):
     rec = profiling.snapshot()["pass"][-1]
     assert rec["steps"] > 0
     assert rec["draw_launches"] == 2 * rec["steps"] + 1
-    monkeypatch.setattr(rng, "draws_on_card", lambda ray_id: False)
-    before = R1.pcg4d_draw.launches
+    monkeypatch.setattr(rng, "pcg4d_draw", R1.pcg4d_draw_plain)
+    before = profiling.launch_counts["R1"]
     plain = one_pass()
-    assert R1.pcg4d_draw.launches == before
+    assert profiling.launch_counts["R1"] == before
     assert profiling.snapshot()["pass"][-1]["steps"] == rec["steps"]
     assert torch.equal(_bits(card.sum), _bits(plain.sum))
     assert torch.equal(card.depth_sum, plain.depth_sum)
@@ -1381,11 +1391,11 @@ def test_m1_matches_eager_on_every_class_and_edge(cuda, drop):
     n = args[0].shape[0] - drop
     cut = lambda a: a[:n] if torch.is_tensor(a) else tuple(x[:n] for x in a)
     args = tuple(cut(a) for a in args)
-    before = M1.shade_lanes.launches
+    before = profiling.launch_counts["M1"]
     got = M1.shade_lanes(tab, *args)
     want = M1.shade_lanes_plain(tab, *args)
     torch.cuda.synchronize()
-    assert M1.shade_lanes.launches == before + 1
+    assert profiling.launch_counts["M1"] == before + 1
     for case, part in parts.items():
         part = slice(part.start, min(part.stop, n))
         _m1_equal([g[part] for g in got], [w[part] for w in want], case)
@@ -1450,7 +1460,6 @@ def test_m1_spp2_rtiow_pass_equals_the_eager_pass(cuda, monkeypatch):
     from mrt_torch.runtime.film import Film
     from mrt_torch.runtime.render import render_pass_persistent
     from mrt_torch.scenes import get
-    from mrt_torch.utils import profiling
 
     scene, camera = get("rtiow")().generate(device=cuda)
     deposit = persistent.deposit
@@ -1488,11 +1497,14 @@ def test_m1_wrapper_raises_instead_of_falling_back(cuda):
     import torch_shade_cases as cases
     from mrt_torch.ops import shade as M1
 
+    # On CPU tensors the wrapper is its plain version; on the card it
+    # launches or raises, with no fallback, also on mixed devices.
     tab, (normal, front, rows, hit, d_in, u), _ = cases.wavefront(cuda)
-    with pytest.raises(ValueError, match="no kernel"):
-        M1.shade_lanes(cases.table("cpu"), normal.cpu(), front.cpu(),
-                       rows.cpu(), hit.cpu(), d_in.cpu(),
-                       tuple(x.cpu() for x in u))
+    cpu = (cases.table("cpu"), normal.cpu(), front.cpu(), rows.cpu(),
+           hit.cpu(), d_in.cpu(), tuple(x.cpu() for x in u))
+    before = profiling.launch_counts["M1"]
+    _m1_equal(M1.shade_lanes(*cpu), M1.shade_lanes_plain(*cpu), "the CPU")
+    assert profiling.launch_counts["M1"] == before
     with pytest.raises(ValueError, match="normal"):
         M1.shade_lanes(tab, normal.cpu(), front, rows, hit, d_in, u)
     with pytest.raises(TypeError, match="material"):

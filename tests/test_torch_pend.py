@@ -47,6 +47,7 @@ from mrt_torch.ops.deposit import deposit_pending, deposit_pending_plain
 from mrt_torch.runtime.film import Film
 from mrt_torch.runtime.render import render_pass, render_pass_persistent
 from mrt_torch.scenes import get as tget
+from mrt_torch.utils import profiling
 from test_rr import _camera as jfurnace_camera
 from test_rr import _furnace as jfurnace
 
@@ -120,11 +121,13 @@ def test_deposit_pending_plain_matches_deposit_add_at_death_rates(seed, rate,
 
 def test_pend_resolution(monkeypatch):
     monkeypatch.delenv("MRT_FILM_PEND", raising=False)
-    assert TP.pend_enabled(None) is TP.PEND_AUTO_ON is False
+    assert TP.pend_enabled(None) is False
     assert TP.pend_enabled(True) and not TP.pend_enabled(False)
     monkeypatch.setenv("MRT_FILM_PEND", "1")
     assert TP.pend_enabled(None) and not TP.pend_enabled(False)
     monkeypatch.setenv("MRT_FILM_PEND", "0")
+    assert not TP.pend_enabled(None)
+    monkeypatch.setenv("MRT_FILM_PEND", "yes")
     assert not TP.pend_enabled(None)
 
 
@@ -144,13 +147,13 @@ def test_pend_matches_scatter_and_reference(name, kw, monkeypatch):
         ts, tc, w, h, 1, 0, 2, max_depth=8, pool=POOL, pend=pend, **kw)
     # The environment resolves pend=None.
     monkeypatch.setenv("MRT_FILM_PEND", "1")
-    launches = TP.deposit_pending.launches
+    launches = profiling.launch_counts["B4"]
     got_sum, got_depth = run(None)
     ref_sum, ref_depth = run(False)
     np.testing.assert_array_equal(got_depth.numpy(), ref_depth.numpy())
     np.testing.assert_allclose(got_sum.numpy(), ref_sum.numpy(), rtol=1e-5,
                                atol=1e-5)
-    assert TP.deposit_pending.launches == launches  # plain on the CPU
+    assert profiling.launch_counts["B4"] == launches  # plain on the CPU
 
     js, jc = make(jget).generate()
     jsum, jdepth = render_samples_chunked(

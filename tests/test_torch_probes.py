@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from mrt_torch.tools import probe_stream as P
+from mrt_torch.utils import profiling
 
 # The TPU probes: a script of the repository's tools/, loaded by path.
 _SPEC = importlib.util.spec_from_file_location(
@@ -76,7 +77,7 @@ def test_p3_three_x():
     got, refused = P.probe_c(x, 227)
     assert refused is None and got.item() == 3.0
     assert P.probe_c_plain(torch.tensor([2.5])).item() == 7.5
-    assert P.probe_a.launches == P.probe_b.launches == P.probe_c.launches == 0
+    assert [profiling.launch_counts[k] for k in ("P1", "P2", "P3")] == [0] * 3
 
 
 @pytest.mark.parametrize("f_type, i_type", [(torch.float64, torch.int32),
@@ -89,27 +90,29 @@ def test_p1_wrapper_refuses_other_types(f_type, i_type):
         P.probe_a(f.to(f_type), i.to(i_type))
     with pytest.raises(TypeError, match="not float32 and int32"):
         P.probe_a(f.to("meta", f_type), i.to("meta", i_type))
-    assert P.probe_a.launches == 0
+    assert profiling.launch_counts["P1"] == 0
 
 
 @pytest.mark.parametrize("codes", [(0, 0), (0, 1), (1, 0), (1, 1)])
 def test_p3_refusal_bookkeeping(codes, monkeypatch):
     # The entry's two codes (the one-time attribute answer and this
     # launch's), faked: any non-zero one is a refusal, reported as
-    # (None, codes) and not counted as a launch; (0, 0) is a launch.
+    # (None, codes) and not counted as a launch; (0, 0) is a launch.  The
+    # fake counts each call as ``_build.launch`` counts an entry's.
     calls = []
 
     def fake_launch(name, device, x, out, nbytes, got):
         calls.append((name, nbytes))
         got.copy_(torch.tensor(codes, dtype=torch.int32))
+        profiling.launch_counts["P3"] += 1
 
     monkeypatch.setattr(P._build, "launch", fake_launch)
-    monkeypatch.setattr(P.probe_c, "launches", 0)
+    monkeypatch.setitem(profiling.launch_counts, "P3", 0)
     out, refused = P.probe_c(torch.ones((1,), device="meta"), 228)
     assert calls == [("mrt_probe_c", 228 * 1024)]
     if any(codes):
         assert out is None and refused == codes
-        assert P.probe_c.launches == 0
+        assert profiling.launch_counts["P3"] == 0
     else:
         assert refused is None and out.shape == (1,)
-        assert P.probe_c.launches == 1
+        assert profiling.launch_counts["P3"] == 1

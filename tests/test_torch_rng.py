@@ -125,7 +125,6 @@ def test_sampler_next1_after_skip_bit_exact(skips):
     js = jrng.Sampler(np.uint32(7), jnp.asarray(
         (ids & 0xFFFFFFFF).astype(np.uint32)), salt=np.uint32(11))
     ts = rng.Sampler(7, torch.from_numpy(ids), salt=11)
-    assert not ts.card
     for n in skips:
         js.skip(n)
         ts.skip(n)
@@ -137,41 +136,44 @@ def test_sampler_next1_after_skip_bit_exact(skips):
             np.testing.assert_array_equal(np.asarray(w), g.numpy())
 
 
-def _r1_by_plain(monkeypatch):
-    """The card's path of Sampler on the CPU: draws_on_card true and R1's
-    place taken by its plain version, which counts as R1's launches."""
+def _r1_counted(monkeypatch):
+    """R1's wrapper in the Sampler's hands, with its calls counted: a
+    list that each call appends its arguments to."""
     from mrt_torch.ops import rng as R1
 
-    def plain(ray_id, seed, salt, draw):
-        R1.pcg4d_draw.launches += 1
-        return R1.pcg4d_draw_plain(ray_id, seed, salt, draw)
+    calls = []
 
-    monkeypatch.setattr(rng, "draws_on_card", lambda ray_id: True)
-    monkeypatch.setattr(rng, "pcg4d_draw", plain)
-    monkeypatch.setattr(R1.pcg4d_draw, "launches", 0)
-    return R1.pcg4d_draw
+    def counted(ray_id, seed, salt, draw):
+        calls.append((ray_id, seed, salt, draw))
+        return R1.pcg4d_draw(ray_id, seed, salt, draw)
+
+    monkeypatch.setattr(rng, "pcg4d_draw", counted)
+    return calls
 
 
 @pytest.mark.parametrize("salt_kind", ["int", "per-lane"])
 def test_sampler_card_path_keeps_its_arguments(monkeypatch, salt_kind):
-    # On the card a Sampler keeps seed, ray_id and salt as given and draws
-    # once a next4 or next1, skips without a launch, and its draws equal
-    # the plain path's.
-    counted = _r1_by_plain(monkeypatch)
+    # A Sampler keeps seed, ray_id and salt as given, hands them to R1's
+    # wrapper once a next4 or next1 with the draw counter mod 2^32, skips
+    # without a call, and its draws equal R1's plain version's.
+    from mrt_torch.ops import rng as R1
+
+    calls = _r1_counted(monkeypatch)
     ids = torch.from_numpy(_edge_ids())
     salt = 5 if salt_kind == "int" else 3 * (ids % 7) + 2
-    card = rng.Sampler(2 ** 33 + 1, ids, salt)
-    assert card.card and card.ray_id is ids and card.seed == 2 ** 33 + 1
-    monkeypatch.setattr(rng, "draws_on_card", lambda ray_id: False)
-    plain = rng.Sampler(2 ** 33 + 1, ids, salt)
-    for sampler in (card, plain):
-        sampler.skip(4)
-    for w, g in zip(plain.next4(), card.next4()):
+    sampler = rng.Sampler(2 ** 33 + 1, ids, salt)
+    assert sampler.ray_id is ids and sampler.seed == 2 ** 33 + 1
+    assert sampler.salt is salt
+    sampler.skip(4)
+    for w, g in zip(R1.pcg4d_draw_plain(ids, 2 ** 33 + 1, salt, 4),
+                    sampler.next4()):
         assert torch.equal(w, g)
-    card.skip(2)
-    plain.skip(2)
-    assert torch.equal(plain.next1(), card.next1())
-    assert counted.launches == 2
+    sampler.skip(2 ** 32 + 2)
+    assert torch.equal(R1.pcg4d_draw_plain(ids, 2 ** 33 + 1, salt, 7)[0],
+                       sampler.next1())
+    assert [draw for _, _, _, draw in calls] == [4, 7]
+    assert all(r is ids and s == 2 ** 33 + 1 and t is salt
+               for r, s, t, _ in calls)
 
 
 def _vecs(rs, n=4096):

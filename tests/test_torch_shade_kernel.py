@@ -1,16 +1,16 @@
 """Kernel M1's route through L3 shading, on the CPU (no card needed).
 
-``materials.shade.shade_hit`` takes M1 (``ops.shade.shade_lanes``) only
-for lanes on the card, a table with no atlas and no Mix rows, and
-autograd not recording through shading; everywhere else its eager
-composition runs.  Here the card's route is taken on the CPU by patching
-``shade.on_card`` and putting M1's plain version, counted as M1, in its
-place: the persistent pass then shades every step through it with the
-films unchanged, while atlas and Mix scenes and the differentiable
-trace's forward and checkpoint recompute stay eager.  The wrapper raises
-on what it does not take.  The synthetic wavefront of
-``tests/torch_shade_cases.py`` reaches each edge it was built for.
-Imports no JAX.
+``materials.shade.shade_hit`` takes M1's wrapper (``ops.shade.shade_lanes``)
+for a table with no atlas and no Mix rows when autograd does not record
+through shading; everywhere else its eager composition runs.  On CPU
+tensors the wrapper runs M1's plain version.  Here each call of the
+wrapper is counted as a launch, as on the card: the persistent pass
+shades every step through it with the films equal to the eager pass's,
+while atlas and Mix scenes and the differentiable trace's forward and
+checkpoint recompute stay eager.  The wrapper equals its plain version
+on CPU tensors and raises on what it does not take.  The synthetic
+wavefront of ``tests/torch_shade_cases.py`` reaches each edge it was
+built for.  Imports no JAX.
 """
 
 import pytest
@@ -36,17 +36,18 @@ W, H = 24, 16
 
 @pytest.fixture
 def routes(monkeypatch):
-    """M1's route taken on the CPU: {"m1": calls of M1 (its plain version
-    in its place), "eager": calls of the eager composition}."""
+    """M1's route on the CPU, counted: {"m1": calls of M1's wrapper, each
+    counted as a launch of M1, "eager": calls of the eager composition
+    outside it}."""
     calls = {"m1": 0, "eager": 0}
-    eager, inside = shade.shade_rows, []
+    wrapper, eager, inside = shade.shade_lanes, shade.shade_rows, []
 
     def m1(*args):
         calls["m1"] += 1
-        M1.shade_lanes.launches += 1
-        inside.append(True)  # the plain version runs shade_rows itself
+        profiling.launch_counts["M1"] += 1
+        inside.append(True)  # on the CPU the wrapper runs shade_rows
         try:
-            return M1.shade_lanes_plain(*args)
+            return wrapper(*args)
         finally:
             inside.pop()
 
@@ -54,9 +55,10 @@ def routes(monkeypatch):
         calls["eager"] += not inside
         return eager(*args)
 
-    monkeypatch.setattr(shade, "on_card", lambda d_in: True)
     monkeypatch.setattr(shade, "shade_lanes", m1)
     monkeypatch.setattr(shade, "shade_rows", counted_eager)
+    counts = profiling.launch_counts
+    monkeypatch.setitem(counts, "M1", counts["M1"])
     return calls
 
 
@@ -75,7 +77,7 @@ def test_a_pass_shades_every_step_through_m1(routes, monkeypatch, name):
     rec = profiling.snapshot()["pass"][-1]
     assert routes["eager"] == 0 and routes["m1"] == rec["steps"] > 0
     assert rec["shade_launches"] == rec["steps"]
-    monkeypatch.setattr(shade, "on_card", lambda d_in: False)
+    monkeypatch.setattr(shade, "shades_on_card", lambda *args: False)
     eager_film = _pass(scene, camera)
     assert routes["eager"] == profiling.snapshot()["pass"][-1]["steps"]
     assert profiling.snapshot()["pass"][-1]["shade_launches"] == 0
@@ -95,7 +97,7 @@ def _scene_of(tab, **kw):
 
 @pytest.mark.parametrize("kind, want", [
     ("plain", True),
-    ("off the card", False),
+    ("meta tensors", True),  # the wrapper, not the rule, asks the device
     ("atlas", False),
     ("mix", False),
     ("grad: d_in", False),
@@ -108,10 +110,11 @@ def _scene_of(tab, **kw):
 ])
 def test_the_routing_rule(monkeypatch, kind, want):
     tab, args, _ = cases.wavefront("cpu")
+    if kind == "meta tensors":
+        tab, args = tab.to("meta"), tuple(
+            x.to("meta") if torch.is_tensor(x) else x for x in args)
     normal, _, _, _, d_in, _ = args
     scene = _scene_of(tab, has_mix=False)
-    on = kind != "off the card"
-    monkeypatch.setattr(shade, "on_card", lambda d: on)
     if kind == "atlas":
         scene.atlas = object()
     if kind == "mix":
@@ -200,11 +203,16 @@ def _wrapper_args(fault):
         hit = hit[1:]
     elif fault == "three draws":
         u = u[:3]
+    elif fault == "meta tensors":
+        tab, (normal, front, rows, hit, d_in) = tab.to("meta"), (
+            x.to("meta") for x in (normal, front, rows, hit, d_in))
+        u = [x.to("meta") for x in u]
     return tab, normal, front, rows, hit, d_in, tuple(u)
 
 
 @pytest.mark.parametrize("fault, error, match", [
-    ("none: a CPU tensor", ValueError, "no kernel for device cpu"),
+    ("none: a CPU tensor", None, None),
+    ("meta tensors", ValueError, "no kernel for device meta"),
     ("dtype", TypeError, "material is torch.int64"),
     ("table dtype", TypeError, "mtype is torch.int64"),
     ("non-contiguous", ValueError, "normal is not contiguous"),
@@ -213,10 +221,16 @@ def _wrapper_args(fault):
     ("three draws", ValueError, "3 uniforms"),
 ])
 def test_the_wrapper_raises_on_what_it_does_not_take(fault, error, match):
-    before = M1.shade_lanes.launches
-    with pytest.raises(error, match=match):
-        M1.shade_lanes(*_wrapper_args(fault))
-    assert M1.shade_lanes.launches == before
+    # On CPU tensors the wrapper is its plain version, bit for bit.
+    before = profiling.launch_counts["M1"]
+    args = _wrapper_args(fault)
+    if error is None:
+        for g, w in zip(M1.shade_lanes(*args), M1.shade_lanes_plain(*args)):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    else:
+        with pytest.raises(error, match=match):
+            M1.shade_lanes(*args)
+    assert profiling.launch_counts["M1"] == before
 
 
 @pytest.mark.parametrize("case", cases.CASES)

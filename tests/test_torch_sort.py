@@ -44,6 +44,7 @@ from mrt_torch.materials.table import MaterialBuilder as TMaterials
 from mrt_torch.ops import budget as tbudget
 from mrt_torch.ops import sort as S
 from mrt_torch.scenes import get as tget
+from mrt_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -189,13 +190,14 @@ def test_wrappers_check_their_inputs():
             k: v.to("meta") for k, v in st.items()})
     # On the CPU the wrappers are their plain versions, which count no
     # launch; next_work is carried as it is.
-    launches = S.sort_keys.launches, S.permute_lanes.launches
+    counts = profiling.launch_counts
+    launches = counts["S1"], counts["S2"]
     out = S.permute_lanes(perm, st)
     assert out["next_work"] is st["next_work"]
     for k in S.COLUMNS + ("acc",):
         assert out[k].numpy().tobytes() == st[k][perm].numpy().tobytes()
     S.sort_keys(st["item"], st["o"], st["d"], TOTAL, box)
-    assert (S.sort_keys.launches, S.permute_lanes.launches) == launches
+    assert (counts["S1"], counts["S2"]) == launches
 
 
 def _many_instances(builder, materials, sky, cube, n, **kw):

@@ -344,23 +344,24 @@ def test_the_shade_launch_reader(records, want):
 
 @pytest.mark.parametrize("scene_name", ["rtiow", "sphere_grid"])
 def test_a_pass_record_counts_two_draws_a_step(monkeypatch, scene_name):
-    # With the card's path of Sampler taken on the CPU (R1's place held by
-    # its plain version, counting as R1), a pass draws once to fill the
-    # pool and twice a step (the camera and scatter), and its film and
-    # depth equal the plain sampler's bit for bit.
+    # With R1's wrapper counting each call as a launch, as on the card
+    # (on the CPU it runs its plain version and launches nothing), a pass
+    # draws once to fill the pool and twice a step (the camera and
+    # scatter), and its film and depth equal the uncounted pass's.
     from mrt_torch.math import rng
-    from mrt_torch.ops import rng as R1
 
     scene, camera = _scene(scene_name)
     plain = _pass(scene, camera, sort_rays=4 * (scene_name != "rtiow"))
     assert profiling.snapshot()["pass"][-1]["draw_launches"] == 0
+    wrapper = rng.pcg4d_draw
 
     def counted(ray_id, seed, salt, draw):
-        R1.pcg4d_draw.launches += 1
-        return R1.pcg4d_draw_plain(ray_id, seed, salt, draw)
+        profiling.launch_counts["R1"] += 1
+        return wrapper(ray_id, seed, salt, draw)
 
-    monkeypatch.setattr(rng, "draws_on_card", lambda ray_id: True)
     monkeypatch.setattr(rng, "pcg4d_draw", counted)
+    counts = profiling.launch_counts
+    monkeypatch.setitem(counts, "R1", counts["R1"])
     card = _pass(scene, camera, sort_rays=4 * (scene_name != "rtiow"))
     rec = profiling.snapshot()["pass"][-1]
     assert rec["draw_launches"] == 2 * rec["steps"] + 1
