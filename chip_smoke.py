@@ -389,11 +389,11 @@ def captured_rays(kernel, out):
     """Inside the block, the rays (o, d, t_min, t_max) that the main
     path's sphere intersections number CAPTURE_STEPS (from 0) pass to B1
     (`kernel` "B1": ``geometry.spheres.nearest_t``) or B5 ("B5":
-    ``geometry.bvh.intersect_bvh_spheres``) are copied into out[step]."""
+    ``geometry.bvh.sphere_bvh_winners``) are copied into out[step]."""
     from mrt_torch.geometry import bvh, spheres
 
     module, name = ((spheres, "nearest_t") if kernel == "B1"
-                    else (bvh, "intersect_bvh_spheres"))
+                    else (bvh, "sphere_bvh_winners"))
     fn = getattr(module, name)
     calls = [0]
 
@@ -1380,23 +1380,26 @@ def phase_light_goldens(dev):
                  max_outside=40)
 
 
-def phase_nee(dev, shading):
+def phase_nee(dev, shading, records):
     """cornell with NEE on both film modes, without and with Russian
     roulette; the first pass's M1 arguments at CAPTURE_STEPS go into
-    `shading`."""
+    `shading`, its H1 arguments at H1_CALLS["cornell_nee"] into
+    `records`."""
     runs = {}
     for rr in (None, 3):
         for pend in (False, True):
             key = (rr, pend)
             runs[key] = {}
-            kernels = ("B1", "B7") + (("B4",) if pend else ("B2",))
+            kernels = ("B1", "B7", "H1") + (("B4",) if pend else ("B2",))
             first = key == (None, False)
             with environ(MRT_FILM_PEND="1" if pend else "0"):
                 launches, mean = phase_main(
                     18, "cornell", dev, kernels, nee=True, rr_depth=rr,
                     film_out=runs[key], absent=("B2",) if pend else (),
-                    during=(captured_shading(shading) if first
-                            else contextlib.nullcontext()))
+                    during=(contexts(captured_shading(shading),
+                                     captured_records(
+                                         records, H1_CALLS["cornell_nee"]))
+                            if first else contextlib.nullcontext()))
             runs[key].update(launches=launches, mean=mean)
         a, b = runs[(rr, False)]["film"], runs[(rr, True)]["film"]
         diff, scale = films_agree(f"cornell NEE rr_depth={rr}", a, b)
@@ -1819,6 +1822,8 @@ def phase_grad(dev):
                 launches_r1_recompute=bwd["R1"],
                 launches_m1_forward=fwd["M1"],
                 launches_m1_recompute=bwd["M1"],
+                launches_h1_forward=fwd["H1"],
+                launches_h1_recompute=bwd["H1"],
                 apply_ms=apply_ms, crop_rel=rel,
                 gather_backward_ms=gather_ms)
 
@@ -1976,12 +1981,13 @@ def aov_scene(name, dev):
     kernels = {"rtiow": ("B1",), "sphere_grid": ("B5", "B7"),
                "lucy": ("B1", "B7")}[name]
     for _, launches in runs:
-        check(all(launches[k] == batches for k in kernels + ("M1",))
+        check(all(launches[k] == batches
+                  for k in kernels + ("M1", "H1"))
               and launches["R1"] > 0
               and all(v == 0 for k, v in launches.items()
-                      if k not in kernels + ("R1", "M1")),
+                      if k not in kernels + ("R1", "M1", "H1")),
               f"{name} AOV pre-pass: {launches}, not {batches} launches "
-              f"of each of {kernels} and M1")
+              f"of each of {kernels}, M1 and H1")
     spots = {"B1": (B1, "nearest_t"), "B5": (K, "sphere_bvh_hit"),
              "B7": (K, "tlas_hit")}
     calls = {k: {} for k in kernels}
@@ -2139,13 +2145,14 @@ def phase_cli(dev):
             0].samples == spp, f"the checkpoint holds "
                               f"{Film.load_state(ckpt, device=dev)[0].samples}"
                               f" samples, the film {film.samples}, not {spp}")
-        check(launches["B1"] == launches["M1"] == steps + batches
+        check(launches["B1"] == launches["M1"] == launches["H1"]
+              == steps + batches
               and launches["B2"] == steps and launches["R1"] > 0
               and all(v == 0 for k, v in launches.items()
-                      if k not in ("B1", "B2", "R1", "M1")),
+                      if k not in ("B1", "B2", "R1", "M1", "H1")),
               f"CLI run to spp {spp}: {steps} steps, launches {launches}; "
-              f"B1 and M1 should launch once a step and {batches} times in "
-              "the pre-pass, B2 once a step")
+              f"B1, M1 and H1 should launch once a step and {batches} times "
+              "in the pre-pass, B2 once a step")
         shown = film.to_rgb_bytes(DisplayMode.DENOISE, denoiser=denoiser)
         check(np.array_equal((IO.load_png(out)[..., :3] * 255.0).round()
                              .astype(np.uint8), shown[::-1]),
@@ -2403,11 +2410,12 @@ def phase_sharded(dev, rtiow):
         check(mesh.groups["spp"] is not None, "no process group on (1, 1)")
         film, seconds, launches, steps, ar = shard_pass("rtiow", dev, WIDTH,
                                                         HEIGHT, mesh)
-        check(launches["B1"] == launches["B2"] == launches["M1"] == steps > 0
+        check(launches["B1"] == launches["B2"] == launches["M1"]
+              == launches["H1"] == steps > 0
               and launches["R1"] > 0
               and not any(v for k, v in launches.items()
-                          if k not in ("B1", "B2", "R1", "M1")),
-              f"sharded RTIOW: B1, B2 and M1 not once a step ({steps} "
+                          if k not in ("B1", "B2", "R1", "M1", "H1")),
+              f"sharded RTIOW: B1, B2, M1 and H1 not once a step ({steps} "
               f"steps): {launches}")
         check(film.samples == 2, f"samples {film.samples}")
         diff, scale = films_agree("sharded RTIOW (1, 1) against phase 6",
@@ -2983,6 +2991,168 @@ def phase_m1(dev, floor, captures, passes):
     return out
 
 
+# H1's FP32 operations a lane with both sets (the instances' expansion,
+# counted by hand from csrc/hits.cu: the barycentric weight and the
+# interpolations, five transforms by the linear part, the normalisation,
+# the point, the face, the cross product and its length; the sphere's 20
+# besides), and its bytes a lane: the ray (24 B), the spheres' winners
+# (8 B) and the instances' (20 B) read, the record's ten columns written
+# (70 B).  The taken set's table rows stay in L2: not counted.
+OPS_HITS = 160
+BYTES_HITS = {"rtiow": 24 + 8 + 70, "sphere_grid": 24 + 8 + 20 + 70,
+              "cornell_nee": 24 + 8 + 20 + 70}
+H1_CALLS = {"rtiow": CAPTURE_STEPS, "sphere_grid": CAPTURE_STEPS,
+            "cornell_nee": tuple(c for s in CAPTURE_STEPS
+                                 for c in (2 * s, 2 * s + 1))}
+
+
+@contextlib.contextmanager
+def captured_records(out, calls):
+    """Inside the block, the arguments that the main path's H1 calls
+    number `calls` (from 0) pass (``ops.hits.hit_record``: the rays, the
+    sphere set and its winners, the TLAS and its winners) are copied into
+    out[call]."""
+    from mrt_torch.ops import hits
+
+    fn, count = hits.hit_record, [0]
+    copy = lambda a: (a.clone() if torch.is_tensor(a) else
+                      tuple(x.clone() for x in a) if isinstance(a, tuple)
+                      else a)
+
+    def spy(*args):
+        if count[0] in calls:
+            out[count[0]] = tuple(copy(a) for a in args)
+        count[0] += 1
+        return fn(*args)
+
+    hits.hit_record = spy
+    try:
+        yield
+    finally:
+        hits.hit_record = fn
+
+
+def _h1_lanes(args, n):
+    """H1's arguments with their lanes repeated to `n`."""
+    grow = lambda x: x.repeat(-(-n // x.shape[0]),
+                              *[1] * (x.dim() - 1))[:n].contiguous()
+    return tuple(grow(a) if torch.is_tensor(a) else
+                 tuple(grow(x) for x in a) if isinstance(a, tuple) else a
+                 for a in args)
+
+
+def _h1_tied(args):
+    """H1's arguments with the instances' t set to the spheres' on half
+    the lanes both sets hit and one ulp below it on the other half."""
+    o, d, spheres, sph, tlas, inst = args
+    t_s, t_i = sph[0], inst[0].clone()
+    both = torch.nonzero(torch.isfinite(t_s) & torch.isfinite(t_i))[:, 0]
+    t_i[both[0::2]] = t_s[both[0::2]]
+    t_i[both[1::2]] = torch.nextafter(t_s[both[1::2]],
+                                      torch.zeros_like(t_s[both[1::2]]))
+    return (o, d, spheres, sph, tlas, (t_i, *inst[1:])), len(both)
+
+
+def _h1_missed(args):
+    """H1's arguments with every winner's t a miss: +inf, NaN on every
+    third lane."""
+    o, d, spheres, sph, tlas, inst = args
+    miss = torch.full_like(sph[0], float("inf"))
+    miss[::3] = float("nan")
+    return (o, d, spheres, (miss, *sph[1:]), tlas, (miss.clone(),
+                                                    *inst[1:]))
+
+
+def _h1_differing(got, want):
+    """The record fields in which two Hits differ, with their lanes."""
+    out = {}
+    for name in ("t", "point", "normal", "front_face", "uv", "material",
+                 "hit", "tangent", "bitangent", "prim_area"):
+        g, w = getattr(got, name), getattr(want, name)
+        if not bits_equal(g, w):
+            out[name] = int((g != w).reshape(g.shape[0], -1).any(1).sum())
+    return out
+
+
+def phase_h1(dev, floor, captures, passes):
+    """Phase 26: L2's hit-record kernel H1 against its plain version (the
+    eager chain), bit for bit, on the calls of steps 2 and 64 of the
+    RTIOW, sphere_grid and cornell NEE main paths (phases 6, 10, 18:
+    `captures`, {scene: {call: args}}; cornell's shadow rays too), on
+    cornell's step-64 lanes with the sets tied and on them sent away from
+    the scene; its ms by CUDA-graph replay at 2^17 lanes and at 2,073,600
+    (those lanes repeated) on each scene's step 64, beside its bytes bound
+    and the eager chain's ms; the host µs of one call of each; H1 once a
+    step (twice with NEE) in those passes (`passes`, {scene: (launches,
+    steps)}).  Returns H1's entry of the kernels line (without
+    launches)."""
+    from mrt_torch.ops import hits as H1
+    from mrt_torch.utils import profiling
+
+    for name, calls in H1_CALLS.items():
+        check(sorted(captures[name]) == sorted(calls),
+              f"H1 {name}: captured calls {sorted(captures[name])}")
+        for call, args in sorted(captures[name].items()):
+            before = profiling.launch_counts["H1"]
+            got = H1.hit_record(*args)
+            want = H1.hit_record_plain(*args)
+            check(profiling.launch_counts["H1"] == before + 1,
+                  f"H1 on {name}'s call {call} did not launch once")
+            bad = _h1_differing(got, want)
+            check(not bad, f"H1 on {name}'s call {call} differs from the "
+                           f"eager chain (lanes by column): {bad}")
+    step64 = {name: captures[name][calls[-2 if name == "cornell_nee"
+                                          else -1]]
+              for name, calls in H1_CALLS.items()}
+    tied, both = _h1_tied(step64["cornell_nee"])
+    check(both > 0, "cornell's step 64: no lane hit both sets")
+    out = dict(max_abs_err=0.0, floor_ms=floor, library_ms=None,
+               tied_lanes=both)
+    for what, args in (("tied", tied),
+                       ("missed", _h1_missed(step64["cornell_nee"]))):
+        got = H1.hit_record(*args)
+        bad = _h1_differing(got, H1.hit_record_plain(*args))
+        check(not bad, f"H1 on cornell's {what} lanes differs: {bad}")
+    check(not got.hit.any() and bool(torch.isinf(got.t).all()),
+          "H1 on lanes that no set hit: not Hits.none's record")
+    for name, base in step64.items():
+        for n in R1_LANES:
+            args = base if n == RAYS else _h1_lanes(base, n)
+            bad = _h1_differing(H1.hit_record(*args),
+                                H1.hit_record_plain(*args))
+            check(not bad, f"H1 on {name} at {n} lanes differs: {bad}")
+            row = dict(lanes=n,
+                       ms=graph_ms(lambda: H1.hit_record(*args), 50),
+                       plain_ms=graph_ms(
+                           lambda: H1.hit_record_plain(*args), 5),
+                       **bound(n * BYTES_HITS[name], n * OPS_HITS))
+            out[f"{name}_lanes_{n}"] = row
+        out[f"{name}_wrapper_host_us"] = host_us(
+            lambda: H1.hit_record(*base), 1000)
+        out[f"{name}_plain_host_us"] = host_us(
+            lambda: H1.hit_record_plain(*base), 100)
+    for name, (launches, steps) in passes.items():
+        per = 2 if name == "cornell_nee" else 1
+        check(launches["H1"] == per * steps,
+              f"{name}: H1 {launches['H1']} launches, not {per} a step of "
+              f"{steps}")
+    out["launches_a_step"] = {name: launches["H1"] / steps
+                              for name, (launches, steps) in passes.items()}
+    for name in step64:
+        for n in R1_LANES:
+            r = out[f"{name}_lanes_{n}"]
+            log(26, f"H1 hit record, {name} step 64, {n} lanes: bit-equal "
+                    f"to the eager chain; {r['ms']:.5f} ms (CUDA graph), "
+                    f"bound {r['bound_ms']:.5f} ({r['bound_by']}), floor "
+                    f"{floor:.5f}; eager {r['plain_ms']:.4f}")
+        log(26, f"H1 host time a call on {name} at {RAYS} lanes: "
+                f"{out[name + '_wrapper_host_us']:.2f} µs through H1, "
+                f"{out[name + '_plain_host_us']:.2f} µs eager")
+    log(26, f"H1 bit-equal on calls {H1_CALLS} and on {both} tied lanes; "
+            f"launches a step {out['launches_a_step']}")
+    return out
+
+
 def phase_sort(dev, rtiow_state, rtiow_rays):
     """Phase 23: the lane sorter.  Returns the S1 and S2 entries of the
     kernels line (without launches) and the phase's numbers."""
@@ -3027,21 +3197,27 @@ def main():
     rtiow_rays, grid_rays, rtiow_film = {}, {}, {}
     rtiow_state = {}
     shading = {name: {} for name in M1_SCENES}
-    rtiow, _ = phase_main(6, "rtiow", dev, ("B1", "B2", "M1"),
+    records = {name: {} for name in H1_CALLS}
+    rtiow, _ = phase_main(6, "rtiow", dev, ("B1", "B2", "M1", "H1"),
                           film_out=rtiow_film,
                           during=contexts(captured_rays("B1", rtiow_rays),
                                           captured_state(rtiow_state),
-                                          captured_shading(shading["rtiow"])))
+                                          captured_shading(shading["rtiow"]),
+                                          captured_records(
+                                              records["rtiow"],
+                                              H1_CALLS["rtiow"])))
     b1 = phase_b1(dev, rtiow_rays)
     b7 = phase_b7(dev)
     phase_golden(9, "cornell", dev)
     grid_film = {}
     grid, _ = phase_main(10, "sphere_grid", dev,
-                         ("B2", "B5", "B7", "S1", "S2", "M1"),
+                         ("B2", "B5", "B7", "S1", "S2", "M1", "H1"),
                          film_out=grid_film,
                          during=contexts(
                              captured_rays("B5", grid_rays),
-                             captured_shading(shading["sphere_grid"])))
+                             captured_shading(shading["sphere_grid"]),
+                             captured_records(records["sphere_grid"],
+                                              H1_CALLS["sphere_grid"])))
     b5 = phase_b5(dev, grid_rays)
     b6 = phase_b6(dev)
     meshes = phase_meshes(dev)
@@ -3050,7 +3226,7 @@ def main():
     eve = phase_eve(dev)
     b4 = phase_b4(dev, b2["floor_ms"])
     phase_light_goldens(dev)
-    nee = phase_nee(dev, shading["cornell_nee"])
+    nee = phase_nee(dev, shading["cornell_nee"], records["cornell_nee"])
     menger = phase_menger(dev)
     probes = phase_probes(dev)
     grad = phase_grad(dev)
@@ -3063,6 +3239,11 @@ def main():
         "sphere_grid": (grid, grid_film["steps"], 2),
         "cornell_nee": (nee[(None, False)]["launches"],
                         nee[(None, False)]["steps"], 3)})
+    h1 = phase_h1(dev, b2["floor_ms"], records, {
+        "rtiow": (rtiow, rtiow_film["steps"]),
+        "sphere_grid": (grid, grid_film["steps"]),
+        "cornell_nee": (nee[(None, False)]["launches"],
+                        nee[(None, False)]["steps"])})
 
     kernels = [
         dict(name="B1 sphere nearest hit", route="cuda",
@@ -3146,6 +3327,15 @@ def main():
              launches_aov=cli["aov"]["rtiow"]["launches"]["M1"],
              launches_grad_forward=grad["launches_m1_forward"],
              launches_grad_recompute=grad["launches_m1_recompute"], **m1),
+        dict(name="H1 L2 hit record", route="cuda",
+             source="mrt_torch/csrc/hits.cu",
+             replaces="mrt/geometry/scene.py:205",
+             launches=rtiow["H1"], launches_sphere_grid=grid["H1"],
+             launches_cornell_nee=nee[(None, False)]["launches"]["H1"],
+             launches_cli=cli["runs"][0]["launches"]["H1"],
+             launches_aov=cli["aov"]["rtiow"]["launches"]["H1"],
+             launches_grad_forward=grad["launches_h1_forward"],
+             launches_grad_recompute=grad["launches_h1_recompute"], **h1),
     ]
     grad.pop("recover")
     log(20, f"gradient path: {json.dumps(grad)}")

@@ -372,13 +372,20 @@ def build_over_spheres(spheres, leaf_size=LEAF_SIZE):
     return FlatBVH.create(*arrays).to(spheres.center.device), reordered
 
 
+def sphere_bvh_winners(spheres, bvh: FlatBVH, o, d, t_min, t_max):
+    """Closest sphere hit through the sphere BVH (kernel B5): (t (N,),
+    +inf on a miss; index (N,) int32).  Raises ValueError where o, d or
+    the spheres require grad."""
+    refuse_grad("sphere BVH (B5)", o, d, spheres, bvh)
+    return kernel.sphere_bvh_hit(
+        bvh.nodes, bvh.meta, spheres.krows, o, d, t_min, t_max,
+        card=(bvh.knodes, bvh.order))
+
+
 def intersect_bvh_spheres(spheres, bvh: FlatBVH, o, d, t_min, t_max):
     """Closest sphere hit through the sphere BVH (kernel B5); returns
     Hits.  Raises ValueError where o, d or the spheres require grad."""
-    refuse_grad("sphere BVH (B5)", o, d, spheres, bvh)
-    t, index = kernel.sphere_bvh_hit(
-        bvh.nodes, bvh.meta, spheres.krows, o, d, t_min, t_max,
-        card=(bvh.knodes, bvh.order))
+    t, index = sphere_bvh_winners(spheres, bvh, o, d, t_min, t_max)
     return sphere_mod.make_hits(spheres, o, d, t, index, t_min)
 
 

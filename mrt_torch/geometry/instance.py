@@ -474,29 +474,41 @@ def wants_flat_parts(tlas: TLAS, auto=True) -> bool:
     return not kind and auto and PARTS_AUTO_ON
 
 
-def intersect_tlas_flat_parts(tlas: TLAS, o, d, t_min, t_max) -> Hits:
+def flat_parts_winners(tlas: TLAS, o, d, t_min, t_max):
     """Closest hit over the flat parts (kernel B6, one launch for all
-    parts), as Hits.
+    parts): (t (N,), +inf on a miss; instance, triangle (N,) int32; u;
+    v), as the two-level route gives them.
 
     Winners fold across the parts: a strictly smaller t wins, so on
     equal t the earlier part keeps the hit (within a part the lower
-    triangle).  The winner's packed id gives (instance, triangle), which
-    ``expand_winner`` turns into the two-level route's Hits.  Raises
-    ValueError where o, d or the TLAS require grad."""
+    triangle).  The winner's packed id gives (instance, triangle).
+    Raises ValueError where o, d or the TLAS require grad."""
     refuse_grad("TLAS flat parts (B6)", o, d, tlas)
     t, row, u, v = kernel.tri_bvh_parts_hit(tlas.flat_parts, o, d, t_min,
                                             t_max)
     packed = tlas.flat_packed[row.to(torch.int64)]
-    return expand_winner(tlas, o, d, t, packed >> 20,
-                         packed & ((1 << 20) - 1), u, v)
+    return t, packed >> 20, packed & ((1 << 20) - 1), u, v
+
+
+def intersect_tlas_flat_parts(tlas: TLAS, o, d, t_min, t_max) -> Hits:
+    """Closest hit over the flat parts, as Hits: ``flat_parts_winners``
+    turned into the two-level route's Hits by ``expand_winner``."""
+    return expand_winner(tlas, o, d,
+                         *flat_parts_winners(tlas, o, d, t_min, t_max))
+
+
+def tlas_winners(tlas: TLAS, o, d, t_min, t_max):
+    """Closest hit over all instances (kernel B7): (t (N,), +inf on a
+    miss; instance, triangle (N,) int32; u; v).  Raises ValueError where
+    o, d or the TLAS require grad."""
+    refuse_grad("TLAS (B7)", o, d, tlas)
+    return kernel.tlas_hit(tlas, o, d, t_min, t_max)
 
 
 def intersect_tlas(tlas: TLAS, o, d, t_min, t_max) -> Hits:
-    """Closest hit over all instances (kernel B7), as Hits.  Raises
-    ValueError where o, d or the TLAS require grad."""
-    refuse_grad("TLAS (B7)", o, d, tlas)
-    t, inst, tri, u, v = kernel.tlas_hit(tlas, o, d, t_min, t_max)
-    return expand_winner(tlas, o, d, t, inst, tri, u, v)
+    """Closest hit over all instances (kernel B7), as Hits."""
+    return expand_winner(tlas, o, d, *tlas_winners(tlas, o, d, t_min,
+                                                   t_max))
 
 
 def expand_winner(tlas: TLAS, o, d, best_t, best_inst, best_tri, best_u,

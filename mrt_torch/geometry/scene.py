@@ -30,11 +30,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.autodiff import Replace
+from ..core.autodiff import Replace, needs_grad
 from ..core.device import resolve
 from ..materials import shade
 from ..materials.background import CubeMap, SkySphere
 from ..ops import budget, compact
+from ..ops import hits as hit_kernel
 from ..textures.atlas import RAW
 from ..utils import profiling
 from . import bvh as bvh_mod
@@ -199,14 +200,15 @@ class Scene(Replace, nn.Module):
         return hits
 
     def _intersect_once(self, o, d, t_min, t_max, sampler, shading_aux):
+        if records_on_card(self, o, d, shading_aux):
+            sph, inst = self.winners(o, d, t_min, t_max)
+            return hit_kernel.hit_record(o, d, self.spheres, sph, self.tlas,
+                                         inst)
         hits = Hits.none(o.shape[0], device=o.device)
         if self.spheres is not None:
-            if self.sphere_bvh is not None:
-                hits = hits.closer_of(bvh_mod.intersect_bvh_spheres(
-                    self.spheres, self.sphere_bvh, o, d, t_min, t_max))
-            else:
-                hits = hits.closer_of(
-                    sphere_mod.intersect(self.spheres, o, d, t_min, t_max))
+            hits = hits.closer_of(sphere_mod.make_hits(
+                self.spheres, o, d, *self._sphere_winners(o, d, t_min, t_max),
+                t_min))
         if self.triangles is not None:
             if self.bvh is not None:
                 hits = hits.closer_of(bvh_mod.intersect_bvh(
@@ -215,19 +217,14 @@ class Scene(Replace, nn.Module):
                 hits = hits.closer_of(tri_mod.intersect_brute(
                     self.triangles, o, d, t_min, t_max))
         if self.tlas is not None:
-            # The reference's TPU dispatch passes auto=True, its XLA one
-            # False; the card takes the first, the CPU the second.
-            auto = o.device.type == "cuda"
-            if inst_mod.wants_flat(self.tlas, auto):
+            if inst_mod.wants_flat(self.tlas, o.device.type == "cuda"):
                 hits = hits.closer_of(bvh_mod.intersect_bvh(
                     self.tlas.flat_tris, self.tlas.flat_bvh, o, d, t_min,
                     t_max))
-            elif inst_mod.wants_flat_parts(self.tlas, auto):
-                hits = hits.closer_of(inst_mod.intersect_tlas_flat_parts(
-                    self.tlas, o, d, t_min, t_max))
             else:
-                hits = hits.closer_of(inst_mod.intersect_tlas(
-                    self.tlas, o, d, t_min, t_max))
+                hits = hits.closer_of(inst_mod.expand_winner(
+                    self.tlas, o, d,
+                    *self._instance_winners(o, d, t_min, t_max)))
         for grid in self.voxels or ():
             hits = hits.closer_of(vox_mod.intersect(grid, o, d, t_min, t_max))
         if (self.volumes is not None or self.mesh_volumes) and sampler is None:
@@ -245,6 +242,32 @@ class Scene(Replace, nn.Module):
             hits = shade.apply_normal_maps(self, hits, d)
         return hits
 
+    def winners(self, o, d, t_min, t_max):
+        """The searches of a scene of spheres and instances
+        (``records_on_card``): (the spheres' (t, index) or None, the
+        instances' (t, instance, triangle, u, v) or None), as kernel H1's
+        wrapper takes them."""
+        return (None if self.spheres is None
+                else self._sphere_winners(o, d, t_min, t_max),
+                None if self.tlas is None
+                else self._instance_winners(o, d, t_min, t_max))
+
+    def _sphere_winners(self, o, d, t_min, t_max):
+        """(t, index): B5 through the sphere BVH, else B1."""
+        if self.sphere_bvh is not None:
+            return bvh_mod.sphere_bvh_winners(self.spheres, self.sphere_bvh,
+                                              o, d, t_min, t_max)
+        return sphere_mod.nearest_t(self.spheres, o, d, t_min, t_max)
+
+    def _instance_winners(self, o, d, t_min, t_max):
+        """(t, instance, triangle, u, v): the flat parts (B6) where the
+        dispatch takes them, else B7.  The reference's TPU dispatch passes
+        auto=True, its XLA one False; the card takes the first, the CPU
+        the second."""
+        if inst_mod.wants_flat_parts(self.tlas, o.device.type == "cuda"):
+            return inst_mod.flat_parts_winners(self.tlas, o, d, t_min, t_max)
+        return inst_mod.tlas_winners(self.tlas, o, d, t_min, t_max)
+
     def background_eval(self, d):
         return self.background.eval(d, atlas=self.atlas)
 
@@ -261,6 +284,26 @@ class Scene(Replace, nn.Module):
         return compact.compact_apply(
             lambda dc: self.background.eval(dc, atlas=self.atlas), mask, d,
             k, pad_row=(1.0, 0.0, 0.0))
+
+
+def records_on_card(scene: Scene, o, d, shading_aux) -> bool:
+    """Whether ``Scene.intersect`` writes its record through kernel H1's
+    wrapper (``ops.hits``), on any device: the scene's sets are only
+    spheres (B1 or B5) and instances whose winners come as (t, instance,
+    triangle, u, v) (B7 or the flat parts), no normal maps are asked for
+    (no atlas while `shading_aux`), and autograd does not record through
+    the rays or the spheres (the spheres' ``winner_t`` needs the graph).
+    Everywhere else the eager chain runs."""
+    if (scene.triangles is not None or scene.voxels or scene.volumes
+            is not None or scene.mesh_volumes or (
+                scene.atlas is not None and shading_aux)):
+        return False
+    if scene.tlas is not None and inst_mod.wants_flat(
+            scene.tlas, o.device.type == "cuda"):
+        return False
+    sph = scene.spheres
+    return not needs_grad(o, d, *((sph.center, sph.radius) if sph is not None
+                                  else ()))
 
 
 def sorts_on_device(scene: Scene) -> bool:

@@ -299,7 +299,7 @@ def render_samples_persistent(scene, camera, width, height, seed,
         sorter = make_sorter(scene, lanes.total)
         cadence = max(1, min(int(sort_rays), FLUSH_STEPS))
     launches = profiling.launch_counts
-    draws, shades = launches["R1"], launches["M1"]
+    draws, shades, records = launches["R1"], launches["M1"], launches["H1"]
     with profiling.unit("pass", pool=pool, work_items=lanes.total, steps=0,
                         sorts=0, checks=0, active=0,
                         drain_from=None) as rec:
@@ -326,5 +326,7 @@ def render_samples_persistent(scene, camera, width, height, seed,
         rec["draw_launches"] = launches["R1"] - draws
         # Kernel M1's launches: the steps shaded on the card.
         rec["shade_launches"] = launches["M1"] - shades
+        # Kernel H1's launches: the hit records written on the card.
+        rec["hit_launches"] = launches["H1"] - records
         return (film[:, :3].contiguous(),
                 torch.round(film[:, 3]).to(torch.int32))

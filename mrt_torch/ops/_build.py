@@ -85,6 +85,9 @@ KERNELS = {
                  "pcg4d_kernel"),
     "M1": Kernel("mrt_shade", (_P,) * 5 + (_I,) + (_P,) * 9 + (_I,)
                  + (_P,) * 6, "shade_kernel"),
+    "H1": Kernel("mrt_hit_record", (_P, _P, _I) + (_P,) * 5 + (_I,)
+                 + (_P,) * 6 + (_I, _P, _P, _I) + (_P,) * 11,
+                 "hit_record_kernel"),
     "P1": Kernel("mrt_probe_a", (_P, _P, _P, _P, _P), "probe_a_kernel"),
     "P2": Kernel("mrt_probe_b", (_P, _I, _I, _P, _P, _P, _P),
                  "probe_b_kernel"),

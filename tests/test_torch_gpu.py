@@ -65,7 +65,15 @@ and on the 2^17 lanes of steps 2 and 64 of RTIOW, sphere_grid and
 cornell NEE passes at 1080p; an spp-2 RTIOW pass through it deposits
 what the eager pass deposits, step by step, with one M1 launch a step;
 its wrapper is its plain version on CPU tensors and refuses mixed
-devices, a wrong dtype and a strided input.
+devices, a wrong dtype and a strided input.  L2's hit record H1 equals
+its plain version and Scene.intersect's eager chain on every column and
+lane, bit for bit: on the calls of step 64 of RTIOW, sphere_grid and
+cornell NEE passes at 1080p (cornell's shadow ray too), with the sets
+tied or one ulp apart, and on rays that miss every set; it replays in a
+CUDA graph on new inputs; spp-2 RTIOW and cornell NEE passes through it
+deposit what the eager passes deposit, step by step, with one H1 launch
+a step (two with NEE); its wrapper is its plain version on CPU tensors
+and refuses mixed devices, a wrong dtype and a strided input.
 """
 
 import pytest
@@ -1512,3 +1520,177 @@ def test_m1_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="d_in is not contiguous"):
         M1.shade_lanes(tab, normal, front, rows, hit,
                        torch.cat([d_in, d_in], dim=1)[:, 3:], u)
+
+
+# Kernel H1, L2's hit record (ops/hits.py), against the eager chain.
+def _h1_steps(cuda, name):
+    """(scene, {call: (o, d, t_min, t_max, shading_aux)}): the calls of
+    Scene.intersect at step 64 of a 1080p pass of `name` (2^17 lanes,
+    spp 1; with NEE the step's primary and shadow rays)."""
+    import torch_hit_cases as cases
+
+    scene, camera = cases.build(name, cuda)
+    keep = (128, 129) if name == "cornell_nee" else (64,)
+    return scene, cases.recorded_calls(scene, camera, keep, 1920, 1080,
+                                       1 << 17, steps=72)
+
+
+@pytest.mark.parametrize("name", ["rtiow", "sphere_grid", "cornell_nee"])
+def test_h1_matches_eager_on_step_64(cuda, monkeypatch, name):
+    # Every column on every lane, bit for bit: H1 against its plain
+    # version and against the eager chain of Scene.intersect, on the
+    # step's calls as recorded, with the sets tied and one ulp apart
+    # (where the scene has both), and on rays sent away from the scene.
+    import torch_hit_cases as cases
+    from mrt_torch.geometry import scene as scene_mod
+    from mrt_torch.ops import hits as H1
+
+    scene, calls = _h1_steps(cuda, name)
+    for call, (o, d, t_min, t_max, aux) in calls.items():
+        assert o.shape == (1 << 17, 3)
+        sph, inst = scene.winners(o, d, t_min, t_max)
+        lanes = {"as called": (o, d, sph, inst)}
+        if sph is not None and inst is not None and aux:
+            s, i, tie, ulp = cases.tied(sph, inst)
+            assert len(tie) > 0 and len(ulp) > 0
+            lanes["tied"] = (o, d, s, i)
+        ao, ad = cases.missing(scene, o, d)
+        lanes["missed"] = (ao, ad, *scene.winners(ao, ad, t_min, t_max))
+        for what, (o_, d_, s, i) in lanes.items():
+            before = profiling.launch_counts["H1"]
+            got = H1.hit_record(o_, d_, scene.spheres, s, scene.tlas, i)
+            assert profiling.launch_counts["H1"] == before + 1
+            want = H1.hit_record_plain(o_, d_, scene.spheres, s,
+                                       scene.tlas, i)
+            torch.cuda.synchronize()
+            assert not cases.differing(got, want), (
+                name, call, what, cases.differing(got, want))
+        with monkeypatch.context() as m:
+            m.setattr(scene_mod, "records_on_card", lambda *a: False)
+            eager = scene._intersect_once(o, d, t_min, t_max, None, aux)
+        got = H1.hit_record(o, d, scene.spheres, sph, scene.tlas, inst)
+        assert not cases.differing(got, eager), (name, call)
+        assert got.hit.any() or not aux
+
+
+def test_h1_in_a_cuda_graph(cuda):
+    # Captured on cornell NEE's step-64 lanes (both sets), replayed on
+    # those and, written into the captured inputs, on bounce lanes of
+    # another step: bit-equal to the plain version each time.
+    import torch_hit_cases as cases
+    from mrt_torch.ops import hits as H1
+
+    scene, camera = cases.build("cornell_nee", cuda)
+    calls = cases.recorded_calls(scene, camera, (8, 128), 1920, 1080,
+                                 1 << 17, steps=72)
+    args = {}
+    for call, (o, d, t_min, t_max, _) in calls.items():
+        sph, inst = scene.winners(o, d, t_min, t_max)
+        args[call] = (o, d, sph, inst)
+    o, d, sph, inst = (x.clone() if torch.is_tensor(x)
+                       else tuple(y.clone() for y in x)
+                       for x in args[128])
+    fn = lambda: H1.hit_record(o, d, scene.spheres, sph, scene.tlas, inst)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    for call in (128, 8):
+        src_o, src_d, src_s, src_i = args[call]
+        for dst, src in zip((o, d, *sph, *inst),
+                            (src_o, src_d, *src_s, *src_i)):
+            dst.copy_(src)
+        for name in cases.FIELDS:
+            getattr(got, name).zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        want = H1.hit_record_plain(src_o, src_d, scene.spheres, src_s,
+                                   scene.tlas, src_i)
+        assert not cases.differing(got, want), (call,
+                                                cases.differing(got, want))
+        assert want.hit.any()
+
+
+@pytest.mark.parametrize("name", ["rtiow", "cornell_nee"])
+def test_h1_spp2_pass_equals_the_eager_pass(cuda, monkeypatch, name):
+    # A 256x144 spp-2 pass through H1 and with the eager chain forced:
+    # every step's deposit (slots and values) bit-equal, so the films
+    # differ only by the order of B2's atomic adds (bounce counts exact);
+    # H1 once a step, twice with NEE; the other kernels' launches equal.
+    import torch_hit_cases as cases
+    from mrt_torch.geometry import scene as scene_mod
+    from mrt_torch.integrator import persistent
+    from mrt_torch.runtime.film import Film
+    from mrt_torch.runtime.render import render_pass_persistent
+
+    scene, camera = cases.build(name, cuda)
+    deposit = persistent.deposit
+
+    def one_pass():
+        seen = []
+
+        def spy(film, slot, contrib):
+            seen.append((slot.clone(), contrib.clone()))
+            return deposit(film, slot, contrib)
+
+        monkeypatch.setattr(persistent, "deposit", spy)
+        before = dict(profiling.launch_counts)
+        film = render_pass_persistent(
+            scene, camera, Film.create(256, 144, device=cuda), 1, 0,
+            width=256, height=144, max_depth=50, samples=2)
+        launches = {k: v - before[k]
+                    for k, v in profiling.launch_counts.items()}
+        return film, seen, dict(profiling.snapshot()["pass"][-1]), launches
+
+    h1, h1_deposits, h1_rec, h1_launches = one_pass()
+    monkeypatch.setattr(scene_mod, "records_on_card", lambda *a: False)
+    eager, eager_deposits, eager_rec, eager_launches = one_pass()
+    per_step = 2 if name == "cornell_nee" else 1
+    assert h1_rec["steps"] == eager_rec["steps"] == len(h1_deposits) > 0
+    assert h1_rec["hit_launches"] == per_step * h1_rec["steps"]
+    assert eager_rec["hit_launches"] == 0
+    assert h1_launches.pop("H1") == per_step * h1_rec["steps"]
+    assert eager_launches.pop("H1") == 0
+    assert h1_launches == eager_launches
+    for k, ((s1, c1), (s2, c2)) in enumerate(zip(h1_deposits,
+                                                 eager_deposits)):
+        assert torch.equal(s1, s2) and torch.equal(_bits(c1), _bits(c2)), k
+    assert torch.equal(h1.depth_sum, eager.depth_sum)
+    assert h1.depth_sum.sum() > 0
+    torch.testing.assert_close(h1.sum, eager.sum, rtol=1e-6, atol=1e-6)
+
+
+def test_h1_wrapper_raises_instead_of_falling_back(cuda):
+    import torch_hit_cases as cases
+    from mrt_torch.ops import hits as H1
+
+    # On CPU tensors the wrapper is its plain version; on the card it
+    # launches or raises, with no fallback, also on mixed devices.
+    scene, _ = cases.build("cornell_nee", cuda)
+    cpu_scene, _ = cases.build("cornell_nee", "cpu")
+    g = torch.Generator().manual_seed(3)
+    o = torch.rand((5000, 3), generator=g) * 2 - 1
+    d = torch.randn((5000, 3), generator=g)
+    sph, inst = cpu_scene.winners(o, d, 1e-3, float("inf"))
+    before = profiling.launch_counts["H1"]
+    got = H1.hit_record(o, d, cpu_scene.spheres, sph, cpu_scene.tlas, inst)
+    assert not cases.differing(got, H1.hit_record_plain(
+        o, d, cpu_scene.spheres, sph, cpu_scene.tlas, inst))
+    assert profiling.launch_counts["H1"] == before
+    oc, dc = o.to(cuda), d.to(cuda)
+    sc, ic = (tuple(x.to(cuda) for x in w) for w in (sph, inst))
+    with pytest.raises(ValueError, match="hit_record: d "):
+        H1.hit_record(oc, d, scene.spheres, sc, scene.tlas, ic)
+    with pytest.raises(ValueError, match="center"):
+        H1.hit_record(oc, dc, cpu_scene.spheres, sc, scene.tlas, ic)
+    with pytest.raises(TypeError, match="triangle"):
+        H1.hit_record(oc, dc, scene.spheres, sc, scene.tlas,
+                      (ic[0], ic[1], ic[2].long(), *ic[3:]))
+    with pytest.raises(ValueError, match="d is not contiguous"):
+        H1.hit_record(oc, torch.cat([dc, dc], dim=1)[:, 3:], scene.spheres,
+                      sc, scene.tlas, ic)
+    assert profiling.launch_counts["H1"] == before

@@ -342,6 +342,58 @@ def test_the_shade_launch_reader(records, want):
     assert reader.read({}) == want
 
 
+@pytest.mark.parametrize("records, want", [
+    ((), None),                                          # no pass
+    ((dict(steps=8, hit_launches=16),), 2.0),            # with NEE
+    ((dict(steps=8),), None),                            # a program without H1
+    ((dict(steps=8, hit_launches=0),), 0.0),             # the eager chain
+    ((dict(steps=0, hit_launches=0),), None),
+    ((dict(steps=16, hit_launches=16), dict(steps=8, hit_launches=0,
+                                            profiled=True)), 1.0),
+])
+def test_the_hit_launch_reader(records, want):
+    # hit_launches_per_step.frame reads the newest unprofiled pass record.
+    reader = _reader("hit_launches_per_step.frame")
+    for fields in records:
+        fields = dict(fields)
+        profiled = fields.pop("profiled", False)
+        with profiling.unit("pass", **fields) as rec:
+            pass
+        rec["profiled"] = profiled
+    assert reader.read({}) == want
+
+
+@pytest.mark.parametrize("scene_name, per_step", [("rtiow", 1),
+                                                  ("sphere_grid", 1),
+                                                  ("cornell", 2)])
+def test_a_pass_record_counts_the_hit_record_launches(monkeypatch,
+                                                      scene_name, per_step):
+    # On the CPU H1's wrapper runs its plain version and launches nothing;
+    # counting each of its calls as a launch, as on the card, the pass
+    # record holds one a step (two with NEE: the shadow ray's), which the
+    # reader gives, and the snapshot's kernels name H1.
+    from mrt_torch.ops import hits
+
+    scene, camera = _scene(scene_name)
+    _pass(scene, camera)
+    assert profiling.snapshot()["pass"][-1]["hit_launches"] == 0
+    assert "H1" in profiling.snapshot()["kernels"]
+    wrapper = hits.hit_record
+
+    def counted(*args):
+        profiling.launch_counts["H1"] += 1
+        return wrapper(*args)
+
+    monkeypatch.setattr(hits, "hit_record", counted)
+    counts = profiling.launch_counts
+    monkeypatch.setitem(counts, "H1", counts["H1"])
+    _pass(scene, camera)
+    rec = profiling.snapshot()["pass"][-1]
+    assert rec["hit_launches"] == per_step * rec["steps"] > 0
+    assert _reader("hit_launches_per_step.frame").read({}) == per_step
+    assert profiling.snapshot()["kernels"]["H1"] == counts["H1"] > 0
+
+
 @pytest.mark.parametrize("scene_name", ["rtiow", "sphere_grid"])
 def test_a_pass_record_counts_two_draws_a_step(monkeypatch, scene_name):
     # With R1's wrapper counting each call as a launch, as on the card
